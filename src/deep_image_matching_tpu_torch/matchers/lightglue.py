@@ -1,0 +1,63 @@
+"""LightGlue matcher (port of ``deep_image_matching_tpu/matchers/lightglue.py``).
+
+The config surface is the reference's (n_layers, depth_confidence,
+width_confidence, filter_threshold; ``mp`` and ``flash`` are accepted and
+ignored). Each pair batch runs one ``models/lightglue.py::forward`` on the
+device in ``tpu.dtype`` (bf16 by default; on CUDA the kernels take bf16
+only, so another dtype fails at start). With the default 0.95 / 0.99 the
+adaptive path runs: the batch exits once every pair is token-confident, and
+confident-but-unmatchable points are masked out of later layers.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from ..models.lightglue import forward, load_default_model
+from .matcher_base import BatchedMatcher
+
+
+class LightGlueMatcher(BatchedMatcher):
+    default_conf = {
+        "n_layers": 9,
+        "mp": False,
+        "flash": True,
+        "depth_confidence": 0.95,
+        "width_confidence": 0.99,
+        "filter_threshold": 0.1,
+        "features": "superpoint",
+    }
+
+    def __init__(self, config: dict):
+        super().__init__(config)
+        self.n_layers = int(self.conf.get("n_layers", 9))
+        self.filter_threshold = float(self.conf.get("filter_threshold", 0.1))
+        self.depth_confidence = float(self.conf.get("depth_confidence", -1))
+        self.width_confidence = float(self.conf.get("width_confidence", -1))
+        self.compute_dtype = getattr(torch, str(self.tpu.get("dtype", "bfloat16")))
+        if self.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
+            raise ValueError(
+                f"tpu.dtype {self.compute_dtype} on CUDA: the attention and FFN "
+                "kernels take bfloat16 (float32 runs on the CPU only)"
+            )
+        self.model = load_default_model(
+            str(self.conf.get("features", "superpoint")), self.n_layers
+        ).to(self.device)
+
+    def _match_batch_arrays(
+        self, batch0: Dict[str, torch.Tensor], batch1: Dict[str, torch.Tensor]
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        out = forward(
+            self.model,
+            batch0["keypoints"], batch1["keypoints"],
+            batch0["descriptors"], batch1["descriptors"],
+            batch0["mask"], batch1["mask"],
+            batch0["image_size"].float(), batch1["image_size"].float(),
+            filter_threshold=self.filter_threshold,
+            depth_confidence=self.depth_confidence,
+            width_confidence=self.width_confidence,
+            compute_dtype=self.compute_dtype,
+        )
+        return out["matches0"], out["valid0"]

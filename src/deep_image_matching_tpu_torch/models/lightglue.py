@@ -1,0 +1,463 @@
+"""LightGlue matcher (PyTorch port of ``deep_image_matching_tpu/models/lightglue.py``).
+
+``LightGlue`` is an ``nn.Module`` whose parameters carry the original torch
+state-dict keys (``posenc.Wr.weight``, ``transformers.{i}.self_attn.Wqkv``,
+``log_assignment.{i}.final_proj``, ``token_confidence.{i}.token.0``, ...), so
+published checkpoints load unchanged. ``forward`` is the JAX package's
+``forward_impl`` with the split layout: batched pairs with fixed keypoint
+capacity and validity masks, masked self and cross attention, and
+
+- the fixed-depth path (``depth_confidence <= 0`` and
+  ``width_confidence <= 0``);
+- the adaptive path: the depth exit at batch level (a batch stops after the
+  first layer where every pair is token-confident) and width pruning
+  expressed as mask updates, exactly as the JAX package does it.
+
+Attention, the FFN and the assignment go through the kernel wrappers of
+``ops/`` (CUDA kernels on the GPU, their plain versions on the CPU).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.assignment import filter_matches_fused, log_assignment_dense
+from ..ops.attention import fused_attention
+from ..ops.ffn import ffn_fused
+
+logger = logging.getLogger("dim_tpu_torch")
+
+
+# ---------------------------------------------------------------------------
+# Modules (parameter containers with the torch LightGlue names)
+# ---------------------------------------------------------------------------
+
+def _ffn_seq(dim: int) -> nn.Sequential:
+    return nn.Sequential(
+        nn.Linear(2 * dim, 2 * dim), nn.LayerNorm(2 * dim, elementwise_affine=True),
+        nn.GELU(), nn.Linear(2 * dim, dim),
+    )
+
+
+class _PosEnc(nn.Module):
+    def __init__(self, head_dim: int):
+        super().__init__()
+        self.Wr = nn.Linear(2, head_dim // 2, bias=False)
+
+
+class _SelfBlock(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.Wqkv = nn.Linear(dim, 3 * dim)
+        self.out_proj = nn.Linear(dim, dim)
+        self.ffn = _ffn_seq(dim)
+
+
+class _CrossBlock(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.to_qk = nn.Linear(dim, dim)
+        self.to_v = nn.Linear(dim, dim)
+        self.to_out = nn.Linear(dim, dim)
+        self.ffn = _ffn_seq(dim)
+
+
+class _Layer(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.self_attn = _SelfBlock(dim)
+        self.cross_attn = _CrossBlock(dim)
+
+
+class _Assign(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.final_proj = nn.Linear(dim, dim)
+        self.matchability = nn.Linear(dim, 1)
+
+
+class _Token(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.token = nn.Sequential(nn.Linear(dim, 1), nn.Sigmoid())
+
+
+class LightGlue(nn.Module):
+    def __init__(self, n_layers: int = 9, dim: int = 256, num_heads: int = 4,
+                 input_dim: int = 256):
+        super().__init__()
+        self.n_layers = n_layers
+        self.num_heads = num_heads
+        if input_dim != dim:
+            self.input_proj = nn.Linear(input_dim, dim)
+        self.posenc = _PosEnc(dim // num_heads)
+        self.transformers = nn.ModuleList([_Layer(dim) for _ in range(n_layers)])
+        self.log_assignment = nn.ModuleList([_Assign(dim) for _ in range(n_layers)])
+        self.token_confidence = nn.ModuleList(
+            [_Token(dim) for _ in range(n_layers - 1)]
+        )
+
+    @torch.no_grad()
+    def reset_random(self, generator: torch.Generator) -> "LightGlue":
+        """Linear weights ~ N(0, 1/fan_in), posenc ~ N(0, 1), zero biases,
+        unit LayerNorm gains: the JAX package's ``init_params`` recipe,
+        drawn from ``generator``."""
+        for name, p in self.named_parameters():
+            if name == "posenc.Wr.weight":
+                p.copy_(torch.randn(p.shape, generator=generator))
+            elif ".ffn.1." in name:
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif name.endswith("weight"):
+                p.copy_(torch.randn(p.shape, generator=generator) / p.shape[1] ** 0.5)
+            else:
+                p.zero_()
+        return self
+
+
+# ---------------------------------------------------------------------------
+# Building blocks (JAX layouts: (B, N, D) tokens, (B, H, N, hd) heads)
+# ---------------------------------------------------------------------------
+
+def normalize_keypoints(kpts: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
+    """kpts (B, N, 2) pixels; size (B, 2) as (w, h) -> roughly [-1, 1]."""
+    size = size.float()
+    shift = size / 2.0
+    scale = size.max(dim=-1, keepdim=True).values / 2.0
+    return (kpts - shift[:, None, :]) / scale[:, None, :]
+
+
+def rotary_encoding(kpts_n: torch.Tensor, wr: torch.Tensor):
+    """Learnable Fourier features -> rotary (cos, sin), each (B, N, hd),
+    frequencies repeated in adjacent pairs; always f32. ``wr`` is (2, hd/2)."""
+    proj = torch.einsum("bnm,md->bnd", kpts_n.float(), wr.float())
+    return (torch.repeat_interleave(torch.cos(proj), 2, dim=-1),
+            torch.repeat_interleave(torch.sin(proj), 2, dim=-1))
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x = x.unflatten(-1, (-1, 2))
+    return torch.stack([-x[..., 1], x[..., 0]], dim=-1).flatten(-2)
+
+
+def _apply_rotary(t, cos, sin):
+    """t (B, H, N, hd); cos/sin (B, N, hd)."""
+    cos = cos.to(t.dtype)[:, None]
+    sin = sin.to(t.dtype)[:, None]
+    return t * cos + _rotate_half(t) * sin
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    B, N, D = x.shape
+    return x.reshape(B, N, num_heads, D // num_heads).transpose(1, 2).contiguous()
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    B, H, N, hd = x.shape
+    return x.transpose(1, 2).reshape(B, N, H * hd)
+
+
+def _ffn(x, msg, p, prefix):
+    return ffn_fused(
+        x, msg, p[f"{prefix}.ffn.0.weight"], p[f"{prefix}.ffn.0.bias"],
+        p[f"{prefix}.ffn.1.weight"], p[f"{prefix}.ffn.1.bias"],
+        p[f"{prefix}.ffn.3.weight"], p[f"{prefix}.ffn.3.bias"],
+    )
+
+
+def _lin(x, p, prefix):
+    return F.linear(x, p[f"{prefix}.weight"], p.get(f"{prefix}.bias"))
+
+
+def _self_block(x, enc, mask, p, t, num_heads):
+    cos, sin = enc
+    qkv = _lin(x, p, f"{t}.self_attn.Wqkv")                  # (B, N, 3D)
+    B, N, D3 = qkv.shape
+    # torch layout: last dim = (heads, head_dim, 3)
+    qkv = qkv.reshape(B, N, num_heads, D3 // (3 * num_heads), 3).permute(0, 2, 1, 3, 4)
+    q = _apply_rotary(qkv[..., 0], cos, sin).contiguous()
+    k = _apply_rotary(qkv[..., 1], cos, sin).contiguous()
+    v = qkv[..., 2].contiguous()
+    ctx = fused_attention(q, k, v, mask, mask, q.shape[-1] ** -0.5)
+    msg = _lin(_merge(ctx), p, f"{t}.self_attn.out_proj")
+    return _ffn(x, msg, p, f"{t}.self_attn")
+
+
+def _cross_block(x0, x1, mask0, mask1, p, t, num_heads):
+    c = f"{t}.cross_attn"
+    qk0 = _heads(_lin(x0, p, f"{c}.to_qk"), num_heads)
+    qk1 = _heads(_lin(x1, p, f"{c}.to_qk"), num_heads)
+    v0 = _heads(_lin(x0, p, f"{c}.to_v"), num_heads)
+    v1 = _heads(_lin(x1, p, f"{c}.to_v"), num_heads)
+    scale = qk0.shape[-1] ** -0.5
+    # one attention per direction; the shared Q K^T is recomputed (the
+    # JAX package's flash route)
+    m0 = fused_attention(qk0, qk1, v1, mask0, mask1, scale)
+    m1 = fused_attention(qk1, qk0, v0, mask1, mask0, scale)
+    m0 = _lin(_merge(m0), p, f"{c}.to_out")
+    m1 = _lin(_merge(m1), p, f"{c}.to_out")
+    return _ffn(x0, m0, p, c), _ffn(x1, m1, p, c)
+
+
+def _assign_inputs(desc0, desc1, p, i):
+    """Projected descriptors md (scaled by d^-1/4) and f32 matchability
+    logits z for layer ``i``'s assignment head."""
+    a = f"log_assignment.{i}"
+    d = desc0.shape[-1]
+    md0 = _lin(desc0, p, f"{a}.final_proj") / d ** 0.25
+    md1 = _lin(desc1, p, f"{a}.final_proj") / d ** 0.25
+    z0 = _lin(desc0, p, f"{a}.matchability")[..., 0].float()
+    z1 = _lin(desc1, p, f"{a}.matchability")[..., 0].float()
+    return md0, md1, z0, z1
+
+
+def _log_assignment(desc0, desc1, mask0, mask1, p, i):
+    """Dense (B, M, N) dual-softmax log assignment of layer ``i``'s head,
+    -1e30 where either side is masked."""
+    md0, md1, z0, z1 = _assign_inputs(desc0, desc1, p, i)
+    return log_assignment_dense(md0, md1, z0, z1, mask0, mask1)
+
+
+def filter_matches_static(scores, mask0, mask1, threshold: float):
+    """Mutual-argmax + threshold filtering of dense scores. Returns matches0
+    (B, M) int32 (-1 = no match), mscores0 (B, M), valid0 (B, M)."""
+    max0, m0 = scores.max(dim=2)
+    m1 = scores.argmax(dim=1)
+    M = m0.shape[1]
+    mutual0 = torch.arange(M, device=scores.device)[None] == torch.gather(m1, 1, m0)
+    mscores0 = torch.where(mutual0, torch.exp(max0), max0.new_tensor(0.0))
+    valid0 = mutual0 & (mscores0 > threshold) & mask0
+    matches0 = torch.where(valid0, m0, m0.new_tensor(-1)).int()
+    return matches0, mscores0, valid0
+
+
+def _token_confidences(d0, d1, p, i):
+    t = f"token_confidence.{i}.token.0"
+    return (torch.sigmoid(_lin(d0, p, t)[..., 0].float()),
+            torch.sigmoid(_lin(d1, p, t)[..., 0].float()))
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward(
+    model: LightGlue,
+    kpts0: torch.Tensor,        # (B, M, 2) pixels
+    kpts1: torch.Tensor,        # (B, N, 2)
+    desc0: torch.Tensor,        # (B, M, D_in)
+    desc1: torch.Tensor,        # (B, N, D_in)
+    mask0: torch.Tensor,        # (B, M) bool
+    mask1: torch.Tensor,        # (B, N) bool
+    size0: torch.Tensor,        # (B, 2) (w, h)
+    size1: torch.Tensor,
+    filter_threshold: float = 0.1,
+    depth: Optional[int] = None,
+    depth_confidence: float = -1.0,
+    width_confidence: float = -1.0,
+    pruning_min_kpts: int = 1536,
+    compute_dtype: torch.dtype = torch.float32,
+) -> Dict[str, torch.Tensor]:
+    """Batched LightGlue matching (the JAX package's ``forward_impl``).
+
+    ``depth`` truncates the layer stack. ``depth_confidence > 0`` enables the
+    adaptive-depth exit at batch level: after each layer the token-confidence
+    heads score both point sets, and the loop stops once every pair's
+    confident ratio exceeds the threshold; the assignment then uses the exit
+    layer's head. ``width_confidence > 0`` masks confident-but-unmatchable
+    points out of later layers and the assignment, per pair while it holds
+    more than ``pruning_min_kpts`` points. ``compute_dtype`` bf16 runs the
+    transformer in bf16 (f32 accumulation and softmax); assignment scores
+    stay f32. Returns matches0 (B, M) int32, matching_scores0, valid0 and
+    layers_run (int)."""
+    num_heads = model.num_heads
+    mask0 = mask0.bool()
+    mask1 = mask1.bool()
+    # every parameter in the compute dtype, as the JAX package casts its
+    # parameter tree (the rotary frequencies are rounded, then used in f32)
+    p = {k: v.to(compute_dtype) for k, v in model.state_dict().items()}
+    desc0 = desc0.to(compute_dtype)
+    desc1 = desc1.to(compute_dtype)
+    if "input_proj.weight" in p:
+        desc0 = _lin(desc0, p, "input_proj")
+        desc1 = _lin(desc1, p, "input_proj")
+
+    wr = p["posenc.Wr.weight"].T
+    enc0 = rotary_encoding(normalize_keypoints(kpts0, size0), wr)
+    enc1 = rotary_encoding(normalize_keypoints(kpts1, size1), wr)
+
+    n_layers = model.n_layers
+    if depth is not None and depth < n_layers:
+        n_layers = depth
+    do_stop = depth_confidence is not None and depth_confidence > 0
+    do_prune = width_confidence is not None and width_confidence > 0
+    # the reference's stop check divides by the ORIGINAL m + n: pruned
+    # points implicitly count as confident
+    n_pts_orig = (mask0.sum(1) + mask1.sum(1)).float()
+
+    layers_run = n_layers
+    for i in range(n_layers):
+        t = f"transformers.{i}"
+        desc0 = _self_block(desc0, enc0, mask0, p, t, num_heads)
+        desc1 = _self_block(desc1, enc1, mask1, p, t, num_heads)
+        desc0, desc1 = _cross_block(desc0, desc1, mask0, mask1, p, t, num_heads)
+        if not (do_stop or do_prune):
+            continue
+        last = i == n_layers - 1
+        # the last layer has no confidence head; the loop bound exits there
+        th = float(np.clip(0.8 + 0.1 * np.exp(np.float32(-4.0 * i) / np.float32(n_layers)),
+                           0.0, 1.0))
+        stop = False
+        if do_stop and not last:
+            c0, c1 = _token_confidences(desc0, desc1, p, i)
+            n_unconf = (((c0 < th) & mask0).sum(1) + ((c1 < th) & mask1).sum(1)).float()
+            ratio = 1.0 - n_unconf / n_pts_orig.clamp(min=1.0)
+            stop = bool((ratio > depth_confidence).all())
+        if do_prune and not last and not stop:
+            a = f"log_assignment.{i}.matchability"
+            keep0 = torch.sigmoid(_lin(desc0, p, a)[..., 0].float()) > (1.0 - width_confidence)
+            keep1 = torch.sigmoid(_lin(desc1, p, a)[..., 0].float()) > (1.0 - width_confidence)
+            if do_stop:
+                # low-confidence points are never pruned while the
+                # confidence head runs (reference get_pruning_mask)
+                keep0 = keep0 | (c0 <= th)
+                keep1 = keep1 | (c1 <= th)
+            allow0 = mask0.sum(1, keepdim=True) > pruning_min_kpts
+            allow1 = mask1.sum(1, keepdim=True) > pruning_min_kpts
+            mask0 = mask0 & (keep0 | ~allow0)
+            mask1 = mask1 & (keep1 | ~allow1)
+        if stop:
+            layers_run = i + 1
+            break
+
+    md0, md1, z0, z1 = _assign_inputs(desc0, desc1, p, layers_run - 1)
+    matches0, mscores0, valid0 = filter_matches_fused(
+        md0, md1, z0, z1, mask0, mask1, filter_threshold
+    )
+    return {
+        "matches0": matches0,
+        "matching_scores0": mscores0,
+        "valid0": valid0,
+        "layers_run": layers_run,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Default weights and the host runner
+# ---------------------------------------------------------------------------
+
+_DEFAULT_MODELS: Dict[str, LightGlue] = {}
+_DEFAULT_RANDOM: set = set()
+_INPUT_DIMS = {"superpoint": 256, "disk": 128, "aliked": 128, "sift": 128, "rdd_sparse": 256}
+
+
+def load_default_model(features: str = "superpoint", n_layers: int = 9) -> LightGlue:
+    """Pretrained weights if a checkpoint exists (DIM_TPU_WEIGHTS_DIR or
+    ~/.cache/dim_tpu, ``<features>_lightglue.pth``), else random weights
+    from a seeded generator, subject to the weights policy. Cached random
+    weights re-consult the policy, so a strict() probe never receives them."""
+    from ..utils.weights import missing_weights, reject_cached_random
+
+    names = [f"{features}_lightglue.pth", f"{features}_lightglue_v0-1_arxiv.pth"]
+    key = f"{features}:{n_layers}"
+    if key in _DEFAULT_MODELS:
+        if key in _DEFAULT_RANDOM:
+            reject_cached_random(f"LightGlue ({features})", names)
+        return _DEFAULT_MODELS[key]
+    model = LightGlue(n_layers=n_layers, input_dim=_INPUT_DIMS.get(features, 256))
+    wdir = os.environ.get("DIM_TPU_WEIGHTS_DIR")
+    for base in ([Path(wdir)] if wdir else []) + [Path.home() / ".cache/dim_tpu"]:
+        for name in names:
+            cand = base / name
+            if cand.exists():
+                model.load_state_dict(torch.load(str(cand), map_location="cpu"))
+                logger.info(f"Loaded LightGlue weights from {cand}")
+                _DEFAULT_MODELS[key] = model.eval()
+                return _DEFAULT_MODELS[key]
+    missing_weights(f"LightGlue ({features})", names)
+    _DEFAULT_MODELS[key] = model.reset_random(torch.Generator().manual_seed(42)).eval()
+    _DEFAULT_RANDOM.add(key)
+    return _DEFAULT_MODELS[key]
+
+
+class LightGlueRunner:
+    """Host-side batched matching over per-image feature dicts on
+    ``device``; each image's padded features upload once."""
+
+    def __init__(
+        self,
+        model: Optional[LightGlue] = None,
+        features: str = "superpoint",
+        n_layers: int = 9,
+        filter_threshold: float = 0.1,
+        batch_size: int = 16,
+        depth: Optional[int] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+        depth_confidence: float = -1.0,
+        width_confidence: float = -1.0,
+        device: torch.device = torch.device("cpu"),
+    ):
+        self.device = torch.device(device)
+        model = model if model is not None else load_default_model(features, n_layers)
+        self.model = model.to(self.device)
+        self.filter_threshold = filter_threshold
+        self.batch_size = batch_size
+        self.depth = depth
+        self.depth_confidence = depth_confidence
+        self.width_confidence = width_confidence
+        # None = bf16 on the GPU, f32 on the CPU
+        self.compute_dtype = compute_dtype or (
+            torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        )
+
+    def count_matches_pairs(self, feats: list, pairs: list) -> list:
+        """Number of raw matches per (i, j) pair (the low-res probe)."""
+        store = self._device_store(feats)
+        counts = []
+        for start in range(0, len(pairs), self.batch_size):
+            out = self._run_chunk(pairs[start:start + self.batch_size], store)
+            counts.extend(int(c) for c in out["valid0"].sum(1).cpu())
+        return counts
+
+    def _device_store(self, feats: list) -> dict:
+        """All images' features padded to one capacity (multiple of 128)."""
+        cap = max((len(f["keypoints"]) for f in feats), default=1)
+        cap = max(128, -(-cap // 128) * 128)
+        dims = [f["descriptors"].shape[-1] for f in feats if len(f["keypoints"])]
+        D = dims[0] if dims else 256
+        n = len(feats)
+        kpts = np.zeros((n, cap, 2), np.float32)
+        desc = np.zeros((n, cap, D), np.float32)
+        mask = np.zeros((n, cap), bool)
+        size = np.zeros((n, 2), np.float32)
+        for i, f in enumerate(feats):
+            c = len(f["keypoints"])
+            kpts[i, :c] = f["keypoints"]
+            if c:
+                desc[i, :c] = f["descriptors"]
+            mask[i, :c] = True
+            size[i] = f["image_size"]
+        dev = self.device
+        return {"kpts": torch.from_numpy(kpts).to(dev), "desc": torch.from_numpy(desc).to(dev),
+                "mask": torch.from_numpy(mask).to(dev), "size": torch.from_numpy(size).to(dev)}
+
+    def _run_chunk(self, chunk: list, store: dict) -> dict:
+        i0 = torch.tensor([i for i, _ in chunk], device=self.device)
+        i1 = torch.tensor([j for _, j in chunk], device=self.device)
+        return forward(
+            self.model,
+            store["kpts"][i0], store["kpts"][i1], store["desc"][i0], store["desc"][i1],
+            store["mask"][i0], store["mask"][i1], store["size"][i0], store["size"][i1],
+            filter_threshold=self.filter_threshold, depth=self.depth,
+            depth_confidence=self.depth_confidence,
+            width_confidence=self.width_confidence,
+            compute_dtype=self.compute_dtype,
+        )

@@ -1,0 +1,133 @@
+"""Build, load and count the hand-written CUDA kernels in ``csrc/``.
+
+The four ``.cu`` files compile with ``nvcc`` into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), loaded with
+``ctypes``. The build runs at first use into ``build/torch_kernels/`` at the
+root of the checkout, keyed by a hash of the sources and flags, so an
+unchanged checkout reuses its library. ``-Xptxas -v`` output (registers,
+shared memory, spills per kernel) is kept in ``build/torch_kernels/ptxas.log``.
+
+Every kernel wrapper adds one to its entry of ``LAUNCHES`` where it launches
+its kernel, and nowhere else, so a run can show which kernels its main path
+went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+SOURCES = ("attention.cu", "ffn.cu", "assignment.cu", "nullspace.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+LAUNCHES: Dict[str, int] = {
+    "attention": 0, "ffn": 0, "assignment": 0, "nullspace": 0,
+}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "dim_attention_bf16": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "dim_ffn_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "dim_assignment_pass": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _F, _I, _P],
+    "dim_nullspace_8x9": [_I, _P, _P, _I, _P],
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` for sm_90a unless this exact build exists."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    so = BUILD_DIR / f"libdim_kernels_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "ptxas.log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def launch(kernel: str, fn_name: str, *args) -> None:
+    """Call one C launcher, raise on its ``cudaGetLastError`` result, and
+    count the launch under ``kernel``."""
+    err = getattr(lib(), fn_name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
+    LAUNCHES[kernel] += 1
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
+               device: torch.device = None, align: int = 16) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
+    ``shape``, where given) on ``device``, its data ``align``-byte aligned."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data pointer must be {align}-byte aligned")
