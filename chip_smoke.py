@@ -4,23 +4,36 @@
 
 Phases, each printing its own lines:
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. kernel build: the four CUDA kernels of
-   ``src/deep_image_matching_tpu_torch/csrc`` compiled for sm_90a, with
+2. kernel build: the CUDA sources of ``src/deep_image_matching_tpu_torch/csrc``
+   compiled for sm_90a (one nvcc per source, all started together), with
    ptxas' register and spill report;
 3. each kernel against its plain PyTorch version on the card, at the
-   main-path shapes (partial masks, degenerate hypotheses), with its
-   tolerance and both times (CUDA events, median of 10);
-4. LightGlue at full width on a small batch with planted matches: the
-   kernels on the card against the plain versions on the CPU;
-5. the main path through the port's CLI entry ``run_matching``
-   (superpoint+lightglue, random weights, --skip_reconstruction): 16
-   synthetic 1024x1024 views with ``bruteforce`` pairs (match threshold 0,
-   since random weights never reach the default 0.1; two views are shifted
-   copies of the first, whose verified matches must carry the shift), then
-   the 5 demo images with the default ``matching_lowres`` strategy and
-   default settings. It checks features.h5, raw_matches.h5 and
-   database.db, prints the wall time per stage, and checks that every
-   kernel was launched during this phase.
+   main-path shapes (partial masks, degenerate hypotheses, integer
+   descriptors with ties), with its tolerance and both times (CUDA events,
+   median of 10): attention (LightGlue's and SuperGlue's shapes), the FFN
+   in both modes (ln_gelu at LightGlue's shape, relu at SuperGlue's),
+   assignment, null space, nearest neighbours, the Sinkhorn iteration and
+   the row logsumexp;
+4. LightGlue and SuperGlue at full width on small batches with planted
+   matches: the kernels on the card against the plain versions on the CPU;
+5. the main paths through the port's CLI entry ``run_matching`` (random
+   weights, --skip_reconstruction), each with the launch counts set to 0
+   just before it and read just after:
+   - superpoint+lightglue: 16 synthetic 1024x1024 views with ``bruteforce``
+     pairs (match threshold 0, since random weights never reach the default
+     0.1; two views are shifted copies of the first, whose verified matches
+     must carry the shift), then the 5 demo images with the default
+     ``matching_lowres`` strategy and default settings;
+   - superpoint+superglue on the synthetic views (``bruteforce``, match
+     threshold 0);
+   - superpoint+kornia_matcher on the synthetic views (the shifted copies
+     keep their descriptors, so their verified matches carry the shift);
+   - sift+kornia_matcher and orb+kornia_matcher on the 5 demo images
+     (``bruteforce``), on the card and again on the CPU: the raw matches must
+     be equal pair by pair, since the arithmetic on integer descriptors is
+     exact.
+   Each run checks features.h5, raw_matches.h5 and database.db and prints
+   the wall time per stage; each path checks that its kernels launched.
 
 Exits non-zero without a CUDA device, without the package beside it, or on
 any failure. The last three lines are the card, the kernel report and the
@@ -54,7 +67,18 @@ KERNELS = {
                    "src/deep_image_matching_tpu/ops/pallas_assignment.py:101"),
     "nullspace": ("src/deep_image_matching_tpu_torch/csrc/nullspace.cu",
                   "src/deep_image_matching_tpu/ops/pallas_nullspace.py:140"),
+    "nn": ("src/deep_image_matching_tpu_torch/csrc/nn.cu",
+           "src/deep_image_matching_tpu/ops/pallas_nn.py:122"),
+    "sinkhorn": ("src/deep_image_matching_tpu_torch/csrc/sinkhorn.cu",
+                 "src/deep_image_matching_tpu/ops/pallas_sinkhorn.py:140"),
+    "lse_rows": ("src/deep_image_matching_tpu_torch/csrc/sinkhorn.cu",
+                 "src/deep_image_matching_tpu/ops/pallas_sinkhorn.py:64"),
 }
+
+# no path of the JAX package calls logsumexp_rows: it is held against its
+# plain version only and exempt from the launch check
+NO_CALLER = {"lse_rows": "no caller on any path of the JAX package; held against its "
+                         "plain version only"}
 
 
 def _fail(msg: str) -> None:
@@ -127,17 +151,10 @@ def _masks(torch, gen, B, N, dev):
     return (torch.arange(N)[None] < counts[:, None]).to(dev)
 
 
-def check_attention(torch, dev, card):
-    from deep_image_matching_tpu_torch.ops.attention import (
-        attention_reference, fused_attention)
-
-    gen = torch.Generator().manual_seed(1)
-    B, H, N, d = 16, 4, 2048, 64
-    q, k, v = (torch.randn(B, H, N, d, generator=gen).mul(s).to(dev, torch.bfloat16)
-               for s in (2.0, 2.0, 1.0))
-    qm = _masks(torch, gen, B, N, dev)
-    km = _masks(torch, gen, B, N, dev)
-    scale = d ** -0.5
+def _attention_case(torch, fused_attention, attention_reference, q, k, v, qm, km):
+    """One attention shape: the error held to two bf16 ulps elementwise over
+    valid query rows (inf if any element exceeds it), the bound, both times."""
+    scale = q.shape[-1] ** -0.5
     got = fused_attention(q, k, v, qm, km, scale)
     ref = attention_reference(q, k, v, km, scale)
     torch.cuda.synchronize()
@@ -151,43 +168,94 @@ def check_attention(torch, dev, card):
     if bool((diff > (2.0 ** -6) * mag).any()):
         err = float("inf")
     tol = float((2.0 ** -6) * mag.max())
+    del got, ref, diff, rows, mag
     ms = _time_ms(lambda: fused_attention(q, k, v, qm, km, scale))
     plain_ms = _time_ms(lambda: attention_reference(q, k, v, km, scale))
-    return err, tol, ms, plain_ms, "valid query rows, 2 bf16 ulps elementwise"
+    return err, tol, ms, plain_ms
+
+
+def check_attention(torch, dev, card):
+    from deep_image_matching_tpu_torch.ops.attention import (
+        attention_reference, fused_attention)
+
+    gen = torch.Generator().manual_seed(1)
+    # LightGlue's shape: (B, H, T, 64) heads split from contiguous channels
+    B, H, N, d = 16, 4, 2048, 64
+    q, k, v = (torch.randn(B, H, N, d, generator=gen).mul(s).to(dev, torch.bfloat16)
+               for s in (2.0, 2.0, 1.0))
+    qm = _masks(torch, gen, B, N, dev)
+    km = _masks(torch, gen, B, N, dev)
+    err, tol, ms, plain_ms = _attention_case(
+        torch, fused_attention, attention_reference, q, k, v, qm, km)
+    del q, k, v
+    torch.cuda.empty_cache()
+    # SuperGlue's shape: T = 4096, heads interleaved across the 256 channels
+    # (viewed as (head_dim, heads)), made contiguous as models/superglue.py's
+    # _mha makes them
+    T = 4096
+
+    def heads(t):
+        return t.reshape(B, T, d, H).permute(0, 3, 1, 2).contiguous()
+
+    q, k, v = (heads(torch.randn(B, T, H * d, generator=gen).mul(s).to(dev, torch.bfloat16))
+               for s in (2.0, 2.0, 1.0))
+    qm = _masks(torch, gen, B, T, dev)
+    km = _masks(torch, gen, B, T, dev)
+    sg_err, sg_tol, sg_ms, sg_plain_ms = _attention_case(
+        torch, fused_attention, attention_reference, q, k, v, qm, km)
+    what = (f"valid query rows, 2 bf16 ulps elementwise; (16, 4, 2048, 64) reported; "
+            f"SuperGlue's (16, 4, 4096, 64) interleaved heads: max err {sg_err:.3e}, kernel "
+            f"{sg_ms:.3f} ms, plain {sg_plain_ms:.3f} ms")
+    extra = {"superglue_shape": [B, H, T, d], "superglue_max_abs_err": sg_err,
+             "superglue_ms": sg_ms, "superglue_plain_ms": sg_plain_ms}
+    # each shape is held to its own elementwise bound (inf on failure)
+    return max(err, sg_err), max(tol, sg_tol), ms, plain_ms, what, extra
 
 
 def check_ffn(torch, dev, card):
     from deep_image_matching_tpu_torch.ops.ffn import ffn_fused, ffn_reference
 
     gen = torch.Generator().manual_seed(2)
-    B, K, D = 16, 2048, 256
+    D = 256
     bf = torch.bfloat16
 
     def rnd(*shape, s=1.0):
         return (torch.randn(*shape, generator=gen) * s).to(dev, bf)
 
-    x, msg = rnd(B, K, D), rnd(B, K, D)
     w1 = rnd(2 * D, 2 * D, s=(2 * D) ** -0.5)
     b1 = rnd(2 * D, s=0.1)
     g = (1.0 + 0.1 * torch.randn(2 * D, generator=gen)).to(dev, bf)
     beta = rnd(2 * D, s=0.1)
     w2 = rnd(D, 2 * D, s=(2 * D) ** -0.5)
     b2 = rnd(D, s=0.1)
-    args = (x, msg, w1, b1, g, beta, w2, b2)
-    got = ffn_fused(*args)
-    ref = ffn_reference(*args)
-    torch.cuda.synchronize()
-    diff = (got.float() - ref.float()).abs()
-    err = diff.max().item()
-    # one bf16 ulp of the output (2^-7 relative at |x| >= 1), for rounding
-    # ties the f32 sums (other order, erff vs erf) put on the other side
-    ulp = (2.0 ** -7) * ref.float().abs().clamp(min=1.0)
-    if bool((diff > ulp + 1e-6).any()):
-        err = max(err, float("inf"))
-    tol = float((2.0 ** -7) * ref.float().abs().max().clamp(min=1.0))
-    ms = _time_ms(lambda: ffn_fused(*args))
-    plain_ms = _time_ms(lambda: ffn_reference(*args))
-    return err, tol, ms, plain_ms, "1 bf16 ulp elementwise"
+    errs, times = {}, {}
+    # each mode at its path's shape: LightGlue's ln_gelu at K = 2048,
+    # SuperGlue's relu at K = 4096
+    for mode, K in (("ln_gelu", 2048), ("relu", 4096)):
+        args = (rnd(16, K, D), rnd(16, K, D), w1, b1, g, beta, w2, b2)
+        got = ffn_fused(*args, mode=mode)
+        ref = ffn_reference(*args, mode=mode)
+        torch.cuda.synchronize()
+        diff = (got.float() - ref.float()).abs()
+        err = diff.max().item()
+        # one bf16 ulp of the output (2^-7 relative at |x| >= 1), for rounding
+        # ties the f32 sums (other order, erff vs erf) put on the other side
+        ulp = (2.0 ** -7) * ref.float().abs().clamp(min=1.0)
+        if bool((diff > ulp + 1e-6).any()):
+            err = float("inf")
+        errs[mode] = (err, float((2.0 ** -7) * ref.float().abs().max().clamp(min=1.0)))
+        times[mode] = (_time_ms(lambda: ffn_fused(*args, mode=mode)),
+                       _time_ms(lambda: ffn_reference(*args, mode=mode)))
+    # each mode is held to its own elementwise bound above (inf on failure);
+    # the report carries the larger error and the larger bound
+    err = max(e for e, _ in errs.values())
+    tol = max(t for _, t in errs.values())
+    what = ("1 bf16 ulp elementwise; ln_gelu (16, 2048, 256) (reported times) max err "
+            f"{errs['ln_gelu'][0]:.3e}; relu (16, 4096, 256) max err {errs['relu'][0]:.3e}, "
+            f"kernel {times['relu'][0]:.3f} ms, plain {times['relu'][1]:.3f} ms")
+    extra = {"relu_shape": [16, 4096, D], "relu_max_abs_err": errs["relu"][0],
+             "relu_ms": times["relu"][0], "relu_plain_ms": times["relu"][1]}
+    return err, tol, times["ln_gelu"][0], times["ln_gelu"][1], what, extra
 
 
 def check_assignment(torch, dev, card):
@@ -259,6 +327,132 @@ def check_nullspace(torch, dev, card):
     return err, tol, ms, plain_ms, "generic up to sign; residual < 1e-4 incl. f33 = 0"
 
 
+def check_nn(torch, dev, card):
+    from deep_image_matching_tpu_torch.ops.nn import nn_top2, nn_top2_reference
+
+    gen = torch.Generator().manual_seed(5)
+    F = torch.nn.functional
+    # SuperPoint's shape: unit-norm f32, K = 4096, half the queries with a
+    # near copy among the references, partial masks (invalid references carry
+    # the 1e12 squared-norm offset, as nn_match_fused gives them)
+    B, K, D = 16, 4096, 256
+    d0 = F.normalize(torch.randn(B, K, D, generator=gen), dim=-1)
+    d1 = F.normalize(torch.randn(B, K, D, generator=gen), dim=-1)
+    d1[:, : K // 2] = F.normalize(d0[:, : K // 2] + 0.3 * torch.randn(B, K // 2, D, generator=gen),
+                                  dim=-1)
+    m0 = _masks(torch, gen, B, K, "cpu")
+    m1 = _masks(torch, gen, B, K, "cpu")
+    d0 = (d0 * m0[..., None]).to(dev)
+    d1 = (d1 * m1[..., None]).to(dev)
+    sq1 = (d1 ** 2).sum(-1) + torch.where(m1.to(dev), 0.0, 1e12)
+    got = nn_top2(d0, d1, sq1)
+    ref = nn_top2_reference(d0, d1, sq1)
+    torch.cuda.synchronize()
+    err = max((got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item())
+    gap = ref[1] - ref[0]
+    same = got[2] == ref[2]
+    equal_share = same.float().mean().item()
+    far = int((~same & (gap > 1e-3)).sum().item())
+    if far or equal_share < 0.999:
+        err = float("inf")
+    tol = 1e-4  # f32 FMA sums over D = 256 in another order
+    ms = _time_ms(lambda: nn_top2(d0, d1, sq1))
+    plain_ms = _time_ms(lambda: nn_top2_reference(d0, d1, sq1))
+    # SIFT (128) and ORB (32) widths: byte-valued descriptors at capacity
+    # 4000 with exact neighbours, double minima and duplicated columns; the
+    # f32 arithmetic is exact, so every output must be bitwise equal
+    exact = []
+    for Dw in (128, 32):
+        Bi, Ki = 4, 4000
+        q = torch.randint(0, 256, (Bi, Ki, Dw), generator=gen).float()
+        r = torch.randint(0, 256, (Bi, Ki, Dw), generator=gen).float()
+        r[:, 10:1010] = q[:, :1000]
+        r[:, 1010:1510] = q[:, :500]      # queries 0-499 reach their minimum twice
+        r[:, 2000:3000] = r[:, 1000:2000]  # duplicated columns
+        q, r = q.to(dev), r.to(dev)
+        sq = (r ** 2).sum(-1)
+        g, rf = nn_top2(q, r, sq), nn_top2_reference(q, r, sq)
+        ok = all(torch.equal(a, b) for a, b in zip(g, rf))
+        ok &= bool((g[0][:, :500] == g[1][:, :500]).all())
+        exact.append(f"D={Dw} {'bitwise equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            err = float("inf")
+    what = (f"D=256 min1/min2 abs; argmin equal {equal_share:.5f}, none differs where the "
+            f"gap > 1e-3; {', '.join(exact)}")
+    return err, tol, ms, plain_ms, what
+
+
+def _couplings(torch, gen, B, M, N, dev):
+    """SuperGlue-shaped log couplings with dustbins: masked rows and columns
+    at -1e30, the marginals of masked entries at -1e30, the last row and
+    column (the dustbins) valid."""
+    m0 = _masks(torch, gen, B, M, "cpu")
+    m1 = _masks(torch, gen, B, N, "cpu")
+    m0[:, -1] = True
+    m1[:, -1] = True
+    z = torch.randn(B, M, N, generator=gen) * 3.0
+    z = torch.where(m0[:, :, None] & m1[:, None, :], z, torch.tensor(-1e30))
+    norm = -torch.log((m0.sum(1) + m1.sum(1)).float())[:, None]
+    log_mu = torch.where(m0, norm, torch.tensor(-1e30))
+    log_nu = torch.where(m1, norm, torch.tensor(-1e30))
+    return z.to(dev), log_mu.to(dev), log_nu.to(dev), m0.to(dev), m1.to(dev)
+
+
+def check_sinkhorn(torch, dev, card):
+    from deep_image_matching_tpu_torch.models.superglue import _filter
+    from deep_image_matching_tpu_torch.ops.sinkhorn import (
+        sinkhorn_fused, sinkhorn_iteration, sinkhorn_iteration_reference)
+
+    gen = torch.Generator().manual_seed(6)
+    # SuperGlue at 4096 keypoints: (4097, 4097) couplings; the kernel masks
+    # the ragged edge, so nothing is padded
+    B, M, N = 16, 4097, 4097
+    z, log_mu, log_nu, m0, m1 = _couplings(torch, gen, B, M, N, dev)
+    v0 = torch.zeros_like(log_nu)
+    u1, v1 = sinkhorn_iteration(z, v0, log_mu, log_nu)
+    ru, rv = sinkhorn_iteration_reference(z, v0, log_mu, log_nu)
+    torch.cuda.synchronize()
+    err1 = max((u1 - ru).abs()[m0].max().item(), (v1 - rv).abs()[m1].max().item())
+    u, v = sinkhorn_fused(z, log_mu, log_nu, 100)
+    ru, rv = torch.zeros_like(log_mu), torch.zeros_like(log_nu)
+    for _ in range(100):
+        ru, rv = sinkhorn_iteration_reference(z, rv, log_mu, log_nu)
+    torch.cuda.synchronize()
+    err100 = max((u - ru).abs()[m0].max().item(), (v - rv).abs()[m1].max().item())
+    # the matches SuperGlue's _filter reads from each (threshold 0)
+    got_m, _, got_v = _filter(z + u[:, :, None] + v[:, None, :], m0[:, :-1], m1[:, :-1], 0.0)
+    ref_m, _, ref_v = _filter(z + ru[:, :, None] + rv[:, None, :], m0[:, :-1], m1[:, :-1], 0.0)
+    rows = got_v | ref_v
+    agree = ((got_m == ref_m) & (got_v == ref_v))[rows].float().mean().item()
+    # 1e-4 after one iteration, 1e-3 after 100 (f32 logsumexps over 4097
+    # terms summed in another order, compounded over the iterations)
+    err = err1 if err100 <= 1e-3 and agree >= 0.999 else float("inf")
+    tol = 1e-4
+    ms = _time_ms(lambda: sinkhorn_iteration(z, v0, log_mu, log_nu))
+    plain_ms = _time_ms(lambda: sinkhorn_iteration_reference(z, v0, log_mu, log_nu))
+    what = (f"valid u, v after 1 iteration; after 100: {err100:.3e} (tol 1e-3), _filter "
+            f"matches equal {agree:.5f} of {int(rows.sum())}; times per iteration")
+    return err, tol, ms, plain_ms, what, {"max_abs_err_100_iterations": err100}
+
+
+def check_lse_rows(torch, dev, card):
+    from deep_image_matching_tpu_torch.ops.sinkhorn import (
+        logsumexp_rows, logsumexp_rows_reference)
+
+    gen = torch.Generator().manual_seed(8)
+    B, M, N = 16, 4097, 4097
+    z, log_mu, _, _, _ = _couplings(torch, gen, B, M, N, dev)
+    v = torch.randn(B, N, generator=gen).to(dev)
+    got = logsumexp_rows(z, v, log_mu)
+    ref = logsumexp_rows_reference(z, v, log_mu)
+    torch.cuda.synchronize()
+    # relative 1e-5 (the -1e30 rows compare relatively too)
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    ms = _time_ms(lambda: logsumexp_rows(z, v, log_mu))
+    plain_ms = _time_ms(lambda: logsumexp_rows_reference(z, v, log_mu))
+    return rel, 1e-5, ms, plain_ms, "relative to max(|u|, 1), every row"
+
+
 def phase_kernels(card: str) -> dict:
     import torch
 
@@ -266,14 +460,16 @@ def phase_kernels(card: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     checks = {"attention": check_attention, "ffn": check_ffn,
-              "assignment": check_assignment, "nullspace": check_nullspace}
+              "assignment": check_assignment, "nullspace": check_nullspace,
+              "nn": check_nn, "sinkhorn": check_sinkhorn, "lse_rows": check_lse_rows}
     report = {}
     ok = True
     for name, fn in checks.items():
-        err, tol, ms, plain_ms, what = fn(torch, dev, card)
+        err, tol, ms, plain_ms, what, *extra = fn(torch, dev, card)
         good = err <= tol
         ok &= good
-        report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **(extra or [{}])[0]}
+        torch.cuda.empty_cache()
         print(f"[kernel] {name}: max_abs_err {err:.3e} (tol {tol:.1e}, {what}) "
               f"{'OK' if good else 'FAIL'}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
               f"[{card}]", flush=True)
@@ -347,7 +543,9 @@ class _TimerLog:
         logging.getLogger("dim_tpu_torch").addHandler(self.handler)
 
 
-def _check_outputs(out_dir: Path, names: list, n_pairs: int) -> str:
+def _check_outputs(out_dir: Path, names: list, n_pairs: int, dim: int):
+    """Check a run's files; returns a summary line and the number of
+    verified pairs."""
     import sqlite3
 
     import numpy as np
@@ -363,7 +561,7 @@ def _check_outputs(out_dir: Path, names: list, n_pairs: int) -> str:
             k = np.asarray(f[name]["keypoints"])
             d = np.asarray(f[name]["descriptors"])
             w, h = np.asarray(f[name]["image_size"])
-            if not (np.isfinite(k).all() and np.isfinite(d).all()) or d.shape != (256, len(k)):
+            if not (np.isfinite(k).all() and np.isfinite(d).all()) or d.shape != (dim, len(k)):
                 _fail(f"features of {name}: bad values or shape {d.shape}")
             if len(k) and (k.min() < 0 or k[:, 0].max() >= w or k[:, 1].max() >= h):
                 _fail(f"keypoints of {name} outside the image")
@@ -401,7 +599,8 @@ def _check_outputs(out_dir: Path, names: list, n_pairs: int) -> str:
     n_raw = sum(n for _, _, n in raw_pairs)
     n_ver = sum(n for _, _, n in ver_pairs)
     return (f"{len(names)} images, {sum(counts.values())} keypoints, {len(raw_pairs)} pairs "
-            f"({n_raw} raw matches), {len(ver_pairs)} verified pairs ({n_ver} inliers)")
+            f"({n_raw} raw matches), {len(ver_pairs)} verified pairs ({n_ver} inliers)",
+            len(ver_pairs))
 
 
 def _check_shifted(out_dir: Path, names: list) -> str:
@@ -433,6 +632,11 @@ def _check_shifted(out_dir: Path, names: list) -> str:
 
 
 def phase_reference(card: str) -> None:
+    _reference_lightglue(card)
+    _reference_superglue(card)
+
+
+def _reference_lightglue(card: str) -> None:
     """LightGlue at full width (9 layers, D = 256, adaptive depth and width
     pruning) on a small batch: the kernels on the card against the plain
     versions on the CPU, both in bf16. Image 1 holds image 0's keypoints
@@ -474,50 +678,160 @@ def phase_reference(card: str) -> None:
         _fail("LightGlue on the card disagrees with the plain versions on the CPU")
 
 
+def _reference_superglue(card: str) -> None:
+    """SuperGlue at full width (9 blocks, D = 256, 4 heads, 100 Sinkhorn
+    iterations) on a small batch: the kernels on the card (attention, the
+    FFN's relu mode, Sinkhorn) against the plain versions on the CPU, both in
+    bf16. Image 1 holds image 0's keypoints permuted, with the same
+    descriptors and scores, so every valid keypoint has a planted match."""
+    import torch
+
+    from deep_image_matching_tpu_torch.models.superglue import SuperGlue, forward
+
+    gen = torch.Generator().manual_seed(9)
+    B, K = 2, 1024
+    model = SuperGlue().reset_random(gen).eval()
+    kpts0 = torch.rand(B, K, 2, generator=gen) * torch.tensor([640.0, 480.0])
+    perm = torch.stack([torch.randperm(K, generator=gen) for _ in range(B)])
+    kpts1 = torch.gather(kpts0, 1, perm[..., None].expand(-1, -1, 2))
+    desc0 = torch.nn.functional.normalize(torch.randn(B, K, 256, generator=gen), dim=-1)
+    desc1 = torch.gather(desc0, 1, perm[..., None].expand(-1, -1, 256))
+    sc0 = torch.rand(B, K, generator=gen)
+    mask = torch.ones(B, K, dtype=torch.bool)
+    mask[1, 800:] = False
+    size = torch.tensor([[640.0, 480.0]]).expand(B, 2)
+    args = (kpts0, kpts1, sc0, torch.gather(sc0, 1, perm), desc0, desc1, mask,
+            torch.gather(mask, 1, perm), size, size)
+    kw = dict(sinkhorn_iterations=100, match_threshold=0.0, compute_dtype=torch.bfloat16)
+    cpu = forward(model, *args, **kw)
+    dev = torch.device("cuda", 0)
+    gpu = forward(model.to(dev), *(a.to(dev) for a in args), **kw)
+    model.cpu()
+    both = cpu["valid0"] & gpu["valid0"].cpu()
+    agree = (cpu["matches0"] == gpu["matches0"].cpu())[both].float().mean().item()
+    inv = torch.argsort(perm, dim=1)
+    truth = (gpu["matches0"].cpu() == inv) & gpu["valid0"].cpu()
+    planted_cpu = int(((cpu["matches0"] == inv) & cpu["valid0"]).sum())
+    print(f"[ref] SuperGlue B={B} K={K}: mutual matches cpu {int(cpu['valid0'].sum())} gpu "
+          f"{int(gpu['valid0'].sum())}; agreement on rows matched by both {agree:.4f}; "
+          f"planted matches found cpu {planted_cpu} gpu {int(truth.sum())} of "
+          f"{int(mask.sum())} [{card}]", flush=True)
+    # bf16 on both sides, sums in another order: the LightGlue phase's bar
+    if agree < 0.99 or truth.sum() < 0.95 * planted_cpu:
+        _fail("SuperGlue on the card disagrees with the plain versions on the CPU")
+
+
+# path -> (kernels it must launch, its runs: (project, strategy, config,
+# descriptor width, CPU comparison)). Each path starts with the launch
+# counts at 0 and reads them when its runs are done.
+PATHS = {
+    "superpoint+lightglue": (("attention", "ffn", "assignment", "nullspace"), (
+        ("synthetic16", "bruteforce", "threshold0", 256, False),
+        ("demo5", "matching_lowres", "default", 256, False))),
+    "superpoint+superglue": (("attention", "ffn", "sinkhorn", "nullspace"), (
+        ("synthetic16", "bruteforce", "superglue0", 256, False),)),
+    "superpoint+kornia_matcher": (("nn", "nullspace"), (
+        ("synthetic16", "bruteforce", "default", 256, False),)),
+    "sift+kornia_matcher": (("nn", "nullspace"), (
+        ("demo5", "bruteforce", "default", 128, True),)),
+    "orb+kornia_matcher": (("nn", "nullspace"), (
+        ("demo5", "bruteforce", "default", 32, True),)),
+}
+
+
+def _raw_match_sets(out_dir: Path) -> dict:
+    """Raw matches per pair as sets of keypoint-coordinate pairs."""
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.io import hdf5
+
+    out = {}
+    with hdf5.File(out_dir / "features.h5", "r") as f, \
+            hdf5.File(out_dir / "raw_matches.h5", "r") as m:
+        for a in m:
+            for b in m[a]:
+                mt = np.asarray(m[a][b])
+                ka, kb = np.asarray(f[a]["keypoints"]), np.asarray(f[b]["keypoints"])
+                out[(a, b)] = {tuple(ka[i]) + tuple(kb[j]) for i, j in mt}
+    return out
+
+
+def _run(pipeline: str, proj: Path, strategy: str, cfg: Path, outs: Path):
+    from deep_image_matching_tpu_torch.__main__ import run_matching
+
+    feature_path, _, _ = run_matching({
+        "dir": str(proj), "outs": str(outs), "pipeline": pipeline, "strategy": strategy,
+        "skip_reconstruction": True, "force": True, "config_file": str(cfg),
+    })
+    return feature_path.parent
+
+
 def phase_main_path(card: str) -> dict:
     import torch
 
-    from deep_image_matching_tpu_torch.__main__ import run_matching
     from deep_image_matching_tpu_torch.ops import _lib
 
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
-    base = "general:\n  allow_random_weights: true\n  tpu:\n    device: cuda\n"
-    configs = {"default": WORK / "default.yaml", "threshold0": WORK / "threshold0.yaml"}
-    configs["default"].write_text(base)
-    # random weights never reach the default 0.1 match score, so the
-    # synthetic run keeps every mutual nearest neighbour for verification
-    configs["threshold0"].write_text(base + "matcher:\n  filter_threshold: 0.0\n")
-    synth = _synthetic_project(WORK / "synthetic16")
-    demo = WORK / "demo5"
-    shutil.copytree(ROOT / "notebooks" / "demo_project" / "images", demo / "images")
+    base = "general:\n  allow_random_weights: true\n  tpu:\n    device: {}\n"
+    configs = {name: WORK / f"{name}.yaml"
+               for name in ("default", "threshold0", "superglue0", "cpu")}
+    configs["default"].write_text(base.format("cuda"))
+    # random weights never reach LightGlue's 0.1 or SuperGlue's 0.3 match
+    # score, so the synthetic runs keep every mutual nearest neighbour
+    configs["threshold0"].write_text(base.format("cuda") + "matcher:\n  filter_threshold: 0.0\n")
+    configs["superglue0"].write_text(base.format("cuda") + "matcher:\n  match_threshold: 0.0\n")
+    configs["cpu"].write_text(base.format("cpu"))
+    projects = {"synthetic16": _synthetic_project(WORK / "synthetic16"), "demo5": WORK / "demo5"}
+    shutil.copytree(ROOT / "notebooks" / "demo_project" / "images", projects["demo5"] / "images")
     timers = _TimerLog()
 
-    _lib.reset_launch_counts()
-    for proj, strategy, cfg in ((synth, "bruteforce", configs["threshold0"]),
-                                (demo, "matching_lowres", configs["default"])):
-        names = sorted(p.name for p in (proj / "images").iterdir())
-        t0 = time.perf_counter()
-        feature_path, _, _ = run_matching({
-            "dir": str(proj), "pipeline": "superpoint+lightglue", "strategy": strategy,
-            "skip_reconstruction": True, "force": True, "config_file": str(cfg),
-        })
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        out_dir = feature_path.parent
-        n_pairs = len((out_dir / "pairs.txt").read_text().splitlines())
-        if strategy == "bruteforce" and n_pairs != len(names) * (len(names) - 1) // 2:
-            _fail(f"bruteforce gave {n_pairs} pairs")
-        summary = _check_outputs(out_dir, names, n_pairs)
-        if proj is synth:
-            summary += "; " + _check_shifted(out_dir, names)
-        stages = timers.lines[-1].split("] ", 2)[-1] if timers.lines else "no timer line"
-        print(f"[main] {proj.name} ({strategy}): {summary}; run_matching {wall:.2f} s; "
-              f"stages {stages} [{card}]", flush=True)
-    launches = dict(_lib.LAUNCHES)
-    print(f"[main] kernel launches during the main path: {launches}", flush=True)
-    if not all(launches[k] > 0 for k in KERNELS):
-        _fail("a kernel of the main path was never launched")
+    launches = {name: {} for name in PATHS}
+    for pipeline, (needed, runs) in PATHS.items():
+        _lib.reset_launch_counts()
+        cpu_checks = []
+        for proj_name, strategy, cfg, dim, compare_cpu in runs:
+            proj = projects[proj_name]
+            names = sorted(p.name for p in (proj / "images").iterdir())
+            outs = WORK / "out" / f"{pipeline}_{proj_name}"
+            t0 = time.perf_counter()
+            out_dir = _run(pipeline, proj, strategy, configs[cfg], outs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_pairs = len((out_dir / "pairs.txt").read_text().splitlines())
+            if strategy == "bruteforce" and n_pairs != len(names) * (len(names) - 1) // 2:
+                _fail(f"bruteforce gave {n_pairs} pairs")
+            summary, n_verified = _check_outputs(out_dir, names, n_pairs, dim)
+            if proj_name == "synthetic16" and pipeline != "superpoint+superglue":
+                # random SuperGlue weights mix the keypoint positions into the
+                # descriptors, so only the other matchers find the shift
+                summary += "; " + _check_shifted(out_dir, names)
+            if pipeline == "sift+kornia_matcher" and n_verified == 0:
+                _fail("sift+kornia_matcher verified no pair of the demo images")
+            stages = timers.lines[-1].split("] ", 2)[-1] if timers.lines else "no timer line"
+            print(f"[main] {pipeline} on {proj_name} ({strategy}): {summary}; run_matching "
+                  f"{wall:.2f} s; stages {stages} [{card}]", flush=True)
+            if compare_cpu:
+                cpu_checks.append((proj, strategy, out_dir, outs))
+        launches[pipeline] = dict(_lib.LAUNCHES)
+        print(f"[main] {pipeline}: kernel launches {launches[pipeline]}", flush=True)
+        missing = [k for k in needed if launches[pipeline][k] == 0]
+        if missing:
+            _fail(f"{pipeline}: kernels {missing} of its path were never launched")
+        for proj, strategy, out_dir, outs in cpu_checks:
+            # the same run on the CPU: integer descriptors make the
+            # nearest-neighbour arithmetic exact, so the raw matches of the
+            # kernel route and of the dense CPU route are equal
+            cpu_dir = _run(pipeline, proj, strategy, configs["cpu"], outs.with_name(outs.name + "_cpu"))
+            gpu_sets, cpu_sets = _raw_match_sets(out_dir), _raw_match_sets(cpu_dir)
+            if gpu_sets.keys() != cpu_sets.keys():
+                _fail(f"{pipeline}: the card and the CPU matched other pairs")
+            differ = [p for p in gpu_sets if gpu_sets[p] != cpu_sets[p]]
+            if differ:
+                _fail(f"{pipeline}: raw matches of {differ[:3]} differ between the card and the CPU")
+            counts = sorted(len(v) for v in gpu_sets.values())
+            print(f"[main] {pipeline}: raw matches equal on the card and the CPU for all "
+                  f"{len(gpu_sets)} pairs ({counts[0]}-{counts[-1]} per pair) [{card}]", flush=True)
     return launches
 
 
@@ -536,7 +850,11 @@ def main() -> None:
     launches = phase_main_path(card)
     kernels = [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": launches[name], **report[name]}
+         "replaces": KERNELS[name][1],
+         "launches": sum(counts[name] for counts in launches.values()),
+         "launches_by_path": {path: counts[name] for path, counts in launches.items()
+                              if counts[name]},
+         **report[name], **({"note": NO_CALLER[name]} if name in NO_CALLER else {})}
         for name in KERNELS
     ]
     print(card, flush=True)

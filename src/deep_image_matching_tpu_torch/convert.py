@@ -1,7 +1,7 @@
 """Weights carried across from the JAX package's parameter pytrees.
 
-``superpoint_params_from_jax`` and ``lightglue_params_from_jax`` turn the
-JAX package's parameters (any nesting of dicts whose leaves convert with
+``superpoint_params_from_jax``, ``lightglue_params_from_jax`` and
+``superglue_params_from_jax`` turn the JAX package's parameters (any nesting of dicts whose leaves convert with
 ``np.asarray``) into torch state dicts with the original key names, the
 inverse of the JAX package's ``params_from_torch``:
 
@@ -12,7 +12,11 @@ inverse of the JAX package's ``params_from_torch``:
   token head is padding in the JAX tree (its loop exits by the bound) and
   has no torch counterpart, so it is dropped;
 - the fused qkv projection keeps its (heads, head_dim, 3) output order,
-  which both packages unpack the same way.
+  which both packages unpack the same way;
+- SuperGlue's dense layers -> 1x1 ``Conv1d`` (out, in, 1) weights. The JAX
+  package holds BatchNorm folded into the convolutions, so the folded
+  weights are written with an identity BatchNorm (weight 1, bias 0, mean 0,
+  variance 1 - eps), which folds back to the same weights.
 """
 
 from __future__ import annotations
@@ -73,4 +77,46 @@ def lightglue_params_from_jax(params) -> StateDict:
         lin(f"log_assignment.{i}.matchability", layers["assign"]["match"], i)
         if i < n_layers - 1:
             lin(f"token_confidence.{i}.token.0", layers["token"], i)
+    return sd
+
+
+_BN_EPS = 1e-5
+
+
+def superglue_params_from_jax(params) -> StateDict:
+    sd: StateDict = {}
+
+    def conv(prefix, p, i=None):
+        w = np.asarray(p["w"])
+        b = np.asarray(p["b"])
+        if i is not None:
+            w, b = w[i], b[i]
+        sd[f"{prefix}.weight"] = _t(w.T[:, :, None])
+        sd[f"{prefix}.bias"] = _t(b)
+
+    def identity_bn(prefix, n):
+        sd[f"{prefix}.weight"] = torch.ones(n)
+        sd[f"{prefix}.bias"] = torch.zeros(n)
+        sd[f"{prefix}.running_mean"] = torch.zeros(n)
+        sd[f"{prefix}.running_var"] = torch.full((n,), 1.0 - _BN_EPS)
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    kenc = params["kenc"]
+    for i, p in enumerate(kenc):
+        conv(f"kenc.encoder.{3 * i}", p)
+        if i < len(kenc) - 1:
+            identity_bn(f"kenc.encoder.{3 * i + 1}", np.asarray(p["b"]).shape[-1])
+    blocks = params["blocks"]
+    n_blocks = np.asarray(blocks["self"]["q"]["w"]).shape[0]
+    for blk in range(n_blocks):
+        for name, li in (("self", 2 * blk), ("cross", 2 * blk + 1)):
+            g, p = f"gnn.layers.{li}", blocks[name]
+            for k, key in enumerate(("q", "k", "v")):
+                conv(f"{g}.attn.proj.{k}", p[key], blk)
+            conv(f"{g}.attn.merge", p["merge"], blk)
+            conv(f"{g}.mlp.0", p["mlp1"], blk)
+            identity_bn(f"{g}.mlp.1", np.asarray(p["mlp1"]["b"]).shape[-1])
+            conv(f"{g}.mlp.3", p["mlp2"], blk)
+    conv("final_proj", params["final"])
+    sd["bin_score"] = _t(np.asarray(params["bin_score"]).reshape(()))
     return sd

@@ -1,8 +1,11 @@
-// Fused LightGlue feed-forward block:
-//   out = x + W2 . GELU(LN([x | msg] . W1^T + b1) * g + beta) + b2
+// Fused feed-forward block of the matching transformers, in two modes:
+//   mode 0, "ln_gelu" (LightGlue):
+//     out = x + W2 . GELU(LN([x | msg] . W1^T + b1) * g + beta) + b2
+//   mode 1, "relu" (SuperGlue's propagation MLP, BatchNorm folded into W1):
+//     out = x + W2 . relu([x | msg] . W1^T + b1) + b2   (g, beta unused)
 //
 // Replaces the TPU kernel deep_image_matching_tpu/ops/pallas_ffn.py::ffn_fused
-// (_ffn_kernel, mode "ln_gelu"), which streams row tiles so the (rows, 2D) f32
+// (_ffn_kernel, both modes), which streams row tiles so the (rows, 2D) f32
 // intermediate never reaches device memory.
 //
 // What bounds it on the H100: at the main-path shape (32768 rows, D = 256)
@@ -19,8 +22,10 @@
 //
 // Numerics follow the Pallas kernel: f32 accumulation, f32 LayerNorm
 // statistics with eps 1e-5, exact GELU through erff (the Pallas kernel's
-// Abramowitz-Stegun erf differs from it by at most 1.5e-7), the activation
-// cast to bf16 before the second product, the residual added in f32.
+// Abramowitz-Stegun erf differs from it by at most 1.5e-7), or relu of the
+// f32 h, the activation cast to bf16 before the second product, the residual
+// added in f32. The mode is a template parameter: the relu kernel has no
+// LayerNorm code at all.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +83,7 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const uint16_t* tile,
   a[3] = ld32(&tile[(r + 8) * LDA + c + 8]);
 }
 
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 ffn_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ msg,
            const uint16_t* __restrict__ w1, const uint16_t* __restrict__ b1,
@@ -139,35 +145,43 @@ ffn_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ msg,
   }
   __syncthreads();
 
-  // LayerNorm + GELU per row (warp w: rows 4w .. 4w + 3); the bf16
-  // activation overwrites the input tile
-  for (int rr = 0; rr < TM / 8; ++rr) {
-    const int r = warp * (TM / 8) + rr;
-    float vals[D2 / 32];
-    float sum = 0.f;
+  if (MODE == 0) {
+    // LayerNorm + GELU per row (warp w: rows 4w .. 4w + 3); the bf16
+    // activation overwrites the input tile
+    for (int rr = 0; rr < TM / 8; ++rr) {
+      const int r = warp * (TM / 8) + rr;
+      float vals[D2 / 32];
+      float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < D2 / 32; ++i) {
-      vals[i] = hs[r * LDH + lane + 32 * i];
-      sum += vals[i];
+      for (int i = 0; i < D2 / 32; ++i) {
+        vals[i] = hs[r * LDH + lane + 32 * i];
+        sum += vals[i];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const float mu = sum / D2;
+      float var = 0.f;
+#pragma unroll
+      for (int i = 0; i < D2 / 32; ++i) {
+        vals[i] -= mu;
+        var += vals[i] * vals[i];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
+      const float rstd = rsqrtf(var / D2 + 1e-5f);
+#pragma unroll
+      for (int i = 0; i < D2 / 32; ++i) {
+        const int col = lane + 32 * i;
+        const float hn = vals[i] * rstd * bf2f(gam[col]) + bf2f(beta[col]);
+        const float act = 0.5f * hn * (1.f + erff(hn * 0.7071067811865476f));
+        tile[r * LDA + col] = f2bf(act);
+      }
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float mu = sum / D2;
-    float var = 0.f;
-#pragma unroll
-    for (int i = 0; i < D2 / 32; ++i) {
-      vals[i] -= mu;
-      var += vals[i] * vals[i];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
-    const float rstd = rsqrtf(var / D2 + 1e-5f);
-#pragma unroll
-    for (int i = 0; i < D2 / 32; ++i) {
-      const int col = lane + 32 * i;
-      const float hn = vals[i] * rstd * bf2f(gam[col]) + bf2f(beta[col]);
-      const float act = 0.5f * hn * (1.f + erff(hn * 0.7071067811865476f));
-      tile[r * LDA + col] = f2bf(act);
+  } else {
+    // relu of the f32 h; the bf16 activation overwrites the input tile
+    for (int i = tid; i < TM * D2; i += THREADS) {
+      const int r = i / D2, col = i % D2;
+      tile[r * LDA + col] = f2bf(fmaxf(hs[r * LDH + col], 0.f));
     }
   }
   __syncthreads();
@@ -214,18 +228,21 @@ ffn_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ msg,
 }  // namespace
 
 // x, msg, out (R, 256) bf16; w1 (512, 512) and w2 (256, 512) bf16 in
-// nn.Linear (out, in) layout; b1, g, beta (512,), b2 (256,) bf16.
+// nn.Linear (out, in) layout; b1, g, beta (512,), b2 (256,) bf16. mode 0 is
+// "ln_gelu", mode 1 "relu" (g and beta are not read and may be null).
 extern "C" int dim_ffn_bf16(int device, const void* x, const void* msg,
                             const void* w1, const void* b1, const void* g,
                             const void* beta, const void* w2, const void* b2,
-                            void* out, int R, void* stream) {
+                            void* out, int R, int mode, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(ffn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (mode != 0 && mode != 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = mode == 0 ? ffn_kernel<0> : ffn_kernel<1>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((R + TM - 1) / TM);
-  ffn_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(msg),
       static_cast<const uint16_t*>(w1), static_cast<const uint16_t*>(b1),
       static_cast<const uint16_t*>(g), static_cast<const uint16_t*>(beta),

@@ -4,9 +4,10 @@
 Scans the image dir, loads the configured extractor and matcher by name,
 generates pairs, extracts features into features.h5 and matches pairs into
 raw_matches.h5 / matches.h5, with verification and gating inside the
-matcher. This package carries the superpoint extractor and the lightglue
-matcher; other presets and the upright stage are not ported yet
-(ROADMAP.md, queue 1) and fail at construction.
+matcher. This package carries the superpoint, sift and orb extractors and
+the lightglue, kornia_matcher and superglue matchers; other presets and the
+upright stage are not ported yet (ROADMAP.md, queue 1) and fail at
+construction.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ from .utils.timer import Timer
 
 logger = logging.getLogger("dim_tpu_torch")
 
-PORTED_EXTRACTORS = ("superpoint",)
-PORTED_MATCHERS = ("lightglue",)
+PORTED_EXTRACTORS = ("superpoint", "sift", "orb")
+PORTED_MATCHERS = ("lightglue", "kornia_matcher", "superglue")
 
 
 class ImageMatcher:
@@ -37,7 +38,8 @@ class ImageMatcher:
         if ext not in PORTED_EXTRACTORS or mat not in PORTED_MATCHERS:
             raise NotImplementedError(
                 f"Pipeline {ext}+{mat} is not ported to the PyTorch package "
-                f"yet (ROADMAP.md, queue 1); ported: superpoint+lightglue"
+                f"yet (ROADMAP.md, queue 1); ported extractors: "
+                f"{', '.join(PORTED_EXTRACTORS)}; matchers: {', '.join(PORTED_MATCHERS)}"
             )
         if config.general.get("upright"):
             raise NotImplementedError(

@@ -60,8 +60,10 @@ def write_features(
     """Write one image's features into an open file, trimming padded arrays
     to ``n_valid``.
 
-    ``descriptors`` is accepted in (N, D) row-major (the padded-store layout) or the
-    reference's (D, N); stored as (D, N) to match the reference schema.
+    ``descriptors`` are (N, D) rows of the keypoints (padded with them where
+    ``n_valid`` is given), stored as (D, N) to match the reference schema.
+    The layout is not guessed from the shape, which is square for an image
+    with exactly D keypoints.
     """
     keypoints = np.asarray(keypoints)
     if n_valid is None:
@@ -70,11 +72,10 @@ def write_features(
     data: Dict[str, np.ndarray] = {"keypoints": kpts}
     if descriptors is not None:
         desc = np.asarray(descriptors)
-        if desc.shape[0] == keypoints.shape[0]:  # (N, D) -> (D, N)
-            desc = desc[:n_valid].T
-        else:
-            desc = desc[:, :n_valid]
-        data["descriptors"] = np.ascontiguousarray(desc)
+        if desc.ndim != 2 or desc.shape[0] != keypoints.shape[0]:
+            raise ValueError(f"descriptors {desc.shape}: expected (N, D) rows of the "
+                             f"{keypoints.shape[0]} keypoints")
+        data["descriptors"] = np.ascontiguousarray(desc[:n_valid].T)
     if scores is not None:
         data["scores"] = np.asarray(scores)[:n_valid].astype(np.float32)
     if tile_idx is not None:

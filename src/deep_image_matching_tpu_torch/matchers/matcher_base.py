@@ -293,16 +293,19 @@ class _PaddedFeatureStore:
         missing = [n for n in names if n not in known and n not in cache]
         if missing:
             raise ValueError(f"Features missing for {missing[:5]}...")
-        feats = [cache[n] if n in cache else get_features(feature_path, n) for n in names]
+        # the layout comes from the source, never from the shape (an image
+        # with exactly D keypoints is square): the cache holds (N, D) rows,
+        # features.h5 holds (D, N)
+        feats = [cache[n] if n in cache else _rows_from_file(feature_path, n) for n in names]
         counts = [len(f["keypoints"]) for f in feats]
         cap = _round_up(max(max(counts), 1), KPT_PAD_MULTIPLE)
         if cap > 0xFFFF:
             raise ValueError(f"keypoint capacity {cap} exceeds the 16-bit match packing")
-        dims = [
-            (f["descriptors"].shape[0] if f["descriptors"].shape[1] == c else f["descriptors"].shape[1])
-            for f, c in zip(feats, counts) if "descriptors" in f and c > 0
-        ]
-        D = dims[0] if dims else 0
+        dims = {f["descriptors"].shape[1] for f, c in zip(feats, counts)
+                if "descriptors" in f and c > 0}
+        if len(dims) > 1:
+            raise ValueError(f"descriptor widths differ between images: {sorted(dims)}")
+        D = dims.pop() if dims else 0
         n = len(names)
         self.index = {name: i for i, name in enumerate(names)}
         self.counts = np.array(counts, np.int32)
@@ -315,8 +318,7 @@ class _PaddedFeatureStore:
             c = counts[i]
             self.kpts[i, :c] = f["keypoints"]
             if "descriptors" in f and c > 0:
-                d = f["descriptors"]
-                desc[i, :c] = d.T if d.shape[0] != c else d  # stored (D, N)
+                desc[i, :c] = f["descriptors"]
             if "scores" in f:
                 scores[i, :c] = f["scores"]
             mask[i, :c] = True
@@ -335,6 +337,15 @@ class _PaddedFeatureStore:
 
     def keypoints_of(self, i: int) -> np.ndarray:
         return self.kpts[i, : self.counts[i]]
+
+
+def _rows_from_file(feature_path, name: str) -> Dict[str, np.ndarray]:
+    """One image's features from features.h5 with descriptors as (N, D)
+    rows (the file stores them (D, N))."""
+    f = get_features(feature_path, name)
+    if "descriptors" in f:
+        f["descriptors"] = np.ascontiguousarray(f["descriptors"].T)
+    return f
 
 
 def matcher_loader(root_module, name: str):

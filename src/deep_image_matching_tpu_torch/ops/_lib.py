@@ -1,8 +1,9 @@
 """Build, load and count the hand-written CUDA kernels in ``csrc/``.
 
-The four ``.cu`` files compile with ``nvcc`` into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), loaded with
-``ctypes``. The build runs at first use into ``build/torch_kernels/`` at the
+The ``.cu`` files compile with ``nvcc``, one process per source, all
+started together, and link into one shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds), loaded with ``ctypes``. The
+build runs at first use into ``build/torch_kernels/`` at the
 root of the checkout, keyed by a hash of the sources and flags, so an
 unchanged checkout reuses its library. ``-Xptxas -v`` output (registers,
 shared memory, spills per kernel) is kept in ``build/torch_kernels/ptxas.log``.
@@ -27,14 +28,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("attention.cu", "ffn.cu", "assignment.cu", "nullspace.cu")
+SOURCES = ("attention.cu", "ffn.cu", "assignment.cu", "nullspace.cu", "nn.cu",
+           "sinkhorn.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES: Dict[str, int] = {
-    "attention": 0, "ffn": 0, "assignment": 0, "nullspace": 0,
+    "attention": 0, "ffn": 0, "assignment": 0, "nullspace": 0, "nn": 0,
+    "sinkhorn": 0, "lse_rows": 0,
 }
 
 _P = ctypes.c_void_p
@@ -42,10 +45,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "dim_attention_bf16": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "dim_ffn_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "dim_ffn_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "dim_assignment_pass": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _F, _I, _P],
     "dim_nullspace_8x9": [_I, _P, _P, _I, _P],
+    "dim_nn_top2": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dim_sinkhorn_iteration": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dim_lse_rows": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -76,14 +82,26 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(name).stem}.{tag}.o" for name in SOURCES]
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, obj in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    (BUILD_DIR / "ptxas.log").write_text("".join(logs))
+    for name, p, log in zip(SOURCES, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name} ({p.returncode}):\n{log[-4000:]}")
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "ptxas.log").write_text(res.stdout + res.stderr)
+    res = subprocess.run(
+        [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+         *(str(o) for o in objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}"
-        )
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
     os.replace(tmp, so)
     return so
 

@@ -12,8 +12,10 @@ from deep_image_matching_tpu_torch.ops import _lib
 from deep_image_matching_tpu_torch.ops import assignment as tassign
 from deep_image_matching_tpu_torch.ops import attention as tattn
 from deep_image_matching_tpu_torch.ops import ffn as tffn
+from deep_image_matching_tpu_torch.ops import nn as tnn
 from deep_image_matching_tpu_torch.ops import nullspace as tnull
 from deep_image_matching_tpu_torch.ops import ransac as transac
+from deep_image_matching_tpu_torch.ops import sinkhorn as tsink
 
 pytestmark = pytest.mark.cuda
 
@@ -50,7 +52,8 @@ def test_attention_kernel_matches_plain(cuda):
     assert bool((diff <= 2.0 ** -6 * ref.abs()[rows].clamp(min=1.0)).all())
 
 
-def test_ffn_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("mode", ["ln_gelu", "relu"])
+def test_ffn_kernel_matches_plain(cuda, mode):
     gen = torch.Generator().manual_seed(3)
     B, K, D = 3, 77, 256  # 231 rows: a partial 32-row tile
 
@@ -60,8 +63,8 @@ def test_ffn_kernel_matches_plain(cuda):
     args = (rnd(B, K, D), rnd(B, K, D), rnd(2 * D, 2 * D, s=(2 * D) ** -0.5),
             rnd(2 * D, s=0.1), rnd(2 * D, s=0.1, mean=1.0), rnd(2 * D, s=0.1),
             rnd(D, 2 * D, s=(2 * D) ** -0.5), rnd(D, s=0.1))
-    got = tffn.ffn_fused(*args).float()
-    ref = tffn.ffn_reference(*args).float()
+    got = tffn.ffn_fused(*args, mode=mode).float()
+    ref = tffn.ffn_reference(*args, mode=mode).float()
     # one bf16 ulp of the output
     assert bool(((got - ref).abs() <= 2.0 ** -7 * ref.abs().clamp(min=1.0) + 1e-6).all())
 
@@ -135,3 +138,75 @@ def test_ransac_on_cuda_matches_cpu(cuda):
         p0.to(cuda), p1.to(cuda), valid.to(cuda), 1.0, iters, sample_u=u.to(cuda))
     assert bool(inl_gpu.cpu()[:, :n_in].all())
     assert torch.equal(inl_gpu.cpu(), inl_cpu)
+
+
+def test_nn_kernel_matches_plain(cuda):
+    """Float descriptors: values within 1e-4, argmins equal away from
+    near-ties; integer descriptors with planted duplicates: bitwise equal,
+    at an unaligned capacity."""
+    gen = torch.Generator().manual_seed(10)
+    B, K0, K1, D = 2, 300, 250, 128
+    d0 = torch.nn.functional.normalize(torch.randn(B, K0, D, generator=gen), dim=-1).to(cuda)
+    d1 = torch.nn.functional.normalize(torch.randn(B, K1, D, generator=gen), dim=-1).to(cuda)
+    sq1 = (d1 ** 2).sum(-1)
+    sq1[:, 200:] += 1e12  # invalid reference rows
+    before = _lib.LAUNCHES["nn"]
+    got = tnn.nn_top2(d0, d1, sq1)
+    assert _lib.LAUNCHES["nn"] == before + 1
+    ref = tnn.nn_top2_reference(d0, d1, sq1)
+    assert float((got[0] - ref[0]).abs().max()) < 1e-4
+    assert float((got[1] - ref[1]).abs().max()) < 1e-4
+    clear = (ref[1] - ref[0]) > 1e-3
+    assert bool((got[2] == ref[2])[clear].all())
+
+    for D in (32, 128):
+        K = 1000
+        q = torch.randint(0, 256, (B, K, D), generator=gen).float()
+        r = torch.randint(0, 256, (B, K, D), generator=gen).float()
+        r[:, 10:20] = q[:, :10]          # exact neighbours
+        r[:, 20:30] = q[:, :10]          # ... attained twice: ties
+        r[:, 500:] = r[:, :500]          # duplicated columns
+        q, r = q.to(cuda), r.to(cuda)
+        sq = (r ** 2).sum(-1)
+        got = tnn.nn_top2(q, r, sq)
+        ref = tnn.nn_top2_reference(q, r, sq)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), D
+        assert bool((got[0] == got[1])[:, :10].all())  # double minimum
+        assert got[2][:, :10].tolist() == [list(range(10, 20))] * B
+    with pytest.raises(ValueError, match="divisible by 16"):
+        tnn.nn_top2(torch.zeros(1, 4, 24, device=cuda), torch.zeros(1, 4, 24, device=cuda),
+                    torch.zeros(1, 4, device=cuda))
+
+
+def _couplings(gen, B, M, N, cuda):
+    z = torch.randn(B, M, N, generator=gen) * 3
+    m0 = torch.arange(M)[None] < torch.tensor([M, M // 2])[:B, None]
+    m1 = torch.arange(N)[None] < torch.tensor([N - 3, N])[:B, None]
+    z = torch.where(m0[:, :, None] & m1[:, None, :], z, torch.tensor(-1e30))
+    log_mu = torch.where(m0, -6.0, -1e30)
+    log_nu = torch.where(m1, -6.0, -1e30)
+    return z.to(cuda), log_mu.to(cuda), log_nu.to(cuda)
+
+
+def test_sinkhorn_kernel_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(11)
+    z, log_mu, log_nu = _couplings(gen, 2, 301, 257, cuda)
+    v = torch.randn(2, 257, generator=gen).to(cuda)
+    before = _lib.LAUNCHES["sinkhorn"]
+    u1, v1 = tsink.sinkhorn_iteration(z, v, log_mu, log_nu)
+    assert _lib.LAUNCHES["sinkhorn"] == before + 1
+    ru, rv = tsink.sinkhorn_iteration_reference(z, v, log_mu, log_nu)
+    assert float((u1 - ru).abs().max()) < 1e-4 and float((v1 - rv).abs().max()) < 1e-4
+    u, v = tsink.sinkhorn_fused(z, log_mu, log_nu, 50)
+    cu, cv = tsink.sinkhorn_fused(z.cpu(), log_mu.cpu(), log_nu.cpu(), 50)
+    assert float((u.cpu() - cu).abs().max()) < 1e-3 and float((v.cpu() - cv).abs().max()) < 1e-3
+
+
+def test_lse_rows_kernel_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(12)
+    z, log_mu, _ = _couplings(gen, 2, 130, 1000, cuda)
+    v = torch.randn(2, 1000, generator=gen).to(cuda)
+    got = tsink.logsumexp_rows(z, v, log_mu)
+    ref = tsink.logsumexp_rows_reference(z, v, log_mu)
+    assert bool(((got - ref).abs() <= 1e-5 * ref.abs().clamp(min=1.0)).all())

@@ -21,15 +21,26 @@ import deep_image_matching_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-print(len(names))
+print(" ".join(names))
 """
+
+# the modules of the ported slices (SuperPoint + LightGlue, then nearest
+# neighbours, SuperGlue, SIFT and ORB)
+SLICE_MODULES = (
+    "models.superpoint", "models.lightglue", "ops.attention", "ops.ffn", "ops.assignment",
+    "ops.nullspace", "ops.ransac",
+    "ops.nn", "ops.nn_match", "ops.sinkhorn", "models.superglue", "matchers.superglue",
+    "matchers.kornia_matcher", "extractors.sift", "extractors.orb",
+)
 
 
 def test_port_imports_without_jax_or_h5py():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert int(res.stdout.strip().splitlines()[-1]) >= 25
+    names = set(res.stdout.split())
+    assert len(names) >= 49
+    assert {f"deep_image_matching_tpu_torch.{m}" for m in SLICE_MODULES} <= names
 
 
 def test_hdf5_files_read_back_with_h5py(tmp_path):
@@ -82,7 +93,7 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="reconstruction"):
         run_matching(args)
     with pytest.raises(NotImplementedError, match="ported"):
-        run_matching({**args, "pipeline": "sift+kornia_matcher", "skip_reconstruction": True})
+        run_matching({**args, "pipeline": "aliked+lightglue", "skip_reconstruction": True})
     assert resolve_device("cpu") == torch.device("cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

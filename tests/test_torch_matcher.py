@@ -1,12 +1,16 @@
-"""The port's batched matcher: out-of-memory bisection and nothing else."""
+"""The port's batched matcher: out-of-memory bisection, nothing else
+swallowed, and the padded store's descriptor layout."""
 
 import numpy as np
 import pytest
 import torch
 
 from deep_image_matching_tpu_torch.config import Config
-from deep_image_matching_tpu_torch.io.h5 import list_pairs
-from deep_image_matching_tpu_torch.matchers.matcher_base import BatchedMatcher
+from deep_image_matching_tpu_torch.io.h5 import list_pairs, save_features
+from deep_image_matching_tpu_torch.matchers.matcher_base import (
+    BatchedMatcher,
+    _PaddedFeatureStore,
+)
 
 
 class _IdentityMatcher(BatchedMatcher):
@@ -66,3 +70,29 @@ def test_other_errors_and_single_pair_oom_propagate(tmp_path):
     matcher.fits = 0
     with pytest.raises(torch.cuda.OutOfMemoryError):
         matcher.match_all(pairs, tmp_path / "features.h5", mpath)
+
+
+@pytest.mark.parametrize("source", ["file", "cache"])
+def test_store_takes_the_descriptor_layout_from_its_source(tmp_path, source):
+    """An image with exactly D keypoints has a square descriptor matrix; the
+    store must not guess its layout from the shape. features.h5 holds (D, N),
+    the in-memory cache (N, D) rows."""
+    rng = np.random.default_rng(1)
+    D = 128
+    path = tmp_path / "features.h5"
+    feats = {}
+    for name, n in (("square.jpg", D), ("other.jpg", 300)):
+        kpts = rng.uniform(0, 500, (n, 2)).astype(np.float32)
+        # integer-valued, as SIFT's: exact in the float16 file
+        desc = rng.integers(0, 256, (n, D)).astype(np.float32)
+        save_features(path, name, keypoints=kpts, descriptors=desc,
+                      scores=np.ones(n, np.float32), image_size=np.array([500, 500]))
+        feats[name] = {"keypoints": kpts, "descriptors": desc}
+    names = sorted(feats)
+    cache = feats if source == "cache" else None
+    store = _PaddedFeatureStore(path, names, torch.device("cpu"), cache=cache)
+    for name in names:
+        i, n = store.index[name], len(feats[name]["keypoints"])
+        np.testing.assert_array_equal(store.dev["descriptors"][i, :n].numpy(),
+                                      feats[name]["descriptors"])
+        assert not store.dev["descriptors"][i, n:].any()

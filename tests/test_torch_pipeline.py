@@ -1,9 +1,13 @@
-"""The slice as a whole: both packages' ``run_matching`` on the same three
-synthetic images, with the JAX package's default weights carried into the
-port through the converters. Both run on the CPU in f32 with host
-verification (OpenCV MAGSAC, seeded), so the outputs must agree."""
+"""The slices as a whole: both packages' ``run_matching`` on the same
+images, with the JAX package's default weights carried into the port
+through the converters. SuperPoint pipelines run on three synthetic images,
+the OpenCV extractors (SIFT, ORB) on the five demo images. Both packages
+run on the CPU in f32 with host verification (OpenCV MAGSAC, seeded), so
+the outputs must agree."""
 
+import shutil
 import sqlite3
+from pathlib import Path
 
 import cv2
 import h5py
@@ -14,15 +18,21 @@ import torch
 import jax
 
 from deep_image_matching_tpu.__main__ import run_matching as jax_run_matching
+from deep_image_matching_tpu.matchers import superglue as jsgm
 from deep_image_matching_tpu.models import lightglue as jlg
+from deep_image_matching_tpu.models import superglue as jsg
 from deep_image_matching_tpu.models import superpoint as jsp
 from deep_image_matching_tpu_torch.__main__ import run_matching as torch_run_matching
 from deep_image_matching_tpu_torch.convert import (
     lightglue_params_from_jax,
+    superglue_params_from_jax,
     superpoint_params_from_jax,
 )
 from deep_image_matching_tpu_torch.models import lightglue as tlg
+from deep_image_matching_tpu_torch.models import superglue as tsg
 from deep_image_matching_tpu_torch.models import superpoint as tsp
+
+DEMO_IMAGES = Path(__file__).resolve().parents[1] / "notebooks" / "demo_project" / "images"
 
 
 def _project(root):
@@ -50,15 +60,20 @@ def shared_weights(tmp_path, monkeypatch):
     lg = jlg.init_params(jax.random.PRNGKey(42), n_layers=9, input_dim=256)
     torch.save(superpoint_params_from_jax(sp), wdir / "superpoint_v1.pth")
     torch.save(lightglue_params_from_jax(lg), wdir / "superpoint_lightglue.pth")
+    torch.save(superglue_params_from_jax(jsg.init_params(jax.random.PRNGKey(7))),
+               wdir / "superglue_outdoor.pth")
     monkeypatch.setenv("DIM_TPU_WEIGHTS_DIR", str(wdir))
     monkeypatch.setattr(jsp, "_DEFAULT_PARAMS", None)
     monkeypatch.setattr(jsp, "_DEFAULT_PARAMS_RANDOM", False)
     monkeypatch.setattr(jlg, "_DEFAULT_PARAMS", {})
     monkeypatch.setattr(jlg, "_DEFAULT_PARAMS_RANDOM", set())
+    monkeypatch.setattr(jsgm, "_PARAM_CACHE", {})
     monkeypatch.setattr(tsp, "_DEFAULT_MODEL", None)
     monkeypatch.setattr(tsp, "_DEFAULT_MODEL_RANDOM", False)
     monkeypatch.setattr(tlg, "_DEFAULT_MODELS", {})
     monkeypatch.setattr(tlg, "_DEFAULT_RANDOM", set())
+    monkeypatch.setattr(tsg, "_DEFAULT_MODELS", {})
+    monkeypatch.setattr(tsg, "_DEFAULT_RANDOM", set())
 
 
 def _read(out_dir):
@@ -84,16 +99,38 @@ def _read(out_dir):
     return feats, raw, ver, tables, images, cams
 
 
-def test_run_matching_agrees_with_jax(tmp_path, shared_weights):
-    proj = _project(tmp_path / "proj")
+# pipeline -> (images, extra YAML). Random weights never reach LightGlue's
+# 0.1 or SuperGlue's 0.3 match score, so those keep every mutual nearest
+# neighbour (threshold 0); SuperGlue's 4096 keypoints are capped at 1024 to
+# keep the CPU run short. The JAX package's CPU nearest-neighbour route holds
+# (B, K, K) distances, so the demo runs match 2 pairs per batch.
+PIPELINES = {
+    "superpoint+lightglue": ("synthetic", "matcher:\n  filter_threshold: 0.0\n"),
+    "superpoint+superglue": ("synthetic", "extractor:\n  max_keypoints: 1024\n"
+                                          "matcher:\n  match_threshold: 0.0\n"),
+    "superpoint+kornia_matcher": ("synthetic", ""),
+    "sift+kornia_matcher": ("demo", ""),
+    "orb+kornia_matcher": ("demo", ""),
+}
+
+
+@pytest.mark.parametrize("pipeline", list(PIPELINES))
+def test_run_matching_agrees_with_jax(tmp_path, shared_weights, pipeline):
+    images, extra = PIPELINES[pipeline]
+    if images == "synthetic":
+        proj = _project(tmp_path / "proj")
+        tpu = "general:\n  tpu:\n    dtype: float32\n"
+    else:
+        proj = tmp_path / "proj"
+        shutil.copytree(DEMO_IMAGES, proj / "images")
+        tpu = "general:\n  tpu:\n    dtype: float32\n    match_batch_size: 2\n"
+    n_images = len(list((proj / "images").iterdir()))
     cfg = tmp_path / "config.yaml"
-    # f32 matcher on both sides; random weights never reach the default
-    # 0.1 match score, so every mutual nearest neighbour is kept
-    cfg.write_text("general:\n  tpu:\n    dtype: float32\nmatcher:\n  filter_threshold: 0.0\n")
+    cfg.write_text(tpu + extra)  # f32 matcher on both sides
     outs = {}
     for tag, run in (("jax", jax_run_matching), ("torch", torch_run_matching)):
         feature_path, _, _ = run({
-            "dir": str(proj), "outs": str(tmp_path / tag), "pipeline": "superpoint+lightglue",
+            "dir": str(proj), "outs": str(tmp_path / tag), "pipeline": pipeline,
             "strategy": "bruteforce", "skip_reconstruction": True, "graph": False,
             "force": True, "config_file": str(cfg),
         })
@@ -101,7 +138,7 @@ def test_run_matching_agrees_with_jax(tmp_path, shared_weights):
     jf, jraw, jver, jtab, jimg, jcam = outs["jax"]
     tf, traw, tver, ttab, timg, tcam = outs["torch"]
 
-    assert jf.keys() == tf.keys() and len(jf) == 3
+    assert jf.keys() == tf.keys() and len(jf) == n_images
     for name in jf:
         jk = {tuple(p): i for i, p in enumerate(jf[name]["keypoints"])}
         tk = {tuple(p): i for i, p in enumerate(tf[name]["keypoints"])}
@@ -114,10 +151,12 @@ def test_run_matching_agrees_with_jax(tmp_path, shared_weights):
         np.testing.assert_allclose(tf[name]["scores"][ti].astype(np.float32),
                                    jf[name]["scores"][ji].astype(np.float32), rtol=1e-3)
         np.testing.assert_array_equal(tf[name]["image_size"], jf[name]["image_size"])
-    assert jraw.keys() == traw.keys() and len(jraw) == 3
+    assert jraw.keys() == traw.keys() and len(jraw) == n_images * (n_images - 1) // 2
     for pair in jraw:
         assert traw[pair] == jraw[pair], pair
     assert jver.keys() == tver.keys() and len(jver) >= 1
+    if pipeline == "sift+kornia_matcher":  # the demo images are one scene
+        assert len(jver) == 10
     for pair in jver:
         assert tver[pair] == jver[pair], pair
     assert ttab == jtab and timg == jimg and tcam == jcam
