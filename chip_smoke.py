@@ -10,12 +10,18 @@ Phases, each printing its own lines:
 3. each kernel against its plain PyTorch version on the card, at the
    main-path shapes (partial masks, degenerate hypotheses, integer
    descriptors with ties), with its tolerance and both times (CUDA events,
-   median of 10): attention (LightGlue's and SuperGlue's shapes), the FFN
-   in both modes (ln_gelu at LightGlue's shape, relu at SuperGlue's),
-   assignment, null space, nearest neighbours, the Sinkhorn iteration and
-   the row logsumexp;
+   median of 10), its bound (the larger of the bytes it must move over
+   3.35 TB/s and its operations over the peak rate of their type) and the
+   time of one PyTorch call that computes the same function, where there is
+   one: attention (LightGlue's, SuperGlue's and DINOv2's shapes), the FFN in
+   both modes (ln_gelu at LightGlue's shape, relu at SuperGlue's),
+   assignment, null space, nearest neighbours, the Sinkhorn iteration, the
+   row logsumexp and RoMa's refiner stack (both passes' shapes);
 4. LightGlue and SuperGlue at full width on small batches with planted
    matches: the kernels on the card against the plain versions on the CPU;
+   RoMa (DINOv2 at 2 blocks, 224 / 320 px) on the card against the CPU, its
+   sampler with the CPU's draws, and RoMa with DINOv2 at its published
+   depth (24 blocks) on one pair at the default 560 / 864 px;
 5. the main paths through the port's CLI entry ``run_matching`` (random
    weights, --skip_reconstruction), each with the launch counts set to 0
    just before it and read just after:
@@ -31,7 +37,9 @@ Phases, each printing its own lines:
    - sift+kornia_matcher and orb+kornia_matcher on the 5 demo images
      (``bruteforce``), on the card and again on the CPU: the raw matches must
      be equal pair by pair, since the arithmetic on integer descriptors is
-     exact.
+     exact;
+   - roma on the 5 demo images (``bruteforce``, default settings): the
+     keypoints each pair appends, the multiview merge and its database.
    Each run checks features.h5, raw_matches.h5 and database.db and prints
    the wall time per stage; each path checks that its kernels launched.
 
@@ -73,7 +81,27 @@ KERNELS = {
                  "src/deep_image_matching_tpu/ops/pallas_sinkhorn.py:140"),
     "lse_rows": ("src/deep_image_matching_tpu_torch/csrc/sinkhorn.cu",
                  "src/deep_image_matching_tpu/ops/pallas_sinkhorn.py:64"),
+    "refiner": ("src/deep_image_matching_tpu_torch/csrc/refiner.cu",
+                "src/deep_image_matching_tpu/ops/pallas_refiner.py:90"),
 }
+
+# NVIDIA H100 SXM data sheet: HBM bytes/s, dense peak operations/s by type
+# (bf16 on the tensor cores, f32 outside them)
+HBM_RATE = 3.35e12
+PEAK_RATE = {"bf16": 989e12, "f32": 67e12}
+
+
+def _bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / PEAK_RATE[kind] * 1e3
+    if t_bytes >= t_ops:
+        return {"bound_ms": t_bytes, "bound_by": "bytes"}
+    return {"bound_ms": t_ops, "bound_by": "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 # no path of the JAX package calls logsumexp_rows: it is held against its
 # plain version only and exempt from the launch check
@@ -153,12 +181,18 @@ def _masks(torch, gen, B, N, dev):
 
 def _attention_case(torch, fused_attention, attention_reference, q, k, v, qm, km):
     """One attention shape: the error held to two bf16 ulps elementwise over
-    valid query rows (inf if any element exceeds it), the bound, both times."""
-    scale = q.shape[-1] ** -0.5
+    valid query rows (inf if any element exceeds it), the bound, the three
+    times (kernel, plain version, one scaled_dot_product_attention call with
+    the same boolean key mask)."""
+    B, H, Tq, hd = q.shape
+    Tk = k.shape[2]
+    scale = hd ** -0.5
     got = fused_attention(q, k, v, qm, km, scale)
     ref = attention_reference(q, k, v, km, scale)
     torch.cuda.synchronize()
-    rows = qm[:, None, :, None].expand_as(got)
+    qm_ = qm if qm is not None else torch.ones(B, Tq, dtype=torch.bool, device=q.device)
+    km_ = km if km is not None else torch.ones(B, Tk, dtype=torch.bool, device=q.device)
+    rows = qm_[:, None, :, None].expand_as(got)
     diff = (got.float() - ref.float()).abs()[rows]
     mag = ref.float().abs()[rows].clamp(min=1.0)
     err = diff.max().item()
@@ -169,9 +203,15 @@ def _attention_case(torch, fused_attention, attention_reference, q, k, v, qm, km
         err = float("inf")
     tol = float((2.0 ** -6) * mag.max())
     del got, ref, diff, rows, mag
-    ms = _time_ms(lambda: fused_attention(q, k, v, qm, km, scale))
-    plain_ms = _time_ms(lambda: attention_reference(q, k, v, km, scale))
-    return err, tol, ms, plain_ms
+    # the work these masks need: valid queries against valid keys
+    pairs = float((qm_.sum(1).double() * km_.sum(1).double()).sum())
+    bound = _bound(_nbytes(q, k, v, q) + qm_.numel() + km_.numel(), 4.0 * H * hd * pairs, "bf16")
+    mask = None if km is None else km[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {"ms": _time_ms(lambda: fused_attention(q, k, v, qm, km, scale)),
+             "plain_ms": _time_ms(lambda: attention_reference(q, k, v, km, scale)),
+             "library_ms": _time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale))}
+    return err, tol, {**times, **bound}
 
 
 def check_attention(torch, dev, card):
@@ -185,8 +225,7 @@ def check_attention(torch, dev, card):
                for s in (2.0, 2.0, 1.0))
     qm = _masks(torch, gen, B, N, dev)
     km = _masks(torch, gen, B, N, dev)
-    err, tol, ms, plain_ms = _attention_case(
-        torch, fused_attention, attention_reference, q, k, v, qm, km)
+    err, tol, main = _attention_case(torch, fused_attention, attention_reference, q, k, v, qm, km)
     del q, k, v
     torch.cuda.empty_cache()
     # SuperGlue's shape: T = 4096, heads interleaved across the 256 channels
@@ -201,15 +240,30 @@ def check_attention(torch, dev, card):
                for s in (2.0, 2.0, 1.0))
     qm = _masks(torch, gen, B, T, dev)
     km = _masks(torch, gen, B, T, dev)
-    sg_err, sg_tol, sg_ms, sg_plain_ms = _attention_case(
-        torch, fused_attention, attention_reference, q, k, v, qm, km)
+    sg_err, sg_tol, sg = _attention_case(torch, fused_attention, attention_reference,
+                                         q, k, v, qm, km)
+    del q, k, v
+    torch.cuda.empty_cache()
+    # DINOv2's shape at RoMa's 560 px: 2 images, 16 heads, 1601 tokens (a
+    # ragged length), no masks, q, k, v made contiguous from the fused qkv
+    # projection as models/dinov2.py makes them
+    S, Hd = 1601, 16
+    qkv = (torch.randn(2, S, 3, Hd, d, generator=gen) * 1.5).to(dev, torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+    dn_err, dn_tol, dn = _attention_case(torch, fused_attention, attention_reference,
+                                         q, k, v, None, None)
     what = (f"valid query rows, 2 bf16 ulps elementwise; (16, 4, 2048, 64) reported; "
             f"SuperGlue's (16, 4, 4096, 64) interleaved heads: max err {sg_err:.3e}, kernel "
-            f"{sg_ms:.3f} ms, plain {sg_plain_ms:.3f} ms")
-    extra = {"superglue_shape": [B, H, T, d], "superglue_max_abs_err": sg_err,
-             "superglue_ms": sg_ms, "superglue_plain_ms": sg_plain_ms}
+            f"{sg['ms']:.3f} ms, plain {sg['plain_ms']:.3f} ms, sdpa {sg['library_ms']:.3f} ms, "
+            f"bound {sg['bound_ms']:.3f} ms; DINOv2's (2, 16, 1601, 64): max err {dn_err:.3e}, "
+            f"kernel {dn['ms']:.3f} ms, plain {dn['plain_ms']:.3f} ms, sdpa "
+            f"{dn['library_ms']:.3f} ms, bound {dn['bound_ms']:.3f} ms")
+    extra = {**main, "superglue_shape": [B, H, T, d], "superglue_max_abs_err": sg_err,
+             **{f"superglue_{k}": v for k, v in sg.items()},
+             "dinov2_shape": [2, Hd, S, d], "dinov2_max_abs_err": dn_err,
+             **{f"dinov2_{k}": v for k, v in dn.items()}}
     # each shape is held to its own elementwise bound (inf on failure)
-    return max(err, sg_err), max(tol, sg_tol), ms, plain_ms, what, extra
+    return max(err, sg_err, dn_err), max(tol, sg_tol, dn_tol), what, extra
 
 
 def check_ffn(torch, dev, card):
@@ -228,11 +282,14 @@ def check_ffn(torch, dev, card):
     beta = rnd(2 * D, s=0.1)
     w2 = rnd(D, 2 * D, s=(2 * D) ** -0.5)
     b2 = rnd(D, s=0.1)
-    errs, times = {}, {}
+    errs, times, bounds = {}, {}, {}
     # each mode at its path's shape: LightGlue's ln_gelu at K = 2048,
     # SuperGlue's relu at K = 4096
     for mode, K in (("ln_gelu", 2048), ("relu", 4096)):
         args = (rnd(16, K, D), rnd(16, K, D), w1, b1, g, beta, w2, b2)
+        # inputs, weights and the (16, K, 256) output; two products per row
+        bounds[mode] = _bound(_nbytes(*args, args[0]), 2.0 * 16 * K * (4 * D * D + 2 * D * D),
+                              "bf16")
         got = ffn_fused(*args, mode=mode)
         ref = ffn_reference(*args, mode=mode)
         torch.cuda.synchronize()
@@ -253,9 +310,14 @@ def check_ffn(torch, dev, card):
     what = ("1 bf16 ulp elementwise; ln_gelu (16, 2048, 256) (reported times) max err "
             f"{errs['ln_gelu'][0]:.3e}; relu (16, 4096, 256) max err {errs['relu'][0]:.3e}, "
             f"kernel {times['relu'][0]:.3f} ms, plain {times['relu'][1]:.3f} ms")
-    extra = {"relu_shape": [16, 4096, D], "relu_max_abs_err": errs["relu"][0],
-             "relu_ms": times["relu"][0], "relu_plain_ms": times["relu"][1]}
-    return err, tol, times["ln_gelu"][0], times["ln_gelu"][1], what, extra
+    extra = {"ms": times["ln_gelu"][0], "plain_ms": times["ln_gelu"][1], **bounds["ln_gelu"],
+             "library_ms": None,
+             "library_note": "none: LayerNorm, GELU (or ReLU) and two products; no single "
+                             "PyTorch call does all of them",
+             "relu_shape": [16, 4096, D], "relu_max_abs_err": errs["relu"][0],
+             "relu_ms": times["relu"][0], "relu_plain_ms": times["relu"][1],
+             "relu_bound_ms": bounds["relu"]["bound_ms"]}
+    return err, tol, what, extra
 
 
 def check_assignment(torch, dev, card):
@@ -285,9 +347,16 @@ def check_assignment(torch, dev, card):
     if far0 or far1:
         err = float("inf")
     tol = 1e-3  # f32 sums in another order over D = 256 and N = 2048
-    ms = _time_ms(lambda: assignment_fused(md0, md1, z0, z1, m0, m1))
-    plain_ms = _time_ms(lambda: assignment_reference(md0, md1, z0, z1, m0, m1))
-    return err, tol, ms, plain_ms, f"valid rows; argmax near-ties {ties}"
+    # the product over valid rows and columns (f32 outside the tensor
+    # cores); inputs read once, the four (B, N) outputs written once
+    pairs = float((m0.sum(1).double() * m1.sum(1).double()).sum())
+    extra = {"ms": _time_ms(lambda: assignment_fused(md0, md1, z0, z1, m0, m1)),
+             "plain_ms": _time_ms(lambda: assignment_reference(md0, md1, z0, z1, m0, m1)),
+             **_bound(_nbytes(md0, md1, z0, z1, m0, m1, *got), 2.0 * D * pairs, "f32"),
+             "library_ms": None,
+             "library_note": "none: the row and column maxima and argmaxima of a dual "
+                             "softmax over a product; no single PyTorch call gives them"}
+    return err, tol, f"valid rows; argmax near-ties {ties}", extra
 
 
 def check_nullspace(torch, dev, card):
@@ -322,9 +391,15 @@ def check_nullspace(torch, dev, card):
     # move by ~eps / sigma_8 between two QR orderings; degenerate ones (a
     # >= 2-dim null space) are held to the residual |A f| < 1e-4 only
     tol = 1e-3
-    ms = _time_ms(lambda: nullspace_planes(A9))
-    plain_ms = _time_ms(lambda: nullspace_reference(A9))
-    return err, tol, ms, plain_ms, "generic up to sign; residual < 1e-4 incl. f33 = 0"
+    A_rows = A.to(dev)  # (N, 8, 9): the systems as torch.linalg.svd takes them
+    # Householder QR of the 9 x 8 transpose, 2 m n^2 - 2 n^3 / 3 flops
+    # (m = 9, n = 8), and the null vector; the systems read once, the
+    # vectors written once
+    extra = {"ms": _time_ms(lambda: nullspace_planes(A9)),
+             "plain_ms": _time_ms(lambda: nullspace_reference(A9)),
+             **_bound(_nbytes(A9, got), N * (2 * 9 * 64 - 2 * 512 / 3), "f32"),
+             "library_ms": _time_ms(lambda: torch.linalg.svd(A_rows))}
+    return err, tol, "generic up to sign; residual < 1e-4 incl. f33 = 0", extra
 
 
 def check_nn(torch, dev, card):
@@ -356,8 +431,12 @@ def check_nn(torch, dev, card):
     if far or equal_share < 0.999:
         err = float("inf")
     tol = 1e-4  # f32 FMA sums over D = 256 in another order
-    ms = _time_ms(lambda: nn_top2(d0, d1, sq1))
-    plain_ms = _time_ms(lambda: nn_top2_reference(d0, d1, sq1))
+    extra = {"ms": _time_ms(lambda: nn_top2(d0, d1, sq1)),
+             "plain_ms": _time_ms(lambda: nn_top2_reference(d0, d1, sq1)),
+             **_bound(_nbytes(d0, d1, sq1, *got), 2.0 * B * K * K * D, "f32"),
+             "library_ms": None,
+             "library_note": "none: the top-2 of the distances needs two calls "
+                             "(torch.cdist, then topk)"}
     # SIFT (128) and ORB (32) widths: byte-valued descriptors at capacity
     # 4000 with exact neighbours, double minima and duplicated columns; the
     # f32 arithmetic is exact, so every output must be bitwise equal
@@ -379,7 +458,7 @@ def check_nn(torch, dev, card):
             err = float("inf")
     what = (f"D=256 min1/min2 abs; argmin equal {equal_share:.5f}, none differs where the "
             f"gap > 1e-3; {', '.join(exact)}")
-    return err, tol, ms, plain_ms, what
+    return err, tol, what, extra
 
 
 def _couplings(torch, gen, B, M, N, dev):
@@ -428,11 +507,17 @@ def check_sinkhorn(torch, dev, card):
     # terms summed in another order, compounded over the iterations)
     err = err1 if err100 <= 1e-3 and agree >= 0.999 else float("inf")
     tol = 1e-4
-    ms = _time_ms(lambda: sinkhorn_iteration(z, v0, log_mu, log_nu))
-    plain_ms = _time_ms(lambda: sinkhorn_iteration_reference(z, v0, log_mu, log_nu))
     what = (f"valid u, v after 1 iteration; after 100: {err100:.3e} (tol 1e-3), _filter "
             f"matches equal {agree:.5f} of {int(rows.sum())}; times per iteration")
-    return err, tol, ms, plain_ms, what, {"max_abs_err_100_iterations": err100}
+    # z read once; per element two exponentials and four additions
+    extra = {"ms": _time_ms(lambda: sinkhorn_iteration(z, v0, log_mu, log_nu)),
+             "plain_ms": _time_ms(lambda: sinkhorn_iteration_reference(z, v0, log_mu, log_nu)),
+             **_bound(_nbytes(z, v0, log_mu, log_nu, u1, v1), 6.0 * z.numel(), "f32"),
+             "library_ms": None,
+             "library_note": "none: an iteration is two logsumexp passes (rows, then "
+                             "columns) with an update between them",
+             "max_abs_err_100_iterations": err100}
+    return err, tol, what, extra
 
 
 def check_lse_rows(torch, dev, card):
@@ -448,9 +533,65 @@ def check_lse_rows(torch, dev, card):
     torch.cuda.synchronize()
     # relative 1e-5 (the -1e30 rows compare relatively too)
     rel = ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
-    ms = _time_ms(lambda: logsumexp_rows(z, v, log_mu))
-    plain_ms = _time_ms(lambda: logsumexp_rows_reference(z, v, log_mu))
-    return rel, 1e-5, ms, plain_ms, "relative to max(|u|, 1), every row"
+    extra = {"ms": _time_ms(lambda: logsumexp_rows(z, v, log_mu)),
+             "plain_ms": _time_ms(lambda: logsumexp_rows_reference(z, v, log_mu)),
+             **_bound(_nbytes(z, v, log_mu, got), 3.0 * z.numel(), "f32"),
+             "library_ms": _time_ms(lambda: torch.logsumexp(z, -1)),
+             "library_note": "torch.logsumexp(z, -1): the same read of z, without the v "
+                             "and log_mu terms"}
+    return rel, 1e-5, "relative to max(|u|, 1), every row", extra
+
+
+def check_refiner(torch, dev, card):
+    from deep_image_matching_tpu_torch.ops.refiner import (
+        refiner_dw_stack, refiner_dw_stack_reference)
+
+    gen = torch.Generator().manual_seed(14)
+    # RoMa's scale-1 refiner: 9 blocks of C = 24, weights drawn as the JAX
+    # package's init draws them (depthwise taps N(0, 2/25), 1x1 N(0, 2/C))
+    N, C = 9, 24
+    w1 = (torch.randn(N, 5, 5, 1, C, generator=gen) * (2 / 25) ** 0.5).to(dev)
+    b1 = (0.1 * torch.randn(N, C, generator=gen)).to(dev)
+    w2 = (torch.randn(N, 1, 1, C, C, generator=gen) * (2 / C) ** 0.5).to(dev)
+    b2 = (0.1 * torch.randn(N, C, generator=gen)).to(dev)
+    res = {}
+    # both passes' shapes: 2 images at coarse_res 560 and upsample_res 864
+    for side in (560, 864):
+        x = torch.randn(2, side, side, C, generator=gen).to(dev)
+        got = refiner_dw_stack(x, w1, b1, w2, b2)
+        ref = refiner_dw_stack_reference(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        res[side] = {
+            "err": ((got - ref).abs().max() / ref.abs().max()).item(),
+            "ms": _time_ms(lambda: refiner_dw_stack(x, w1, b1, w2, b2)),
+            "plain_ms": _time_ms(lambda: refiner_dw_stack_reference(x, w1, b1, w2, b2)),
+            # the stack as one function: x read once, the result written
+            # once; 25 taps and C products per pixel, channel and block
+            **_bound(_nbytes(x, w1, b1, w2, b2, got), 2.0 * N * x.numel() * (25 + C), "f32"),
+            # what this design moves: one launch per block reads and writes
+            # the activations
+            "per_block_traffic_ms": N * _nbytes(x, got) / HBM_RATE * 1e3,
+        }
+        del x, got, ref
+        torch.cuda.empty_cache()
+    # relative to the output's max: f32 sums of 25 taps and 24 products in
+    # another order than cuDNN's, compounded over 9 blocks
+    tol = 1e-5
+    err = max(r["err"] for r in res.values())
+    a, b = res[864], res[560]
+    what = (f"|err| / max|out|, TF32 off; (2, 864, 864, 24) reported; (2, 560, 560, 24): "
+            f"err {b['err']:.3e}, kernel {b['ms']:.3f} ms, plain {b['plain_ms']:.3f} ms, bound "
+            f"{b['bound_ms']:.3f} ms; one launch per block moves the activations in "
+            f"{a['per_block_traffic_ms']:.3f} / {b['per_block_traffic_ms']:.3f} ms")
+    extra = {"ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+             "bound_by": a["bound_by"], "library_ms": None,
+             "library_note": "none: nine blocks of a depthwise 5x5 and a 1x1 convolution; "
+                             "cuDNN runs them as 18 convolution calls",
+             "shape": [2, 864, 864, C], "blocks": N,
+             "per_block_traffic_ms": a["per_block_traffic_ms"],
+             "coarse_shape": [2, 560, 560, C], "coarse_max_abs_err": b["err"],
+             **{f"coarse_{k}": v for k, v in b.items() if k != "err"}}
+    return err, tol, what, extra
 
 
 def phase_kernels(card: str) -> dict:
@@ -461,18 +602,21 @@ def phase_kernels(card: str) -> dict:
     dev = torch.device("cuda", 0)
     checks = {"attention": check_attention, "ffn": check_ffn,
               "assignment": check_assignment, "nullspace": check_nullspace,
-              "nn": check_nn, "sinkhorn": check_sinkhorn, "lse_rows": check_lse_rows}
+              "nn": check_nn, "sinkhorn": check_sinkhorn, "lse_rows": check_lse_rows,
+              "refiner": check_refiner}
     report = {}
     ok = True
     for name, fn in checks.items():
-        err, tol, ms, plain_ms, what, *extra = fn(torch, dev, card)
+        err, tol, what, extra = fn(torch, dev, card)
         good = err <= tol
         ok &= good
-        report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **(extra or [{}])[0]}
+        report[name] = {"max_abs_err": err, **extra}
         torch.cuda.empty_cache()
+        lib = "none" if extra["library_ms"] is None else f"{extra['library_ms']:.3f} ms"
         print(f"[kernel] {name}: max_abs_err {err:.3e} (tol {tol:.1e}, {what}) "
-              f"{'OK' if good else 'FAIL'}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-              f"[{card}]", flush=True)
+              f"{'OK' if good else 'FAIL'}; kernel {extra['ms']:.3f} ms, plain "
+              f"{extra['plain_ms']:.3f} ms, bound {extra['bound_ms']:.3f} ms "
+              f"({extra['bound_by']}), library call {lib} [{card}]", flush=True)
     if not ok:
         _fail("a kernel disagrees with its plain version")
     return report
@@ -603,6 +747,83 @@ def _check_outputs(out_dir: Path, names: list, n_pairs: int, dim: int):
             len(ver_pairs))
 
 
+def _check_dense_outputs(out_dir: Path, names: list, n_pairs: int, num: int = 5000):
+    """A detector-free run's files: each image's keypoints are the samples
+    its pairs appended, each pair holds (0, num] raw matches, and when a pair
+    verified the multiview merge wrote its files and the database was
+    exported again from them. Returns a summary line and the number of
+    verified pairs."""
+    import sqlite3
+
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.io import hdf5
+
+    counts, appended = {}, {}
+    with hdf5.File(out_dir / "features.h5", "r") as f:
+        if sorted(f.keys()) != sorted(names):
+            _fail(f"features.h5 holds {len(f.keys())} of {len(names)} images")
+        for name in names:
+            k = np.asarray(f[name]["keypoints"])
+            w, h = np.asarray(f[name]["image_size"])
+            if not np.isfinite(k).all() or (len(k) and (k.min() < 0 or k[:, 0].max() > w
+                                                        or k[:, 1].max() > h)):
+                _fail(f"keypoints of {name} are not finite or lie outside the image")
+            counts[name], appended[name] = len(k), 0
+
+    def pairs_of(path):
+        out = []
+        if path.exists():
+            with hdf5.File(path, "r") as f:
+                for a in f:
+                    for b in f[a]:
+                        out.append((a, b, np.asarray(f[a][b])))
+        return out
+
+    raw = pairs_of(out_dir / "raw_matches.h5")
+    if len(raw) != n_pairs:
+        _fail(f"raw_matches.h5 holds {len(raw)} of {n_pairs} pairs")
+    for a, b, m in raw:
+        if not 0 < len(m) <= num or m[:, 0].max() >= counts[a] or m[:, 1].max() >= counts[b]:
+            _fail(f"raw matches of {a}-{b}: {len(m)} rows or indices out of range")
+        appended[a] += len(m)
+        appended[b] += len(m)
+    if appended != counts:
+        _fail(f"keypoints per image {counts} are not the samples of their pairs {appended}")
+    ver = pairs_of(out_dir / "matches.h5")
+    mv = out_dir / "multiview"
+    db = sqlite3.connect(str(out_dir / "database.db"))
+    try:
+        n_img, n_kp, n_m, n_tv = (db.execute(f"SELECT COUNT(*) FROM {t}").fetchone()[0]
+                                  for t in ("images", "keypoints", "matches",
+                                            "two_view_geometries"))
+    finally:
+        db.close()
+    if ver:
+        if not (mv / "features_multiview.h5").exists():
+            _fail("pairs verified but the multiview merge wrote nothing")
+        mv_pairs = pairs_of(mv / "matches_multiview.h5")
+        with hdf5.File(mv / "features_multiview.h5", "r") as f:
+            mv_imgs = len(f.keys())
+        # the export from the merged files: their images, keypoints and
+        # verified pairs, no raw matches
+        expect = (mv_imgs, mv_imgs, 0, len(mv_pairs))
+        merged = f"; multiview: {mv_imgs} images, {len(mv_pairs)} pairs"
+    else:
+        if mv.exists():
+            _fail("no pair verified but a multiview directory exists")
+        expect = (len(names), sum(1 for c in counts.values() if c), len(raw), 0)
+        merged = "; no pair verified, no multiview merge"
+    if (n_img, n_kp, n_m, n_tv) != expect:
+        _fail(f"database.db: images, keypoints, matches, two-view rows {(n_img, n_kp, n_m, n_tv)}"
+              f", expected {expect}")
+    sizes = sorted(len(m) for _, _, m in raw)
+    return (f"{len(names)} images, {sum(counts.values())} keypoints, {len(raw)} pairs "
+            f"({sizes[0]}-{sizes[-1]} raw matches each), {len(ver)} verified pairs "
+            f"({sum(len(m) for _, _, m in ver)} inliers){merged}; database {n_img} images, "
+            f"{n_kp} keypoint rows, {n_m} match rows, {n_tv} two-view rows", len(ver))
+
+
 def _check_shifted(out_dir: Path, names: list) -> str:
     """Verified matches between view 0 and its shifted copies must carry
     the planted shift, and at least one such pair must verify."""
@@ -634,6 +855,8 @@ def _check_shifted(out_dir: Path, names: list) -> str:
 def phase_reference(card: str) -> None:
     _reference_lightglue(card)
     _reference_superglue(card)
+    _reference_roma(card)
+    _full_depth_roma(card)
 
 
 def _reference_lightglue(card: str) -> None:
@@ -721,6 +944,156 @@ def _reference_superglue(card: str) -> None:
         _fail("SuperGlue on the card disagrees with the plain versions on the CPU")
 
 
+def _demo_pair(torch, sizes, dev):
+    """Two demo images as uint8 (1, s, s, 3) at each side length of
+    ``sizes``, as the RoMa matcher resizes them."""
+    from deep_image_matching_tpu_torch.utils.image import read_image, resize_image
+
+    demo = ROOT / "notebooks" / "demo_project" / "images"
+    full = [read_image(demo / n, grayscale=False) for n in ("sacre_coeur_A.jpg",
+                                                             "sacre_coeur_B.jpg")]
+    return [[torch.from_numpy(resize_image(im, (s, s)))[None].to(dev) for im in full]
+            for s in sizes]
+
+
+def _share_within(got, ref, rel):
+    """The share of elements within rel * max|ref| of the reference."""
+    return ((got.cpu() - ref).abs() <= rel * ref.abs().max()).float().mean().item()
+
+
+def _reference_roma(card: str) -> None:
+    """RoMa with a 2-block DINOv2 on one pair at 224 / 320 px: the kernels
+    on the card (attention in DINOv2, the refiner at scale 1) against the
+    plain versions on the CPU, on shared weights; DINOv2 in bf16, the
+    decoder in f32, TF32 off. Then the sampler on the card with the CPU's
+    draws injected, on the CPU's warps."""
+    import torch
+
+    from deep_image_matching_tpu_torch.models import dinov2, roma
+    from deep_image_matching_tpu_torch.utils.device import full_f32
+
+    dev = torch.device("cuda", 0)
+    params = roma.init_params(dinov2_depth=2)
+    params = {**params, "dinov2": dinov2.prepare(params["dinov2"], torch.bfloat16)}
+    on_card = roma.to_device(params, dev)
+    (a, b), (ah, bh) = _demo_pair(torch, (224, 320), "cpu")
+
+    def two_passes(p, d):
+        out = roma.match_pair(p, a.to(d), b.to(d), with_cert16=True)
+        return roma.match_pair_upsample(p, ah.to(d), bh.to(d), *out[:4], scale_factor=320 / 224,
+                                        cert16_ab=out[4], cert16_ba=out[5])
+
+    t0 = time.perf_counter()
+    cpu = two_passes(params, "cpu")
+    t_cpu = time.perf_counter() - t0
+    gpu = two_passes(on_card, dev)
+    torch.cuda.synchronize()
+    # the decoder alone on one pyramid (the CPU's): the refiner kernel and
+    # cuDNN against the plain versions, without DINOv2's bf16 roundings
+    both = torch.cat([a, b]).float() / 255.0
+    with torch.no_grad(), full_f32():
+        pyr = roma.build_pyramid(params, both)
+        ref = roma.decode(params, pyr, roma._swap_halves(pyr, 1))
+        pyr = {k: v.to(dev) for k, v in pyr.items()}
+        got = roma.decode(on_card, pyr, roma._swap_halves(pyr, 1))
+    torch.cuda.synchronize()
+    # 1e-3 of each output's magnitude: f32 sums in another order, carried
+    # through the coarse-to-fine loop (the bound the CPU tests hold the port
+    # to against the JAX package)
+    dec = [_share_within(g, r, 1e-3) for g, r in zip(got, ref)]
+    full = [_share_within(g, r, 1e-3) for g, r in zip(gpu, cpu)]
+    finite = all(bool(torch.isfinite(t).all()) for t in gpu)
+    print(f"[ref] RoMa 224 / 320 px, DINOv2 2 blocks: the same pyramid decoded on the card "
+          f"and the CPU, share within 1e-3 of the magnitude: warp {dec[0]:.5f}, certainty "
+          f"{dec[1]:.5f}; both passes, each device its own bf16 DINOv2: warps "
+          f"{full[0]:.5f} / {full[2]:.5f}, certainties {full[1]:.5f} / {full[3]:.5f} (CPU run "
+          f"{t_cpu:.1f} s) [{card}]", flush=True)
+    if not finite or min(dec) < 0.99:
+        _fail("RoMa's decoder on the card disagrees with the plain versions on the CPU")
+
+    # the sampler on the CPU's warps at 320 px, the CPU's draws injected
+    warp_ab, cert_ab, warp_ba, cert_ba = (t[0] for t in cpu)
+    num = 5000
+    n = 2 * 320 * 320
+    n_cand = min(4 * num, n)
+    gen = torch.Generator().manual_seed(3)
+    draws = (roma._gumbel(n, gen, "cpu"),
+             torch.randperm(n_cand, generator=gen)[:min(n_cand, 4000)],
+             roma._gumbel(n_cand, gen, "cpu"))
+    m_cpu, _ = roma.sample_matches_device(warp_ab, cert_ab, warp_ba, cert_ba, num=num,
+                                          draws=draws)
+    m_gpu, _ = roma.sample_matches_device(*(t.to(dev) for t in (warp_ab, cert_ab, warp_ba,
+                                                                 cert_ba)),
+                                          num=num, draws=tuple(d.to(dev) for d in draws))
+    m_gpu = m_gpu.cpu()
+    dist = torch.cdist(m_cpu.double(), m_gpu.double(), p=float("inf"))
+    in_order = (m_cpu - m_gpu).abs().amax(1).le(1e-6).float().mean().item()
+    found = dist.amin(1).le(1e-6)
+    one_to_one = len(set(dist.argmin(1)[found].tolist())) == int(found.sum())
+    print(f"[ref] RoMa sampler on the card with the CPU's draws: {int(found.sum())} of "
+          f"{len(m_cpu)} samples equal (within 1e-6), {in_order:.5f} in the same place "
+          f"[{card}]", flush=True)
+    if not (bool(found.all()) and one_to_one):
+        _fail("RoMa's sampler on the card picks other samples than on the CPU")
+
+
+def _full_depth_roma(card: str) -> None:
+    """RoMa with DINOv2 at its published depth (24 blocks, width 1024, 16
+    heads; random weights drawn on the card) on one pair at the default
+    560 / 864 px, 5000 samples: warm time per pair (median of 3), peak
+    memory, kernel launches per pair."""
+    import torch
+
+    from deep_image_matching_tpu_torch.models import dinov2, roma
+    from deep_image_matching_tpu_torch.ops import _lib
+
+    dev = torch.device("cuda", 0)
+    p = roma.to_device(roma.init_params(dinov2_depth=2), dev)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    d = 1024
+
+    def lin(ci, co):
+        return {"w": torch.randn(co, ci, generator=gen, device=dev) / ci ** 0.5,
+                "b": torch.zeros(co, device=dev)}
+
+    def ln():
+        return {"g": torch.ones(d, device=dev), "b": torch.zeros(d, device=dev)}
+
+    blocks = [{"ln1": ln(), "qkv": lin(d, 3 * d), "proj": lin(d, d), "ls1": torch.ones(d, device=dev),
+               "ln2": ln(), "fc1": lin(d, 4 * d), "fc2": lin(4 * d, d),
+               "ls2": torch.ones(d, device=dev)} for _ in range(24)]
+    p["dinov2"] = dinov2.prepare({**p["dinov2"], "blocks": blocks}, torch.bfloat16)
+    (a, b), (ah, bh) = _demo_pair(torch, (560, 864), dev)
+
+    def one_pair():
+        out = roma.match_pair(p, a, b, with_cert16=True)
+        up = roma.match_pair_upsample(p, ah, bh, *out[:4], scale_factor=864 / 560,
+                                      cert16_ab=out[4], cert16_ba=out[5])
+        m, _ = roma.sample_matches_device(*(t[0] for t in up), num=5000,
+                                          generator=torch.Generator(device=dev).manual_seed(1))
+        return up, m
+
+    one_pair()
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        up, m = one_pair()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_pair = {k: v // 3 for k, v in _lib.LAUNCHES.items() if v}
+    ok = all(bool(torch.isfinite(t).all()) for t in (*up, m)) and tuple(m.shape) == (5000, 4)
+    print(f"[ref] RoMa with DINOv2 at 24 blocks, one pair at 560 / 864 px: warm "
+          f"{sorted(walls)[1] * 1e3:.1f} ms per pair (median of 3: "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}), peak {peak:.2f} GiB, launches per "
+          f"pair {per_pair} [{card}]", flush=True)
+    if not ok or per_pair.get("attention", 0) != 24 or per_pair.get("refiner", 0) != 18:
+        _fail("RoMa at full depth: non-finite output or unexpected launches")
+
+
 # path -> (kernels it must launch, its runs: (project, strategy, config,
 # descriptor width, CPU comparison)). Each path starts with the launch
 # counts at 0 and reads them when its runs are done.
@@ -736,6 +1109,10 @@ PATHS = {
         ("demo5", "bruteforce", "default", 128, True),)),
     "orb+kornia_matcher": (("nn", "nullspace"), (
         ("demo5", "bruteforce", "default", 32, True),)),
+    # detector-free: no descriptors (width None); DINOv2's attention and the
+    # scale-1 refiner run on the card
+    "roma": (("attention", "refiner"), (
+        ("demo5", "bruteforce", "default", None, False),)),
 }
 
 
@@ -801,7 +1178,10 @@ def phase_main_path(card: str) -> dict:
             n_pairs = len((out_dir / "pairs.txt").read_text().splitlines())
             if strategy == "bruteforce" and n_pairs != len(names) * (len(names) - 1) // 2:
                 _fail(f"bruteforce gave {n_pairs} pairs")
-            summary, n_verified = _check_outputs(out_dir, names, n_pairs, dim)
+            if dim is None:
+                summary, n_verified = _check_dense_outputs(out_dir, names, n_pairs)
+            else:
+                summary, n_verified = _check_outputs(out_dir, names, n_pairs, dim)
             if proj_name == "synthetic16" and pipeline != "superpoint+superglue":
                 # random SuperGlue weights mix the keypoint positions into the
                 # descriptors, so only the other matchers find the shift

@@ -9,11 +9,13 @@ one run under ``torch.profiler``, which gives
 - device busy: the sum of the device-side events (kernels, copies, memsets);
 - the idle share, 1 - busy / wall;
 - the peak of allocated device memory;
-- the device events that took the most time.
+- the device events that took the most time;
+- each hand-written kernel's share of the device time.
 
 Projects are ``chip_smoke.py``'s: 16 synthetic 1024x1024 views with
 ``bruteforce`` pairs (120) for the SuperPoint paths, the 5 demo images with
-``bruteforce`` pairs (10) for SIFT and ORB. Weights are random, and the
+``bruteforce`` pairs (10) for SIFT, ORB and RoMa (default settings: 560 /
+864 px, 5000 samples per pair, DINOv2 at 2 blocks). Weights are random, and the
 learned matchers run with match threshold 0 as in ``chip_smoke.py``. The card's
 name and power limit are printed first; the summary is also written to
 ``build/profile/profile.json``. Exits non-zero without a CUDA device.
@@ -40,6 +42,15 @@ PATHS = {
     "superpoint+kornia_matcher": ("synthetic16", ""),
     "sift+kornia_matcher": ("demo5", ""),
     "orb+kornia_matcher": ("demo5", ""),
+    "roma": ("demo5", ""),
+}
+
+# the __global__ functions of csrc/*.cu -> the kernel they belong to
+OUR_KERNELS = {
+    "attention_kernel": "attention", "ffn_kernel": "ffn", "dual_pass_kernel": "assignment",
+    "nullspace_kernel": "nullspace", "nn_top2_kernel": "nn",
+    "sinkhorn_iter_kernel": "sinkhorn", "lse_rows_kernel": "lse_rows",
+    "refiner_block_kernel": "refiner",
 }
 
 
@@ -77,10 +88,17 @@ def profile_path(pipeline: str, project: Path, config: Path, warm: int, top: int
               if _device_ms(e) > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")]
     events.sort(reverse=True)
     busy = sum(ms for ms, _, _ in events)
+    ours = {}
+    for ms, n, key in events:
+        for fn, kernel in OUR_KERNELS.items():
+            if fn in key:
+                ms0, n0 = ours.get(kernel, (0.0, 0))
+                ours[kernel] = (ms0 + ms, n0 + n)
     return {
         "pipeline": pipeline, "warm_walls_s": walls, "profiled_wall_ms": wall * 1e3,
         "device_busy_ms": busy, "idle_share": 1.0 - busy / (wall * 1e3),
         "peak_gib": peak_gib,
+        "kernels": {k: {"ms": ms, "share": ms / busy, "count": n} for k, (ms, n) in ours.items()},
         "top": [{"ms": ms, "share": ms / busy, "count": n, "name": key}
                 for ms, n, key in events[:top]],
     }
@@ -128,6 +146,9 @@ def main() -> None:
               f"{', '.join(f'{w:.3f}' for w in r['warm_walls_s'])} s; profiled wall "
               f"{r['profiled_wall_ms']:.1f} ms; device busy {r['device_busy_ms']:.1f} ms; idle "
               f"{100 * r['idle_share']:.1f} %; peak {r['peak_gib']:.2f} GiB [{card}]", flush=True)
+        for k, e in r["kernels"].items():
+            print(f"   kernel {k}: {e['ms']:.2f} ms, {100 * e['share']:.1f} % of device time, "
+                  f"n={e['count']}", flush=True)
         for e in r["top"]:
             print(f"   {e['ms']:9.2f} ms {100 * e['share']:5.1f} % n={e['count']:5d} "
                   f"{e['name'][:110]}", flush=True)

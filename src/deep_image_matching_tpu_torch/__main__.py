@@ -3,9 +3,11 @@
     python -m deep_image_matching_tpu_torch --dir PROJECT \\
         --pipeline superpoint+lightglue --skip_reconstruction
 
-Port of ``deep_image_matching_tpu/__main__.py``. Reconstruction is not
-ported yet, so a run without ``--skip_reconstruction`` fails at start; the
-view-graph export is skipped.
+Port of ``deep_image_matching_tpu/__main__.py``. For the detector-free
+pipelines (``roma``) the per-pair keypoints are merged into multiview tracks
+after the COLMAP export, which is then redone from the merged files.
+Reconstruction is not ported yet, so a run without
+``--skip_reconstruction`` fails at start; the view-graph export is skipped.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ def run_matching(args: dict):
     from .config import Config
     from .image_matching import ImageMatcher
     from .io.h5_to_db import export_to_colmap
+    from .matchers.matcher_base import DetectorFreeMatcher
     from .utils.logger import change_logger_level
 
     if not args.get("skip_reconstruction"):
@@ -48,6 +51,13 @@ def run_matching(args: dict):
         database_path=database_path,
         camera_config_path=config.general.get("camera_options"),
     )
+    if isinstance(matcher.matcher, DetectorFreeMatcher):
+        from .utils.dense_to_multiview import dense_to_multiview
+
+        dense_to_multiview(
+            feature_path, match_path, database_path, config.image_dir,
+            camera_config_path=config.general.get("camera_options"),
+        )
     if config.general.get("graph", True):
         logger.info("View-graph export is not ported yet (ROADMAP.md, queue 1); skipped")
     return feature_path, match_path, None

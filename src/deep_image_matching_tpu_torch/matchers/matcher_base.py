@@ -8,6 +8,10 @@ behind it, and packs each chunk's results into one int32 tensor, one
 device->host copy per chunk. Two chunks are in flight: chunk N+1 and N+2 are
 dispatched before chunk N is verified and written.
 
+``DetectorFreeMatcher.match_all`` is the detector-free counterpart (RoMa):
+the matcher produces the keypoints of each pair, which are appended to each
+image's group of features.h5, with the same two-chunk window.
+
 Failures are not swallowed: a chunk that runs out of device memory is
 bisected and retried (a batch that does not fit at B usually fits at B/2);
 every other exception propagates, and so does an out-of-memory error of a
@@ -19,12 +23,14 @@ from __future__ import annotations
 
 import inspect
 import logging
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..constants import KPT_PAD_MULTIPLE, GeometricVerification, Quality
+from ..io import hdf5
 from ..io.h5 import get_features, list_h5_names
 from ..io.writer import MatchWriter
 from ..utils.device import resolve_device
@@ -108,6 +114,50 @@ class MatcherBase:
         self._writer.save_verified(img0, img1, verified)
         return verified
 
+    def _pipelined(self, pairs, bsz: int, dispatch, finish) -> None:
+        """``dispatch(chunk)`` over chunks of ``bsz`` pairs with two chunks in
+        flight, and ``finish(chunk, dispatched)`` for each, in order. A chunk
+        whose dispatch runs out of device memory is halved and retried
+        synchronously; an out-of-memory error of a single pair and every
+        other exception propagate."""
+        window: list = []  # [(chunk, dispatched)]
+        for start in range(0, len(pairs), bsz):
+            chunk = pairs[start:start + bsz]
+            try:
+                disp = dispatch(chunk)
+            except torch.cuda.OutOfMemoryError as e:
+                logger.warning(f"Batch of {len(chunk)} pairs ran out of device "
+                               f"memory ({e}); retrying in halves")
+                torch.cuda.empty_cache()
+                while window:
+                    finish(*window.pop(0))
+                mid = len(chunk) // 2
+                if mid == 0:
+                    raise
+                for half in (chunk[:mid], chunk[mid:]):
+                    self._bisecting(half, dispatch, finish)
+                continue
+            window.append((chunk, disp))
+            if len(window) > 2:
+                finish(*window.pop(0))
+        for job in window:
+            finish(*job)
+
+    def _bisecting(self, chunk, dispatch, finish) -> None:
+        """Match a chunk synchronously, halving it on device OOM; a single
+        pair that does not fit re-raises."""
+        try:
+            disp = dispatch(chunk)
+        except torch.cuda.OutOfMemoryError:
+            if len(chunk) == 1:
+                raise
+            torch.cuda.empty_cache()
+            mid = len(chunk) // 2
+            for half in (chunk[:mid], chunk[mid:]):
+                self._bisecting(half, dispatch, finish)
+            return
+        finish(chunk, disp)
+
     def _use_device_gv(self) -> bool:
         """Whether verification runs as the batched device RANSAC
         (``ops/ransac.py``). ``tpu.device_ransac: "auto"`` routes the
@@ -168,49 +218,13 @@ class BatchedMatcher(MatcherBase):
         with MatchWriter(matches_path) as writer:
             self._writer = writer
             try:
-                window: list = []  # [(chunk, dispatched)]
-                for start in range(0, len(pairs), bsz):
-                    chunk = pairs[start:start + bsz]
-                    try:
-                        disp = self._dispatch_chunk(chunk, store, use_device_gv)
-                    except torch.cuda.OutOfMemoryError as e:
-                        logger.warning(f"Batch of {len(chunk)} pairs ran out of device "
-                                       f"memory ({e}); retrying in halves")
-                        torch.cuda.empty_cache()
-                        while window:
-                            self._finish_chunk(*window.pop(0), store, matches_path,
-                                               use_device_gv, results)
-                        mid = len(chunk) // 2
-                        if mid == 0:
-                            raise
-                        for half in (chunk[:mid], chunk[mid:]):
-                            self._match_chunk_bisecting(half, store, matches_path,
-                                                        use_device_gv, results)
-                        continue
-                    window.append((chunk, disp))
-                    if len(window) > 2:
-                        self._finish_chunk(*window.pop(0), store, matches_path,
-                                           use_device_gv, results)
-                for job in window:
-                    self._finish_chunk(*job, store, matches_path, use_device_gv, results)
+                self._pipelined(
+                    pairs, bsz, lambda chunk: self._dispatch_chunk(chunk, store, use_device_gv),
+                    lambda chunk, disp: self._finish_chunk(chunk, disp, store, matches_path,
+                                                           use_device_gv, results))
             finally:
                 self._writer = None
         return results
-
-    def _match_chunk_bisecting(self, chunk, store, matches_path, use_device_gv, results):
-        """Match a chunk synchronously, halving it on device OOM; a single
-        pair that does not fit re-raises."""
-        try:
-            disp = self._dispatch_chunk(chunk, store, use_device_gv)
-        except torch.cuda.OutOfMemoryError:
-            if len(chunk) == 1:
-                raise
-            torch.cuda.empty_cache()
-            mid = len(chunk) // 2
-            for half in (chunk[:mid], chunk[mid:]):
-                self._match_chunk_bisecting(half, store, matches_path, use_device_gv, results)
-            return
-        self._finish_chunk(chunk, disp, store, matches_path, use_device_gv, results)
 
     def _dispatch_chunk(self, chunk, store, use_device_gv: bool):
         """Queue a chunk's device work and its device->host copy; returns
@@ -348,6 +362,104 @@ def _rows_from_file(feature_path, name: str) -> Dict[str, np.ndarray]:
     return f
 
 
+class DetectorFreeMatcher(MatcherBase):
+    """Matchers that consume image pairs and produce the keypoints: each
+    pair's keypoints are appended to its images' groups of features.h5, and
+    its matches index them with the images' running offsets.
+
+    Subclasses implement ``_dispatch_images_batch(paths)``, which queues a
+    chunk's device work and returns what ``_finish_images_batch(jobs)``
+    needs to give ``[(kpts0 (M, 2), kpts1 (M, 2)), ...]`` in full-resolution
+    pixels. Chunks of ``pair_batch_size`` pairs (default 1) go through the
+    same two-chunk window as ``BatchedMatcher``: a pair's download, appends,
+    host verification and writes overlap the next chunks' device work.
+
+    Durability: features.h5, raw_matches.h5 and matches.h5 stay open for the
+    whole stage and are written when it ends (``io/hdf5.py`` builds a file in
+    memory); each image's appended keypoints replace its ``keypoints``
+    dataset once, by their concatenation. A run killed mid-stage keeps
+    features.h5 as the extractor wrote it and no match files, so
+    ``--resume`` matches every pair again; a stage that ends in an exception
+    writes what it finished, the keypoints and the matches of the same
+    pairs, and ``--resume`` appends to them."""
+
+    def match_all(self, pairs, feature_path, matches_path):
+        image_dir = self.config.get("general", {}).get("image_dir")
+        if image_dir is None:
+            raise ValueError("Detector-free matching needs general['image_dir']")
+        self._image_dir = Path(image_dir)
+        results: Dict[Tuple[str, str], int] = {}
+        bsz = int(self.conf.get("pair_batch_size", 1))
+        with MatchWriter(matches_path) as writer, hdf5.File(feature_path, "a") as fd:
+            self._writer, self._feature_fd = writer, fd
+            self._appended: Dict[str, List[np.ndarray]] = {}
+            self._n_kpts: Dict[str, int] = {}
+            try:
+                self._pipelined(
+                    pairs, bsz, lambda chunk: self._dispatch_images_batch(self._paths(chunk)),
+                    lambda chunk, jobs: self._consume_chunk(chunk, jobs, results))
+            finally:
+                self._write_appended()
+                self._writer = None
+                self._feature_fd = None
+        return results
+
+    def _paths(self, chunk):
+        return [(self._image_dir / a, self._image_dir / b) for a, b in chunk]
+
+    def _consume_chunk(self, chunk, jobs, results):
+        """Per-pair host tail: append the keypoints, write the raw matches,
+        verify on the host and write the verified matches."""
+        for (img0, img1), (kpts0, kpts1) in zip(chunk, self._finish_images_batch(jobs)):
+            matches = self._append_features(img0, img1, kpts0, kpts1)
+            self._writer.save_raw(img0, img1, matches)
+            verified = self._verify_and_save_coords(img0, img1, matches, kpts0, kpts1)
+            results[(img0, img1)] = 0 if verified is None else len(verified)
+
+    def _dispatch_images_batch(self, paths):
+        raise NotImplementedError
+
+    def _finish_images_batch(self, jobs):
+        raise NotImplementedError
+
+    def _append_features(self, img0, img1, kpts0, kpts1) -> np.ndarray:
+        """Queue a pair's keypoints for its images' groups; returns the
+        (M, 2) match indices into the images' keypoints after the append."""
+        m = len(kpts0)
+        matches = np.zeros((m, 2), np.int32)
+        for col, (name, kpts) in enumerate(((img0, kpts0), (img1, kpts1))):
+            if name not in self._n_kpts:
+                grp = self._feature_fd.require_group(name)
+                self._n_kpts[name] = grp["keypoints"].shape[0] if "keypoints" in grp else 0
+            matches[:, col] = np.arange(m) + self._n_kpts[name]
+            self._appended.setdefault(name, []).append(np.asarray(kpts, np.float32).reshape(-1, 2))
+            self._n_kpts[name] += m
+        return matches
+
+    def _write_appended(self) -> None:
+        """Replace each touched image's ``keypoints`` by the concatenation of
+        what it held and what the stage appended."""
+        for name, chunks in self._appended.items():
+            grp = self._feature_fd.require_group(name)
+            if "keypoints" in grp:
+                chunks = [np.asarray(grp["keypoints"], np.float32).reshape(-1, 2)] + chunks
+                del grp["keypoints"]
+            grp.create_dataset("keypoints", data=np.concatenate(chunks, axis=0))
+        self._appended = {}
+
+    def _verify_and_save_coords(self, img0, img1, matches, kpts0, kpts1):
+        """Host verification on the matched coordinates (one keypoint of
+        each image per match), then the gates and the write."""
+        mask = None
+        if len(matches) >= 8:
+            _, mask = geometric_verification(
+                kpts0=kpts0, kpts1=kpts1, method=self.gv_method,
+                threshold=self.gv_threshold * GV_QUALITY_SCALES[self.quality],
+                confidence=self.gv_confidence,
+            )
+        return self._verify_and_save(img0, img1, matches, kpts0, kpts1, inlier_mask=mask)
+
+
 def matcher_loader(root_module, name: str):
     import importlib
 
@@ -355,7 +467,7 @@ def matcher_loader(root_module, name: str):
     classes = [
         c for _, c in inspect.getmembers(module, inspect.isclass)
         if issubclass(c, MatcherBase)
-        and c not in (MatcherBase, BatchedMatcher)
+        and c not in (MatcherBase, BatchedMatcher, DetectorFreeMatcher)
         and c.__module__ == module.__name__
     ]
     if not classes:

@@ -1,6 +1,9 @@
-"""The device the models, matching and device RANSAC run on."""
+"""The device the models, matching and device RANSAC run on, and the
+precision of f32 arithmetic on it."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -19,3 +22,19 @@ def resolve_device(spec=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", 0)
     return dev
+
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 convolutions and matrix products in full f32 inside the block:
+    cuDNN runs f32 convolutions in TF32 by default (about three decimal
+    digits), which the coarse-to-fine loops of the dense matchers would
+    carry from scale to scale. The previous settings are restored after."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm

@@ -15,6 +15,7 @@ from deep_image_matching_tpu_torch.ops import ffn as tffn
 from deep_image_matching_tpu_torch.ops import nn as tnn
 from deep_image_matching_tpu_torch.ops import nullspace as tnull
 from deep_image_matching_tpu_torch.ops import ransac as transac
+from deep_image_matching_tpu_torch.ops import refiner as trefiner
 from deep_image_matching_tpu_torch.ops import sinkhorn as tsink
 
 pytestmark = pytest.mark.cuda
@@ -210,3 +211,28 @@ def test_lse_rows_kernel_matches_plain(cuda):
     got = tsink.logsumexp_rows(z, v, log_mu)
     ref = tsink.logsumexp_rows_reference(z, v, log_mu)
     assert bool(((got - ref).abs() <= 1e-5 * ref.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.parametrize("C", [6, 24])
+def test_refiner_kernel_matches_plain(cuda, C):
+    """Ragged H and W against the 8 x 32 tiles; C = 6 takes the 4-byte
+    staging loads, C = 24 (RoMa's scale 1) the 16-byte ones."""
+    gen = torch.Generator().manual_seed(13)
+    B, H, W, N = 2, 21, 45, 3
+    x = torch.randn(B, H, W, C, generator=gen).to(cuda)
+    w1 = (0.3 * torch.randn(N, 5, 5, 1, C, generator=gen)).to(cuda)
+    b1 = (0.1 * torch.randn(N, C, generator=gen)).to(cuda)
+    w2 = (C ** -0.5 * torch.randn(N, 1, 1, C, C, generator=gen)).to(cuda)
+    b2 = (0.1 * torch.randn(N, C, generator=gen)).to(cuda)
+    before = _lib.LAUNCHES["refiner"]
+    got = trefiner.refiner_dw_stack(x, w1, b1, w2, b2)
+    assert _lib.LAUNCHES["refiner"] == before + N  # one launch per block
+    ref = trefiner.refiner_dw_stack_reference(x, w1, b1, w2, b2)
+    # f32 sums of 25 taps and C products in another order, over N blocks
+    assert float((got - ref).abs().max()) <= 1e-5 * max(float(ref.abs().max()), 1.0)
+    with pytest.raises(ValueError, match="channels"):
+        trefiner.refiner_dw_stack(torch.zeros(1, 4, 4, 65, device=cuda),
+                                  torch.zeros(1, 5, 5, 1, 65, device=cuda),
+                                  torch.zeros(1, 65, device=cuda),
+                                  torch.zeros(1, 1, 1, 65, 65, device=cuda),
+                                  torch.zeros(1, 65, device=cuda))
