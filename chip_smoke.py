@@ -16,12 +16,16 @@ Phases, each printing its own lines:
    one: attention (LightGlue's, SuperGlue's and DINOv2's shapes), the FFN in
    both modes (ln_gelu at LightGlue's shape, relu at SuperGlue's),
    assignment, null space, nearest neighbours, the Sinkhorn iteration, the
-   row logsumexp and RoMa's refiner stack (both passes' shapes);
+   row logsumexp, RoMa's refiner stack (both passes' shapes), LightGlue's
+   bidirectional cross attention (LightGlue's and ALIKED's lengths) and its
+   fused QKV + rotary prologue (both modes);
 4. LightGlue and SuperGlue at full width on small batches with planted
-   matches: the kernels on the card against the plain versions on the CPU;
-   RoMa (DINOv2 at 2 blocks, 224 / 320 px) on the card against the CPU, its
-   sampler with the CPU's draws, and RoMa with DINOv2 at its published
-   depth (24 blocks) on one pair at the default 560 / 864 px;
+   matches: the kernels on the card against the plain versions on the CPU,
+   LightGlue also with ``attn_impl: bidir`` and the fused prologue; ALIKED at
+   480 x 640 on one demo image, card against CPU in f32; RoMa (DINOv2 at 2
+   blocks, 224 / 320 px) on the card against the CPU, its sampler with the
+   CPU's draws, and RoMa with DINOv2 at its published depth (24 blocks) on
+   one pair at the default 560 / 864 px;
 5. the main paths through the port's CLI entry ``run_matching`` (random
    weights, --skip_reconstruction), each with the launch counts set to 0
    just before it and read just after:
@@ -39,7 +43,14 @@ Phases, each printing its own lines:
      be equal pair by pair, since the arithmetic on integer descriptors is
      exact;
    - roma on the 5 demo images (``bruteforce``, default settings): the
-     keypoints each pair appends, the multiview merge and its database.
+     keypoints each pair appends, the multiview merge and its database;
+   - aliked+lightglue with a seeded random ALIKED checkpoint (ALIKED has no
+     random initialisation), ``DIM_TPU_FUSED_PROLOGUE=1`` and the checkpoint's
+     directory as ``DIM_TPU_WEIGHTS_DIR`` for this path only: the synthetic
+     views (``bruteforce``, match threshold 0, ``tpu.attn_impl: bidir``),
+     then the 5 demo images with the default ``matching_lowres``, whose probe
+     runs ALIKED and counts mutual nearest neighbours (no SuperPoint or
+     LightGlue checkpoint).
    Each run checks features.h5, raw_matches.h5 and database.db and prints
    the wall time per stage; each path checks that its kernels launched.
 
@@ -50,7 +61,9 @@ device report.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -62,8 +75,10 @@ SRC = ROOT / "src"
 PKG = SRC / "deep_image_matching_tpu_torch"
 WORK = ROOT / "build" / "chip_smoke"
 
-# the last two synthetic views are view 0 shifted by these pixels
-SHIFTS = {-2: (48, -32), -1: (-64, 24)}
+# the last two synthetic views are view 0 shifted by these pixels: whole cells
+# of ALIKED's coarsest block (32 px), so SuperPoint's (8 px) and ALIKED's
+# features both move with the image
+SHIFTS = {-2: (64, -32), -1: (-96, 32)}
 
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -83,6 +98,10 @@ KERNELS = {
                  "src/deep_image_matching_tpu/ops/pallas_sinkhorn.py:64"),
     "refiner": ("src/deep_image_matching_tpu_torch/csrc/refiner.cu",
                 "src/deep_image_matching_tpu/ops/pallas_refiner.py:90"),
+    "bidir_attention": ("src/deep_image_matching_tpu_torch/csrc/bidir_attention.cu",
+                        "src/deep_image_matching_tpu/ops/pallas_bidir_attention.py:151"),
+    "qkv": ("src/deep_image_matching_tpu_torch/csrc/qkv.cu",
+            "src/deep_image_matching_tpu/ops/pallas_qkv.py:115"),
 }
 
 # NVIDIA H100 SXM data sheet: HBM bytes/s, dense peak operations/s by type
@@ -107,6 +126,21 @@ def _nbytes(*tensors) -> int:
 # plain version only and exempt from the launch check
 NO_CALLER = {"lse_rows": "no caller on any path of the JAX package; held against its "
                          "plain version only"}
+
+
+@contextlib.contextmanager
+def _env(values: dict):
+    """Environment variables set inside the block, restored after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _fail(msg: str) -> None:
@@ -594,6 +628,120 @@ def check_refiner(torch, dev, card):
     return err, tol, what, extra
 
 
+def check_bidir_attention(torch, dev, card):
+    from deep_image_matching_tpu_torch.ops.bidir_attention import (
+        bidir_cross_attention, bidir_cross_attention_reference)
+
+    gen = torch.Generator().manual_seed(17)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {}
+    # LightGlue's length with SuperPoint (2048) and with ALIKED (4000
+    # keypoints padded to 4096), partial masks on both sides
+    for N in (2048, 4096):
+        B, H, d = 16, 4, 64
+        qk0, qk1 = (torch.randn(B, H, N, d, generator=gen).mul(2.0).to(dev, torch.bfloat16)
+                    for _ in range(2))
+        v0, v1 = (torch.randn(B, H, N, d, generator=gen).to(dev, torch.bfloat16)
+                  for _ in range(2))
+        m0, m1 = _masks(torch, gen, B, N, dev), _masks(torch, gen, B, N, dev)
+        args = (qk0, qk1, v0, v1, m0, m1)
+        got = bidir_cross_attention(*args)
+        ref = bidir_cross_attention_reference(*args)
+        torch.cuda.synchronize()
+        err, tol = 0.0, 0.0
+        for g, r, m in zip(got, ref, (m0, m1)):
+            rows = m[:, None, :, None].expand_as(g)
+            diff = (g.float() - r.float()).abs()[rows]
+            # two bf16 ulps elementwise (the output's rounding and the
+            # probabilities', rounded before normalising here, after in the
+            # plain version); inf if any element exceeds it
+            bound = 2.0 ** -6 * r.float().abs()[rows].clamp(min=1.0)
+            err = max(err, diff.max().item() if bool((diff <= bound).all()) else float("inf"))
+            tol = max(tol, bound.max().item())
+        del ref, diff, rows, bound
+        # the shared-score function: S once and two PV products over the
+        # valid rows and columns
+        pairs = float((m0.sum(1).double() * m1.sum(1).double()).sum())
+        res[N] = {"err": err, "tol": tol, **_bound(_nbytes(*args, *got), 6.0 * H * d * pairs, "bf16"),
+                  "ms": _time_ms(lambda: bidir_cross_attention(*args)),
+                  "plain_ms": _time_ms(lambda: bidir_cross_attention_reference(*args)),
+                  "library_ms": _time_ms(lambda: (
+                      sdpa(qk0, qk1, v1, attn_mask=m1[:, None, None, :]),
+                      sdpa(qk1, qk0, v0, attn_mask=m0[:, None, None, :])))}
+        del qk0, qk1, v0, v1, got, args
+        torch.cuda.empty_cache()
+    a, b = res[2048], res[4096]
+    what = (f"valid rows, 2 bf16 ulps elementwise; (16, 4, 2048, 64) reported; ALIKED's (16, "
+            f"4, 4096, 64): max err {b['err']:.3e}, kernel {b['ms']:.3f} ms, plain "
+            f"{b['plain_ms']:.3f} ms, two sdpa {b['library_ms']:.3f} ms, bound "
+            f"{b['bound_ms']:.3f} ms")
+    extra = {k: v for k, v in a.items() if k not in ("err", "tol")}
+    extra.update({"library_note": "two masked scaled_dot_product_attention calls, one per "
+                                  "direction",
+                  "aliked_shape": [16, 4, 4096, 64], "aliked_max_abs_err": b["err"],
+                  **{f"aliked_{k}": v for k, v in b.items() if k not in ("err", "tol")}})
+    # each shape is held to its own elementwise bound (inf on failure)
+    return max(a["err"], b["err"]), max(a["tol"], b["tol"]), what, extra
+
+
+def check_qkv(torch, dev, card):
+    from deep_image_matching_tpu_torch.ops.qkv import (
+        proj_rotary_fused, proj_rotary_reference, rotate_half)
+
+    gen = torch.Generator().manual_seed(18)
+    # ALIKED's pair batch: 16 images of 4096 padded keypoints, width 256
+    B, N, D, H = 16, 4096, 256, 4
+    x = torch.randn(B, N, D, generator=gen).to(dev, torch.bfloat16)
+    ang = torch.rand(B, N, 32, generator=gen) * 6.3
+    cos = torch.repeat_interleave(torch.cos(ang), 2, -1).to(dev)
+    sin = torch.repeat_interleave(torch.sin(ang), 2, -1).to(dev)
+    res = {}
+    for sections, rot in ((3, (0, 1)), (2, ())):
+        w = (torch.randn(sections * D, D, generator=gen) / 16).to(dev, torch.bfloat16)
+        b = (0.1 * torch.randn(sections * D, generator=gen)).to(dev, torch.bfloat16)
+        args = (x, w, b, cos, sin, H, sections, rot)
+        got = proj_rotary_fused(*args)
+        ref = proj_rotary_reference(*args)
+        y = proj_rotary_reference(x.float(), w, b, None, None, H, sections, ())
+        torch.cuda.synchronize()
+        err, tol, equal = 0.0, 0.0, 0.0
+        for g, r, ys in zip(got, ref, y):
+            diff = (g.float() - r.float()).abs()
+            # bitwise but where the f32 products, summed in another order,
+            # round t to the other side: one bf16 ulp of the operands there
+            bound = 2.0 ** -7 * (r.float().abs() + ys.abs() + rotate_half(ys).abs())
+            err = max(err, diff.max().item() if bool((diff <= bound).all()) else float("inf"))
+            tol = max(tol, bound.max().item())
+            equal += (g == r).float().mean().item() / sections
+        del ref, y, diff, bound
+        ins = (x, w, b, cos, sin) if rot else (x, w, b)
+        res[sections] = {"err": err, "tol": tol, "equal": equal,
+                         **_bound(_nbytes(*ins, *got), 2.0 * B * N * D * sections * D, "bf16"),
+                         "ms": _time_ms(lambda: proj_rotary_fused(*args)),
+                         "plain_ms": _time_ms(lambda: proj_rotary_reference(*args)),
+                         "library_ms": _time_ms(lambda: torch.nn.functional.linear(x, w, b))}
+        del got
+        torch.cuda.empty_cache()
+    a, c = res[3], res[2]
+    what = (f"bitwise but 1 bf16 ulp of the operands where the sums round t otherwise; self "
+            f"mode (3 sections, rotary) at (65536, 256) reported, bitwise equal {a['equal']:.6f}; "
+            f"cross mode (2 sections): max err {c['err']:.3e}, equal {c['equal']:.6f}, kernel "
+            f"{c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms, F.linear {c['library_ms']:.3f} ms, "
+            f"bound {c['bound_ms']:.3f} ms")
+    drop = ("err", "tol", "equal")
+    extra = {k: v for k, v in a.items() if k not in drop}
+    extra.update({"library_note": "F.linear(x, W, b) alone: without the head relayout and the "
+                                  "rotary embedding",
+                  "shape": [B * N, D], "bitwise_equal_share": a["equal"],
+                  "cross_max_abs_err": c["err"], "cross_bitwise_equal_share": c["equal"],
+                  **{f"cross_{k}": v for k, v in c.items() if k not in drop}})
+    # each mode is held to its own elementwise bound (inf on failure); a
+    # bitwise-equal share below 99.9 % fails too
+    if min(a["equal"], c["equal"]) < 0.999:
+        return float("inf"), max(a["tol"], c["tol"]), what, extra
+    return max(a["err"], c["err"]), max(a["tol"], c["tol"]), what, extra
+
+
 def phase_kernels(card: str) -> dict:
     import torch
 
@@ -603,7 +751,8 @@ def phase_kernels(card: str) -> dict:
     checks = {"attention": check_attention, "ffn": check_ffn,
               "assignment": check_assignment, "nullspace": check_nullspace,
               "nn": check_nn, "sinkhorn": check_sinkhorn, "lse_rows": check_lse_rows,
-              "refiner": check_refiner}
+              "refiner": check_refiner, "bidir_attention": check_bidir_attention,
+              "qkv": check_qkv}
     report = {}
     ok = True
     for name, fn in checks.items():
@@ -854,19 +1003,25 @@ def _check_shifted(out_dir: Path, names: list) -> str:
 
 def phase_reference(card: str) -> None:
     _reference_lightglue(card)
+    _reference_lightglue(card, optins=True)
+    _reference_aliked(card)
     _reference_superglue(card)
     _reference_roma(card)
     _full_depth_roma(card)
 
 
-def _reference_lightglue(card: str) -> None:
+def _reference_lightglue(card: str, optins: bool = False) -> None:
     """LightGlue at full width (9 layers, D = 256, adaptive depth and width
     pruning) on a small batch: the kernels on the card against the plain
     versions on the CPU, both in bf16. Image 1 holds image 0's keypoints
-    permuted and shifted with the same descriptors, so matches exist."""
+    permuted and shifted with the same descriptors, so matches exist. With
+    ``optins`` the cross attention runs on kernel 6 (``attn_impl="bidir"``)
+    and the prologue on kernel 10 (``DIM_TPU_FUSED_PROLOGUE=1``, set for this
+    check only), on both devices."""
     import torch
 
     from deep_image_matching_tpu_torch.models.lightglue import LightGlue, forward
+    from deep_image_matching_tpu_torch.ops import _lib
 
     gen = torch.Generator().manual_seed(7)
     B, K = 2, 512
@@ -880,25 +1035,140 @@ def _reference_lightglue(card: str) -> None:
     mask[1, 400:] = False
     size = torch.tensor([[640.0, 480.0]]).expand(B, 2)
     kw = dict(filter_threshold=0.0, depth_confidence=0.95, width_confidence=0.99,
-              pruning_min_kpts=128, compute_dtype=torch.bfloat16)
+              pruning_min_kpts=128, compute_dtype=torch.bfloat16,
+              attn_impl="bidir" if optins else "flash")
     args = (kpts0, kpts1, desc0, desc1, mask, torch.gather(mask, 1, perm), size, size)
-    cpu = forward(model, *args, **kw)
-    dev = torch.device("cuda", 0)
-    gpu = forward(model.to(dev), *(a.to(dev) for a in args), **kw)
+    with _env({"DIM_TPU_FUSED_PROLOGUE": "1" if optins else "0"}):
+        cpu = forward(model, *args, **kw)
+        dev = torch.device("cuda", 0)
+        _lib.reset_launch_counts()
+        gpu = forward(model.to(dev), *(a.to(dev) for a in args), **kw)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _lib.LAUNCHES.items() if v}
     model.cpu()
     both = cpu["valid0"] & gpu["valid0"].cpu()
     agree = (cpu["matches0"] == gpu["matches0"].cpu())[both].float().mean().item()
     inv = torch.argsort(perm, dim=1)
     truth = (gpu["matches0"].cpu() == inv) & gpu["valid0"].cpu()
-    print(f"[ref] LightGlue B={B} K={K}: layers_run cpu {cpu['layers_run']} gpu "
+    name = "LightGlue bidir + fused prologue" if optins else "LightGlue"
+    print(f"[ref] {name} B={B} K={K}: layers_run cpu {cpu['layers_run']} gpu "
           f"{gpu['layers_run']}; mutual matches cpu {int(cpu['valid0'].sum())} gpu "
           f"{int(gpu['valid0'].sum())}; agreement on rows matched by both {agree:.4f}; "
-          f"gpu matches at the planted correspondence {int(truth.sum())} [{card}]", flush=True)
+          f"gpu matches at the planted correspondence {int(truth.sum())}; launches {launched} "
+          f"[{card}]", flush=True)
     # bf16 on both sides, sums in another order: rare flips of near-ties
     # only, and the exit layer must agree
     planted_cpu = int(((cpu["matches0"] == inv) & cpu["valid0"]).sum())
     if cpu["layers_run"] != gpu["layers_run"] or agree < 0.99 or truth.sum() < 0.95 * planted_cpu:
-        _fail("LightGlue on the card disagrees with the plain versions on the CPU")
+        _fail(f"{name} on the card disagrees with the plain versions on the CPU")
+    n = gpu["layers_run"]
+    want = ({"bidir_attention": n, "qkv": 4 * n, "attention": 2 * n} if optins
+            else {"attention": 4 * n})
+    if any(launched.get(k) != v for k, v in want.items()):
+        _fail(f"{name}: launches {launched}, expected {want}")
+
+
+def aliked_state_dict(seed: int = 0) -> dict:
+    """A seeded ``aliked-n16rot`` checkpoint in the upstream key layout (ALIKED
+    has no random initialisation): He-normal convolutions, BatchNorm with
+    running statistics, small deformable offsets, and a score head scaled so
+    that a share of the sigmoid scores clears the 0.2 detection threshold
+    without saturating, and the coarse blocks' share of the features damped.
+    ``tests/test_torch_aliked.py`` builds the same."""
+    import numpy as np
+    import torch
+
+    from deep_image_matching_tpu_torch.models.aliked import CFGS
+
+    rng = np.random.default_rng(seed)
+    c1, c2, c3, c4, dim, K, M = CFGS["aliked-n16rot"]
+    sd = {}
+
+    def conv(name, co, ci, k, bias=False, std=None):
+        std = (2.0 / (ci * k * k)) ** 0.5 if std is None else std
+        sd[f"{name}.weight"] = rng.normal(0, std, (co, ci, k, k))
+        if bias:
+            sd[f"{name}.bias"] = rng.normal(0, 0.05, co)
+
+    def bn(name, n):
+        sd[f"{name}.weight"] = rng.uniform(0.5, 1.5, n)
+        sd[f"{name}.bias"] = rng.normal(0, 0.1, n)
+        sd[f"{name}.running_mean"] = rng.normal(0, 0.1, n)
+        sd[f"{name}.running_var"] = rng.uniform(0.5, 1.5, n)
+        sd[f"{name}.num_batches_tracked"] = np.array(0)
+
+    conv("block1.conv1", c1, 3, 3)
+    bn("block1.bn1", c1)
+    conv("block1.conv2", c1, c1, 3)
+    bn("block1.bn2", c1)
+    conv("block2.conv1", c2, c1, 3)
+    bn("block2.bn1", c2)
+    conv("block2.conv2", c2, c2, 3)
+    bn("block2.bn2", c2)
+    conv("block2.downsample", c2, c1, 1, bias=True)
+    for blk, ci, co in (("block3", c2, c3), ("block4", c3, c4)):
+        for j, cin in ((1, ci), (2, co)):
+            conv(f"{blk}.conv{j}.offset_conv", 18, cin, 3, bias=True, std=0.5 / (cin * 9) ** 0.5)
+            conv(f"{blk}.conv{j}.regular_conv", co, cin, 3)
+            bn(f"{blk}.bn{j}", co)
+        conv(f"{blk}.downsample", co, ci, 1, bias=True)
+    for i, c in enumerate((c1, c2, c3, c4), 1):
+        # the /8 and /32 blocks' align-corners upsampling is not shift
+        # equivariant: damped, so shifted copies of a view keep most of
+        # their keypoints and descriptors
+        conv(f"conv{i}", dim // 4, c, 1, std=(2.0 / c) ** 0.5 * (0.1 if i > 2 else 1.0))
+    conv("score_head.0", 8, dim, 1)
+    conv("score_head.2", 4, 8, 3)
+    conv("score_head.4", 4, 4, 3)
+    conv("score_head.6", 1, 4, 3, std=0.05)
+    conv("desc_head.offset_conv.0", 2 * M, dim, K, bias=True, std=0.5 / (dim * K * K) ** 0.5)
+    conv("desc_head.offset_conv.2", 2 * M, 2 * M, 1, bias=True)
+    conv("desc_head.sf_conv", dim, dim, 1)
+    sd["desc_head.agg_weights"] = rng.normal(0, (1.0 / (M * dim)) ** 0.5, (M, dim, dim))
+    return {k: torch.tensor(v, dtype=torch.int64 if v.ndim == 0 else torch.float32)
+            for k, v in sd.items()}
+
+
+def _reference_aliked(card: str) -> None:
+    """ALIKED (aliked-n16rot, full width, the seeded checkpoint) on one demo
+    image at 480 x 640, f32 on both devices (TF32 off): the keypoint sets on
+    the card and on the CPU, and the descriptors of the shared keypoints."""
+    import numpy as np
+    import torch
+
+    from deep_image_matching_tpu_torch.models import aliked
+    from deep_image_matching_tpu_torch.utils.device import full_f32
+    from deep_image_matching_tpu_torch.utils.image import read_image
+
+    img = read_image(ROOT / "notebooks" / "demo_project" / "images" / "sacre_coeur_A.jpg",
+                     grayscale=False)
+    params = aliked.params_from_torch(aliked_state_dict())
+    dev = torch.device("cuda", 0)
+    batch = torch.from_numpy(img)[None]
+    vhw = torch.tensor([img.shape[:2]])
+    kw = dict(max_keypoints=4000, detection_threshold=0.2, nms_radius=3)
+    t0 = time.perf_counter()
+    cpu = aliked.extract(params, batch, vhw, **kw)
+    t_cpu = time.perf_counter() - t0
+    with full_f32():
+        gpu = aliked.extract(aliked.tree_map(lambda t: t.to(dev), params), batch.to(dev),
+                             vhw.to(dev), **kw)
+        torch.cuda.synchronize()
+    kc = cpu["keypoints"][0][cpu["mask"][0]].double()
+    kg = gpu["keypoints"][0][gpu["mask"][0]].cpu().double()
+    dist = torch.cdist(kc, kg, p=float("inf"))
+    near, idx = dist.min(1)
+    shared = near <= 1e-3
+    d_err = (cpu["descriptors"][0][cpu["mask"][0]][shared]
+             - gpu["descriptors"][0][gpu["mask"][0]].cpu()[idx[shared]]).abs().max().item()
+    share = shared.float().mean().item()
+    print(f"[ref] ALIKED 480 x 640, f32: keypoints cpu {len(kc)} gpu {len(kg)}, {share:.5f} of "
+          f"the CPU's within 1e-3 px on the card; descriptors of those within {d_err:.2e} (CPU "
+          f"run {t_cpu:.1f} s) [{card}]", flush=True)
+    # f32 sums in another order can move a near-tie across NMS or the
+    # threshold: nearly all keypoints must agree
+    if len(kc) < 1000 or abs(len(kc) - len(kg)) > 0.01 * len(kc) or share < 0.99 or d_err > 1e-3:
+        _fail("ALIKED on the card disagrees with the CPU")
 
 
 def _reference_superglue(card: str) -> None:
@@ -1113,7 +1383,29 @@ PATHS = {
     # scale-1 refiner run on the card
     "roma": (("attention", "refiner"), (
         ("demo5", "bruteforce", "default", None, False),)),
+    # kernels 6 and 10 through the two opt-ins on the synthetic views; the
+    # ALIKED probe of matching_lowres counts mutual nearest neighbours on
+    # kernel 5
+    "aliked+lightglue": (("attention", "ffn", "assignment", "nullspace", "bidir_attention",
+                          "qkv", "nn"), (
+        ("synthetic16", "bruteforce", "aliked_bidir", 128, False),
+        ("demo5", "matching_lowres", "default", 128, False))),
 }
+
+
+def _path_env(pipeline: str) -> dict:
+    """Environment set for one path's runs only: the aliked path's seeded
+    ALIKED checkpoint (and no SuperPoint or LightGlue one) and the fused
+    prologue."""
+    if pipeline != "aliked+lightglue":
+        return {}
+    import torch
+
+    wdir = WORK / "weights"
+    if not (wdir / "aliked-n16rot.pth").exists():
+        wdir.mkdir(parents=True, exist_ok=True)
+        torch.save(aliked_state_dict(), wdir / "aliked-n16rot.pth")
+    return {"DIM_TPU_WEIGHTS_DIR": str(wdir), "DIM_TPU_FUSED_PROLOGUE": "1"}
 
 
 def _raw_match_sets(out_dir: Path) -> dict:
@@ -1143,17 +1435,58 @@ def _run(pipeline: str, proj: Path, strategy: str, cfg: Path, outs: Path):
     return feature_path.parent
 
 
-def phase_main_path(card: str) -> dict:
+def _run_path(pipeline, needed, runs, projects, configs, timers, card):
+    """One path's runs with the launch counts set to 0 before them; returns
+    the counts read after them and the runs to repeat on the CPU."""
     import torch
 
     from deep_image_matching_tpu_torch.ops import _lib
 
+    _lib.reset_launch_counts()
+    cpu_checks = []
+    for proj_name, strategy, cfg, dim, compare_cpu in runs:
+        proj = projects[proj_name]
+        names = sorted(p.name for p in (proj / "images").iterdir())
+        outs = WORK / "out" / f"{pipeline}_{proj_name}"
+        t0 = time.perf_counter()
+        out_dir = _run(pipeline, proj, strategy, configs[cfg], outs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_pairs = len((out_dir / "pairs.txt").read_text().splitlines())
+        if strategy == "bruteforce" and n_pairs != len(names) * (len(names) - 1) // 2:
+            _fail(f"bruteforce gave {n_pairs} pairs")
+        if dim is None:
+            summary, n_verified = _check_dense_outputs(out_dir, names, n_pairs)
+        else:
+            summary, n_verified = _check_outputs(out_dir, names, n_pairs, dim)
+        if proj_name == "synthetic16" and pipeline != "superpoint+superglue":
+            # random SuperGlue weights mix the keypoint positions into the
+            # descriptors, so only the other matchers find the shift
+            summary += "; " + _check_shifted(out_dir, names)
+        if pipeline == "sift+kornia_matcher" and n_verified == 0:
+            _fail("sift+kornia_matcher verified no pair of the demo images")
+        stages = timers.lines[-1].split("] ", 2)[-1] if timers.lines else "no timer line"
+        print(f"[main] {pipeline} on {proj_name} ({strategy}): {summary}; run_matching "
+              f"{wall:.2f} s; stages {stages} [{card}]", flush=True)
+        if compare_cpu:
+            cpu_checks.append((proj, strategy, out_dir, outs))
+    launches = dict(_lib.LAUNCHES)
+    print(f"[main] {pipeline}: kernel launches {launches}", flush=True)
+    missing = [k for k in needed if launches[k] == 0]
+    if missing:
+        _fail(f"{pipeline}: kernels {missing} of its path were never launched")
+    return launches, cpu_checks
+
+
+def phase_main_path(card: str) -> dict:
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
     base = "general:\n  allow_random_weights: true\n  tpu:\n    device: {}\n"
     configs = {name: WORK / f"{name}.yaml"
-               for name in ("default", "threshold0", "superglue0", "cpu")}
+               for name in ("default", "threshold0", "superglue0", "cpu", "aliked_bidir")}
     configs["default"].write_text(base.format("cuda"))
+    configs["aliked_bidir"].write_text(base.format("cuda") + "    attn_impl: bidir\n"
+                                       "matcher:\n  filter_threshold: 0.0\n")
     # random weights never reach LightGlue's 0.1 or SuperGlue's 0.3 match
     # score, so the synthetic runs keep every mutual nearest neighbour
     configs["threshold0"].write_text(base.format("cuda") + "matcher:\n  filter_threshold: 0.0\n")
@@ -1165,39 +1498,9 @@ def phase_main_path(card: str) -> dict:
 
     launches = {name: {} for name in PATHS}
     for pipeline, (needed, runs) in PATHS.items():
-        _lib.reset_launch_counts()
-        cpu_checks = []
-        for proj_name, strategy, cfg, dim, compare_cpu in runs:
-            proj = projects[proj_name]
-            names = sorted(p.name for p in (proj / "images").iterdir())
-            outs = WORK / "out" / f"{pipeline}_{proj_name}"
-            t0 = time.perf_counter()
-            out_dir = _run(pipeline, proj, strategy, configs[cfg], outs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n_pairs = len((out_dir / "pairs.txt").read_text().splitlines())
-            if strategy == "bruteforce" and n_pairs != len(names) * (len(names) - 1) // 2:
-                _fail(f"bruteforce gave {n_pairs} pairs")
-            if dim is None:
-                summary, n_verified = _check_dense_outputs(out_dir, names, n_pairs)
-            else:
-                summary, n_verified = _check_outputs(out_dir, names, n_pairs, dim)
-            if proj_name == "synthetic16" and pipeline != "superpoint+superglue":
-                # random SuperGlue weights mix the keypoint positions into the
-                # descriptors, so only the other matchers find the shift
-                summary += "; " + _check_shifted(out_dir, names)
-            if pipeline == "sift+kornia_matcher" and n_verified == 0:
-                _fail("sift+kornia_matcher verified no pair of the demo images")
-            stages = timers.lines[-1].split("] ", 2)[-1] if timers.lines else "no timer line"
-            print(f"[main] {pipeline} on {proj_name} ({strategy}): {summary}; run_matching "
-                  f"{wall:.2f} s; stages {stages} [{card}]", flush=True)
-            if compare_cpu:
-                cpu_checks.append((proj, strategy, out_dir, outs))
-        launches[pipeline] = dict(_lib.LAUNCHES)
-        print(f"[main] {pipeline}: kernel launches {launches[pipeline]}", flush=True)
-        missing = [k for k in needed if launches[pipeline][k] == 0]
-        if missing:
-            _fail(f"{pipeline}: kernels {missing} of its path were never launched")
+        with _env(_path_env(pipeline)):
+            launches[pipeline], cpu_checks = _run_path(pipeline, needed, runs, projects, configs,
+                                                       timers, card)
         for proj, strategy, out_dir, outs in cpu_checks:
             # the same run on the CPU: integer descriptors make the
             # nearest-neighbour arithmetic exact, so the raw matches of the

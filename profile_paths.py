@@ -13,7 +13,9 @@ one run under ``torch.profiler``, which gives
 - each hand-written kernel's share of the device time.
 
 Projects are ``chip_smoke.py``'s: 16 synthetic 1024x1024 views with
-``bruteforce`` pairs (120) for the SuperPoint paths, the 5 demo images with
+``bruteforce`` pairs (120) for the SuperPoint paths and for aliked+lightglue
+(``chip_smoke.py``'s seeded ALIKED checkpoint, ``tpu.attn_impl: bidir`` and
+``DIM_TPU_FUSED_PROLOGUE=1``, set for that path only), the 5 demo images with
 ``bruteforce`` pairs (10) for SIFT, ORB and RoMa (default settings: 560 /
 864 px, 5000 samples per pair, DINOv2 at 2 blocks). Weights are random, and the
 learned matchers run with match threshold 0 as in ``chip_smoke.py``. The card's
@@ -43,6 +45,7 @@ PATHS = {
     "sift+kornia_matcher": ("demo5", ""),
     "orb+kornia_matcher": ("demo5", ""),
     "roma": ("demo5", ""),
+    "aliked+lightglue": ("synthetic16", "    attn_impl: bidir\nmatcher:\n  filter_threshold: 0.0\n"),
 }
 
 # the __global__ functions of csrc/*.cu -> the kernel they belong to
@@ -50,7 +53,7 @@ OUR_KERNELS = {
     "attention_kernel": "attention", "ffn_kernel": "ffn", "dual_pass_kernel": "assignment",
     "nullspace_kernel": "nullspace", "nn_top2_kernel": "nn",
     "sinkhorn_iter_kernel": "sinkhorn", "lse_rows_kernel": "lse_rows",
-    "refiner_block_kernel": "refiner",
+    "refiner_block_kernel": "refiner", "bidir_kernel": "bidir_attention", "qkv_kernel": "qkv",
 }
 
 
@@ -140,7 +143,8 @@ def main() -> None:
         project, extra = PATHS[pipeline]
         config = WORK / f"{pipeline}.yaml"
         config.write_text(BASE + extra)
-        r = profile_path(pipeline, projects[project], config, opts.warm, opts.top)
+        with chip_smoke._env(chip_smoke._path_env(pipeline)):
+            r = profile_path(pipeline, projects[project], config, opts.warm, opts.top)
         results.append(r)
         print(f"== {pipeline} on {project}: warm walls "
               f"{', '.join(f'{w:.3f}' for w in r['warm_walls_s'])} s; profiled wall "

@@ -18,6 +18,10 @@ inverse of the JAX package's ``params_from_torch``:
   weights are written with an identity BatchNorm (weight 1, bias 0, mean 0,
   variance 1 - eps), which folds back to the same weights.
 
+ALIKED keeps its folded parameters as nested dicts of tensors, as the JAX
+package does: ``aliked_params_from_jax`` turns the JAX package's tree into
+the port's (convolutions HWIO -> OIHW, everything else as it is).
+
 RoMa (with its VGG19 pyramid and DINOv2) keeps its parameters as nested
 dicts of tensors rather than a module: ``roma_params_from_jax`` carries the
 JAX package's tree over (convolutions HWIO -> OIHW, dense (in, out) ->
@@ -129,6 +133,18 @@ def superglue_params_from_jax(params) -> StateDict:
     conv("final_proj", params["final"])
     sd["bin_score"] = _t(np.asarray(params["bin_score"]).reshape(()))
     return sd
+
+
+def aliked_params_from_jax(params) -> Dict:
+    """The JAX package's ALIKED parameters (BatchNorm already folded) in the
+    port's layout: 4-d convolution weights HWIO -> OIHW, biases and the SDDH
+    aggregation weights unchanged."""
+    if isinstance(params, dict):
+        return {k: (_t(np.asarray(v).transpose(3, 2, 0, 1)) if k == "w" and np.ndim(v) == 4
+                    else aliked_params_from_jax(v)) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [aliked_params_from_jax(v) for v in params]
+    return _t(params)
 
 
 # ---------------------------------------------------------------------------

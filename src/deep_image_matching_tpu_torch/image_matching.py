@@ -4,10 +4,10 @@
 Scans the image dir, loads the configured extractor and matcher by name,
 generates pairs, extracts features into features.h5 and matches pairs into
 raw_matches.h5 / matches.h5, with verification and gating inside the
-matcher. This package carries the superpoint, sift, orb and no_extractor
-extractors and the lightglue, kornia_matcher, superglue and roma matchers;
-other presets and the upright stage are not ported yet (ROADMAP.md, queue 1)
-and fail at construction.
+matcher. This package carries the superpoint, aliked, sift, orb and
+no_extractor extractors and the lightglue, kornia_matcher, superglue and roma
+matchers; other presets and the upright stage are not ported yet
+(ROADMAP.md, queue 1) and fail at construction.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from .utils.timer import Timer
 
 logger = logging.getLogger("dim_tpu_torch")
 
-PORTED_EXTRACTORS = ("superpoint", "sift", "orb", "no_extractor")
+PORTED_EXTRACTORS = ("superpoint", "aliked", "sift", "orb", "no_extractor")
 PORTED_MATCHERS = ("lightglue", "kornia_matcher", "superglue", "roma")
 
 

@@ -7,6 +7,12 @@ device in ``tpu.dtype`` (bf16 by default; on CUDA the kernels take bf16
 only, so another dtype fails at start). With the default 0.95 / 0.99 the
 adaptive path runs: the batch exits once every pair is token-confident, and
 confident-but-unmatchable points are masked out of later layers.
+
+``tpu.attn_impl`` is read as the JAX package reads it: "bidir" runs the
+cross attention on the shared-score bidirectional kernel; "flash", "xla" and
+the default keep two attention calls (the JAX package's two XLA routes have
+one counterpart here); any other value raises. ``DIM_TPU_FUSED_PROLOGUE=1``
+fuses the attention prologue (``models/lightglue.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..models.lightglue import forward, load_default_model
+from ..models.lightglue import check_attn_impl, forward, load_default_model
 from .matcher_base import BatchedMatcher
 
 
@@ -37,6 +43,7 @@ class LightGlueMatcher(BatchedMatcher):
         self.depth_confidence = float(self.conf.get("depth_confidence", -1))
         self.width_confidence = float(self.conf.get("width_confidence", -1))
         self.compute_dtype = getattr(torch, str(self.tpu.get("dtype", "bfloat16")))
+        self.attn_impl = check_attn_impl(str(self.tpu.get("attn_impl", "flash")))
         if self.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
             raise ValueError(
                 f"tpu.dtype {self.compute_dtype} on CUDA: the attention and FFN "
@@ -59,5 +66,6 @@ class LightGlueMatcher(BatchedMatcher):
             depth_confidence=self.depth_confidence,
             width_confidence=self.width_confidence,
             compute_dtype=self.compute_dtype,
+            attn_impl=self.attn_impl,
         )
         return out["matches0"], out["valid0"]

@@ -14,7 +14,18 @@ capacity and validity masks, masked self and cross attention, and
   expressed as mask updates, exactly as the JAX package does it.
 
 Attention, the FFN and the assignment go through the kernel wrappers of
-``ops/`` (CUDA kernels on the GPU, their plain versions on the CPU).
+``ops/`` (CUDA kernels on the GPU, their plain versions on the CPU). The
+JAX package's two opt-ins are honoured:
+
+- ``attn_impl="bidir"`` (the matcher's ``tpu.attn_impl``) runs the cross
+  block through the shared-score bidirectional kernel
+  (``ops/bidir_attention.py``) instead of two attention calls; self
+  attention stays on ``ops/attention.py``;
+- ``DIM_TPU_FUSED_PROLOGUE=1`` (read per call) runs the QKV projection, the
+  head unpack and the rotary embedding as one kernel (``ops/qkv.py``) where
+  the width is a multiple of 128 and so is the number of rows; the cross
+  block fuses only when both sides have one shape. Its weights are permuted
+  once per model, dtype and device.
 """
 
 from __future__ import annotations
@@ -31,9 +42,21 @@ import torch.nn.functional as F
 
 from ..ops.assignment import filter_matches_fused, log_assignment_dense
 from ..ops.attention import fused_attention
+from ..ops.bidir_attention import bidir_cross_attention
 from ..ops.ffn import ffn_fused
+from ..ops.qkv import qk_v_fused, qk_v_weights, qkv_rotary_fused, qkv_weights, rotate_half
 
 logger = logging.getLogger("dim_tpu_torch")
+
+# "flash" and "xla" name the JAX package's two XLA-side routes; both run the
+# attention kernel here. "bidir" runs the cross block on kernel 6.
+ATTN_IMPLS = ("flash", "xla", "bidir")
+
+
+def check_attn_impl(attn_impl: str) -> str:
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r}; expected one of {ATTN_IMPLS}")
+    return attn_impl
 
 
 # ---------------------------------------------------------------------------
@@ -104,12 +127,39 @@ class LightGlue(nn.Module):
         self.token_confidence = nn.ModuleList(
             [_Token(dim) for _ in range(n_layers - 1)]
         )
+        # the fused prologue's permuted weights by (dtype, device)
+        self._prologue: Dict[tuple, list] = {}
+
+    def load_state_dict(self, *args, **kwargs):
+        self._prologue.clear()
+        return super().load_state_dict(*args, **kwargs)
+
+    def prologue_weights(self, p: Dict[str, torch.Tensor]) -> list:
+        """Per layer, the self block's section-permuted ``Wqkv`` and the
+        cross block's stacked ``to_qk`` / ``to_v``, built from ``p`` (the
+        parameters in the compute dtype) once per dtype and device."""
+        w = p["transformers.0.self_attn.Wqkv.weight"]
+        key = (w.dtype, w.device)
+        if key not in self._prologue:
+            out = []
+            for i in range(self.n_layers):
+                t = f"transformers.{i}"
+                c = f"{t}.cross_attn"
+                out.append({
+                    "self": qkv_weights(p[f"{t}.self_attn.Wqkv.weight"],
+                                        p[f"{t}.self_attn.Wqkv.bias"], self.num_heads),
+                    "cross": qk_v_weights(p[f"{c}.to_qk.weight"], p[f"{c}.to_qk.bias"],
+                                          p[f"{c}.to_v.weight"], p[f"{c}.to_v.bias"]),
+                })
+            self._prologue[key] = out
+        return self._prologue[key]
 
     @torch.no_grad()
     def reset_random(self, generator: torch.Generator) -> "LightGlue":
         """Linear weights ~ N(0, 1/fan_in), posenc ~ N(0, 1), zero biases,
         unit LayerNorm gains: the JAX package's ``init_params`` recipe,
         drawn from ``generator``."""
+        self._prologue.clear()
         for name, p in self.named_parameters():
             if name == "posenc.Wr.weight":
                 p.copy_(torch.randn(p.shape, generator=generator))
@@ -142,16 +192,11 @@ def rotary_encoding(kpts_n: torch.Tensor, wr: torch.Tensor):
             torch.repeat_interleave(torch.sin(proj), 2, dim=-1))
 
 
-def _rotate_half(x: torch.Tensor) -> torch.Tensor:
-    x = x.unflatten(-1, (-1, 2))
-    return torch.stack([-x[..., 1], x[..., 0]], dim=-1).flatten(-2)
-
-
 def _apply_rotary(t, cos, sin):
     """t (B, H, N, hd); cos/sin (B, N, hd)."""
     cos = cos.to(t.dtype)[:, None]
     sin = sin.to(t.dtype)[:, None]
-    return t * cos + _rotate_half(t) * sin
+    return t * cos + rotate_half(t) * sin
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -176,31 +221,55 @@ def _lin(x, p, prefix):
     return F.linear(x, p[f"{prefix}.weight"], p.get(f"{prefix}.bias"))
 
 
-def _self_block(x, enc, mask, p, t, num_heads):
+def _prologue_fused_ok(x: torch.Tensor) -> bool:
+    """The fused prologue (kernel 10) when ``DIM_TPU_FUSED_PROLOGUE=1``,
+    read on every call as the JAX package reads it, and the width and the
+    row count are multiples of 128 (the JAX package's gate). The JAX gate's
+    ``ffn_impl == "fused"`` term always holds here: the FFN is the fused one."""
+    if os.environ.get("DIM_TPU_FUSED_PROLOGUE", "0") != "1":
+        return False
+    B, N, D = x.shape
+    return D % 128 == 0 and (B * N) % 128 == 0
+
+
+def _self_block(x, enc, mask, p, t, num_heads, fused=None):
+    """``fused``: the layer's prologue weights (``LightGlue.prologue_weights``),
+    used when the fused prologue runs."""
     cos, sin = enc
-    qkv = _lin(x, p, f"{t}.self_attn.Wqkv")                  # (B, N, 3D)
-    B, N, D3 = qkv.shape
-    # torch layout: last dim = (heads, head_dim, 3)
-    qkv = qkv.reshape(B, N, num_heads, D3 // (3 * num_heads), 3).permute(0, 2, 1, 3, 4)
-    q = _apply_rotary(qkv[..., 0], cos, sin).contiguous()
-    k = _apply_rotary(qkv[..., 1], cos, sin).contiguous()
-    v = qkv[..., 2].contiguous()
+    if fused is not None and _prologue_fused_ok(x):
+        q, k, v = qkv_rotary_fused(x, *fused["self"], cos, sin, num_heads)
+    else:
+        qkv = _lin(x, p, f"{t}.self_attn.Wqkv")                  # (B, N, 3D)
+        B, N, D3 = qkv.shape
+        # torch layout: last dim = (heads, head_dim, 3)
+        qkv = qkv.reshape(B, N, num_heads, D3 // (3 * num_heads), 3).permute(0, 2, 1, 3, 4)
+        q = _apply_rotary(qkv[..., 0], cos, sin).contiguous()
+        k = _apply_rotary(qkv[..., 1], cos, sin).contiguous()
+        v = qkv[..., 2].contiguous()
     ctx = fused_attention(q, k, v, mask, mask, q.shape[-1] ** -0.5)
     msg = _lin(_merge(ctx), p, f"{t}.self_attn.out_proj")
     return _ffn(x, msg, p, f"{t}.self_attn")
 
 
-def _cross_block(x0, x1, mask0, mask1, p, t, num_heads):
+def _cross_block(x0, x1, mask0, mask1, p, t, num_heads, attn_impl="flash", fused=None):
     c = f"{t}.cross_attn"
-    qk0 = _heads(_lin(x0, p, f"{c}.to_qk"), num_heads)
-    qk1 = _heads(_lin(x1, p, f"{c}.to_qk"), num_heads)
-    v0 = _heads(_lin(x0, p, f"{c}.to_v"), num_heads)
-    v1 = _heads(_lin(x1, p, f"{c}.to_v"), num_heads)
-    scale = qk0.shape[-1] ** -0.5
-    # one attention per direction; the shared Q K^T is recomputed (the
-    # JAX package's flash route)
-    m0 = fused_attention(qk0, qk1, v1, mask0, mask1, scale)
-    m1 = fused_attention(qk1, qk0, v0, mask1, mask0, scale)
+    if fused is not None and _prologue_fused_ok(x0) and x0.shape == x1.shape:
+        qk0, v0 = qk_v_fused(x0, *fused["cross"], num_heads)
+        qk1, v1 = qk_v_fused(x1, *fused["cross"], num_heads)
+    else:
+        qk0 = _heads(_lin(x0, p, f"{c}.to_qk"), num_heads)
+        qk1 = _heads(_lin(x1, p, f"{c}.to_qk"), num_heads)
+        v0 = _heads(_lin(x0, p, f"{c}.to_v"), num_heads)
+        v1 = _heads(_lin(x1, p, f"{c}.to_v"), num_heads)
+    if attn_impl == "bidir":
+        # one kernel: both directions of the shared-score cross attention
+        m0, m1 = bidir_cross_attention(qk0, qk1, v0, v1, mask0, mask1)
+    else:
+        # one attention per direction; the shared Q K^T is recomputed (the
+        # JAX package's flash route)
+        scale = qk0.shape[-1] ** -0.5
+        m0 = fused_attention(qk0, qk1, v1, mask0, mask1, scale)
+        m1 = fused_attention(qk1, qk0, v0, mask1, mask0, scale)
     m0 = _lin(_merge(m0), p, f"{c}.to_out")
     m1 = _lin(_merge(m1), p, f"{c}.to_out")
     return _ffn(x0, m0, p, c), _ffn(x1, m1, p, c)
@@ -265,6 +334,7 @@ def forward(
     width_confidence: float = -1.0,
     pruning_min_kpts: int = 1536,
     compute_dtype: torch.dtype = torch.float32,
+    attn_impl: str = "flash",
 ) -> Dict[str, torch.Tensor]:
     """Batched LightGlue matching (the JAX package's ``forward_impl``).
 
@@ -276,8 +346,10 @@ def forward(
     points out of later layers and the assignment, per pair while it holds
     more than ``pruning_min_kpts`` points. ``compute_dtype`` bf16 runs the
     transformer in bf16 (f32 accumulation and softmax); assignment scores
-    stay f32. Returns matches0 (B, M) int32, matching_scores0, valid0 and
-    layers_run (int)."""
+    stay f32. ``attn_impl`` "bidir" runs the cross attention on kernel 6
+    (``ATTN_IMPLS``). Returns matches0 (B, M) int32, matching_scores0,
+    valid0 and layers_run (int)."""
+    check_attn_impl(attn_impl)
     num_heads = model.num_heads
     mask0 = mask0.bool()
     mask1 = mask1.bool()
@@ -290,6 +362,8 @@ def forward(
         desc0 = _lin(desc0, p, "input_proj")
         desc1 = _lin(desc1, p, "input_proj")
 
+    fused = (model.prologue_weights(p)
+             if os.environ.get("DIM_TPU_FUSED_PROLOGUE", "0") == "1" else None)
     wr = p["posenc.Wr.weight"].T
     enc0 = rotary_encoding(normalize_keypoints(kpts0, size0), wr)
     enc1 = rotary_encoding(normalize_keypoints(kpts1, size1), wr)
@@ -306,9 +380,10 @@ def forward(
     layers_run = n_layers
     for i in range(n_layers):
         t = f"transformers.{i}"
-        desc0 = _self_block(desc0, enc0, mask0, p, t, num_heads)
-        desc1 = _self_block(desc1, enc1, mask1, p, t, num_heads)
-        desc0, desc1 = _cross_block(desc0, desc1, mask0, mask1, p, t, num_heads)
+        fl = None if fused is None else fused[i]
+        desc0 = _self_block(desc0, enc0, mask0, p, t, num_heads, fl)
+        desc1 = _self_block(desc1, enc1, mask1, p, t, num_heads, fl)
+        desc0, desc1 = _cross_block(desc0, desc1, mask0, mask1, p, t, num_heads, attn_impl, fl)
         if not (do_stop or do_prune):
             continue
         last = i == n_layers - 1
@@ -404,8 +479,10 @@ class LightGlueRunner:
         depth_confidence: float = -1.0,
         width_confidence: float = -1.0,
         device: torch.device = torch.device("cpu"),
+        attn_impl: str = "flash",
     ):
         self.device = torch.device(device)
+        self.attn_impl = check_attn_impl(attn_impl)
         model = model if model is not None else load_default_model(features, n_layers)
         self.model = model.to(self.device)
         self.filter_threshold = filter_threshold
@@ -459,5 +536,5 @@ class LightGlueRunner:
             filter_threshold=self.filter_threshold, depth=self.depth,
             depth_confidence=self.depth_confidence,
             width_confidence=self.width_confidence,
-            compute_dtype=self.compute_dtype,
+            compute_dtype=self.compute_dtype, attn_impl=self.attn_impl,
         )

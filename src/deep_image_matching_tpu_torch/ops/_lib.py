@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("attention.cu", "ffn.cu", "assignment.cu", "nullspace.cu", "nn.cu",
-           "sinkhorn.cu", "refiner.cu")
+           "sinkhorn.cu", "refiner.cu", "bidir_attention.cu", "qkv.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = {
     "attention": 0, "ffn": 0, "assignment": 0, "nullspace": 0, "nn": 0,
-    "sinkhorn": 0, "lse_rows": 0, "refiner": 0,
+    "sinkhorn": 0, "lse_rows": 0, "refiner": 0, "bidir_attention": 0, "qkv": 0,
 }
 
 _P = ctypes.c_void_p
@@ -53,6 +53,8 @@ _SIGNATURES = {
     "dim_sinkhorn_iteration": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "dim_lse_rows": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
     "dim_refiner_block": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dim_bidir_attention_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "dim_qkv_rotary_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

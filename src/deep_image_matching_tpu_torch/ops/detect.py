@@ -2,8 +2,11 @@
 
 Port of ``deep_image_matching_tpu/ops/detect.py``, batch-first (B, H, W)
 score maps and fixed-capacity (B, K) outputs with validity masks. Selection
-uses ``torch.topk`` directly; the JAX package's recursive ``topk_flat``
-works around a TPU compiler abort and has no counterpart here.
+is a stable descending sort, so tied scores keep the lower index first, as
+``jax.lax.top_k`` keeps them (``torch.topk`` orders ties in no set order, and
+on plateaus of equal scores that picks other keypoints); the JAX package's
+recursive ``topk_flat`` works around a TPU compiler abort and has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ def select_topk(
     Positions below ``threshold``, inside the ``border`` margin or outside
     ``valid_hw`` (the unpadded (h, w) per batch element) are masked out.
     Returns kpts (B, k, 2) float32 (x, y), kscores (B, k), valid (B, k);
-    valid rows come first (masked positions carry -1, real scores > 0).
+    valid rows come first (masked positions carry -1, real scores > 0), in
+    descending score order, ties by ascending position.
     """
     B, H, W = scores.shape
     dev = scores.device
@@ -63,7 +67,9 @@ def select_topk(
         h_hi, w_hi = H - border, W - border
     ok = (ys >= border) & (ys < h_hi) & (xs >= border) & (xs < w_hi) & (scores > threshold)
     masked = torch.where(ok, scores, scores.new_tensor(-1.0))
-    top_vals, top_idx = torch.topk(masked.reshape(B, H * W), k, dim=1)
+    top_vals, top_idx = torch.sort(masked.reshape(B, H * W), dim=1, descending=True,
+                                   stable=True)
+    top_vals, top_idx = top_vals[:, :k], top_idx[:, :k]
     valid = top_vals > 0.0
     kpts = torch.stack([(top_idx % W).float(), (top_idx // W).float()], dim=-1)
     kpts = torch.where(valid[..., None], kpts, kpts.new_tensor(0.0))

@@ -11,9 +11,11 @@ import torch
 from deep_image_matching_tpu_torch.ops import _lib
 from deep_image_matching_tpu_torch.ops import assignment as tassign
 from deep_image_matching_tpu_torch.ops import attention as tattn
+from deep_image_matching_tpu_torch.ops import bidir_attention as tbidir
 from deep_image_matching_tpu_torch.ops import ffn as tffn
 from deep_image_matching_tpu_torch.ops import nn as tnn
 from deep_image_matching_tpu_torch.ops import nullspace as tnull
+from deep_image_matching_tpu_torch.ops import qkv as tqkv
 from deep_image_matching_tpu_torch.ops import ransac as transac
 from deep_image_matching_tpu_torch.ops import refiner as trefiner
 from deep_image_matching_tpu_torch.ops import sinkhorn as tsink
@@ -236,3 +238,57 @@ def test_refiner_kernel_matches_plain(cuda, C):
                                   torch.zeros(1, 65, device=cuda),
                                   torch.zeros(1, 1, 1, 65, 65, device=cuda),
                                   torch.zeros(1, 65, device=cuda))
+
+
+def test_bidir_attention_kernel_matches_plain(cuda):
+    """Ragged M != N against the 64-row tiles, partial masks, a fully
+    masked row on one side and a fully masked batch element on the other."""
+    gen = torch.Generator().manual_seed(15)
+    B, H, M, N = 3, 4, 200, 130
+    qk0, v0 = (torch.randn(B, H, M, 64, generator=gen).to(cuda, torch.bfloat16) for _ in range(2))
+    qk1, v1 = (torch.randn(B, H, N, 64, generator=gen).to(cuda, torch.bfloat16) for _ in range(2))
+    m0 = _prefix_masks(gen, B, M, 10).to(cuda)
+    m1 = _prefix_masks(gen, B, N, 10).to(cuda)
+    m0[1, 5] = False
+    m1[2] = False  # every side-1 token of element 2 masked
+    before = _lib.LAUNCHES["bidir_attention"]
+    got = tbidir.bidir_cross_attention(qk0, qk1, v0, v1, m0, m1)
+    assert _lib.LAUNCHES["bidir_attention"] == before + 1
+    ref = tbidir.bidir_cross_attention_reference(qk0, qk1, v0, v1, m0, m1)
+    for g, r, m in zip(got, ref, (m0, m1)):
+        rows = m[:, None, :, None].expand_as(g)
+        g, r = g.float(), r.float()
+        # two bf16 ulps: the output's rounding and the probabilities', which
+        # the kernel rounds before normalising and the plain version after
+        assert bool(((g - r).abs()[rows] <= 2.0 ** -6 * r.abs()[rows].clamp(min=1.0)).all())
+        assert bool(torch.isfinite(g).all())
+
+
+@pytest.mark.parametrize("sections", [3, 2])
+def test_qkv_kernel_matches_plain(cuda, sections):
+    """Self mode (3 sections, rotary on q and k) and cross mode (2 sections,
+    no rotary) at 2 x 100 rows, a partial 64-row tile."""
+    gen = torch.Generator().manual_seed(16)
+    B, N, D, H = 2, 100, 256, 4
+    rot = (0, 1) if sections == 3 else ()
+    x = torch.randn(B, N, D, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(sections * D, D, generator=gen) / 16).to(cuda, torch.bfloat16)
+    b = (0.1 * torch.randn(sections * D, generator=gen)).to(cuda, torch.bfloat16)
+    ang = torch.rand(B, N, 32, generator=gen) * 6.3
+    cos = torch.repeat_interleave(torch.cos(ang), 2, -1).to(cuda)
+    sin = torch.repeat_interleave(torch.sin(ang), 2, -1).to(cuda)
+    before = _lib.LAUNCHES["qkv"]
+    got = tqkv.proj_rotary_fused(x, w, b, cos, sin, H, sections, rot)
+    assert _lib.LAUNCHES["qkv"] == before + 1
+    ref = tqkv.proj_rotary_reference(x, w, b, cos, sin, H, sections, rot)
+    y = tqkv.proj_rotary_reference(x.float(), w, b, None, None, H, sections, ())
+    equal = 0.0
+    for g, r, ys in zip(got, ref, y):
+        assert g.shape == (B, H, N, 64)
+        g, r = g.float(), r.float()
+        # one bf16 ulp of each rounded operand: the f32 sums run in another
+        # order, so a rounding of t may fall on the other side
+        bound = 2.0 ** -7 * (r.abs() + ys.abs() + tqkv.rotate_half(ys).abs())
+        assert bool(((g - r).abs() <= bound).all())
+        equal += float((g == r).float().mean()) / sections
+    assert equal > 0.99

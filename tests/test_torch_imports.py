@@ -25,7 +25,8 @@ print(" ".join(names))
 """
 
 # the modules of the ported slices (SuperPoint + LightGlue, then nearest
-# neighbours, SuperGlue, SIFT and ORB, then RoMa)
+# neighbours, SuperGlue, SIFT and ORB, then RoMa, then ALIKED and LightGlue's
+# two opt-in kernels)
 SLICE_MODULES = (
     "models.superpoint", "models.lightglue", "ops.attention", "ops.ffn", "ops.assignment",
     "ops.nullspace", "ops.ransac",
@@ -33,6 +34,8 @@ SLICE_MODULES = (
     "matchers.kornia_matcher", "extractors.sift", "extractors.orb",
     "ops.refiner", "models.vgg_refiner", "models.dinov2", "models.roma", "matchers.roma",
     "extractors.no_extractor", "utils.dense_to_multiview",
+    "ops.bidir_attention", "ops.qkv", "ops.deform", "models.aliked", "extractors.aliked",
+    "upright", "low_resolution",
 )
 
 
@@ -41,7 +44,7 @@ def test_port_imports_without_jax_or_h5py():
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     names = set(res.stdout.split())
-    assert len(names) >= 56
+    assert len(names) >= 62
     assert {f"deep_image_matching_tpu_torch.{m}" for m in SLICE_MODULES} <= names
 
 
@@ -94,7 +97,7 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path):
     args = {"dir": str(tmp_path), "pipeline": "superpoint+lightglue", "strategy": "bruteforce"}
     with pytest.raises(NotImplementedError, match="reconstruction"):
         run_matching(args)
-    for pipeline in ("aliked+lightglue", "loftr", "se2loftr", "srif"):
+    for pipeline in ("disk+lightglue", "loftr", "se2loftr", "srif"):
         with pytest.raises(NotImplementedError, match="ported"):
             run_matching({**args, "pipeline": pipeline, "skip_reconstruction": True})
     assert resolve_device("cpu") == torch.device("cpu")
