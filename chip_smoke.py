@@ -6,19 +6,22 @@ Phases, each printing its own lines:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. kernel build: the CUDA sources of ``src/deep_image_matching_tpu_torch/csrc``
    compiled for sm_90a (one nvcc per source, all started together), with
-   ptxas' register and spill report;
+   ptxas' register and spill report, and the count of HGMMA instructions in
+   the SASS of the two attention kernels (``cuobjdump -sass``; none fails);
 3. each kernel against its plain PyTorch version on the card, at the
    main-path shapes (partial masks, degenerate hypotheses, integer
-   descriptors with ties), with its tolerance and both times (CUDA events,
-   median of 10), its bound (the larger of the bytes it must move over
-   3.35 TB/s and its operations over the peak rate of their type) and the
-   time of one PyTorch call that computes the same function, where there is
-   one: attention (LightGlue's, SuperGlue's and DINOv2's shapes), the FFN in
-   both modes (ln_gelu at LightGlue's shape, relu at SuperGlue's),
+   descriptors with ties), with its tolerance and both times (CUDA events
+   around runs of back-to-back calls, median of 10), its bound (the larger of
+   the bytes it must move over 3.35 TB/s and its operations over the peak
+   rate of their type) and the time of one PyTorch call that computes the
+   same function, where there is one: attention (LightGlue's, SuperGlue's
+   and DINOv2's shapes), the FFN in both modes (ln_gelu at LightGlue's
+   shape, relu at SuperGlue's),
    assignment, null space, nearest neighbours, the Sinkhorn iteration, the
    row logsumexp, RoMa's refiner stack (both passes' shapes), LightGlue's
    bidirectional cross attention (LightGlue's and ALIKED's lengths) and its
-   fused QKV + rotary prologue (both modes);
+   fused QKV + rotary prologue (both modes, beside the path's own unfused
+   prologue on the same inputs);
 4. LightGlue and SuperGlue at full width on small batches with planted
    matches: the kernels on the card against the plain versions on the CPU,
    LightGlue also with ``attn_impl: bidir`` and the fused prologue; ALIKED at
@@ -149,22 +152,28 @@ def _fail(msg: str) -> None:
 
 
 def _time_ms(fn, reps: int = 10) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events), after
-    one warm-up run."""
+    """Median milliseconds per call of ``fn``: ``reps`` samples, each a run
+    of back-to-back calls between two CUDA events (as many as fill about 2
+    ms, at most 50), after one warm-up call and one warm-up run; the host's
+    dispatch of one call overlaps the device's work on the one before, as in
+    a pipeline."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    def run(n: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
+        return start.elapsed_time(end) / n
+
+    fn()
+    torch.cuda.synchronize()
+    n = max(1, min(50, int(2.0 / max(run(1), 1e-3))))
+    run(n)
+    times = sorted(run(n) for _ in range(reps))
     return times[len(times) // 2]
 
 
@@ -201,6 +210,36 @@ def phase_build() -> None:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {line.strip()}", flush=True)
+    # the attention core must have compiled to Hopper's warpgroup products
+    for kernel, count in _sass_hgmma(so).items():
+        print(f"[build] {kernel}: {count} HGMMA instructions in its SASS", flush=True)
+        if not count:
+            _fail(f"{kernel}: no HGMMA in its SASS (wgmma did not compile)")
+
+
+# kernel entry -> the name its SASS section carries (anonymous namespace)
+WGMMA_KERNELS = {"attention": "attention_sm90", "bidir_attention": "bidir_attention_sm90"}
+
+
+def _sass_hgmma(so: Path) -> dict:
+    """HGMMA instructions per wgmma kernel in the library's SASS, from the
+    CUDA toolkit's ``cuobjdump -sass``."""
+    from deep_image_matching_tpu_torch.ops import _lib
+
+    tool = Path(_lib._nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True)
+    if res.returncode != 0:
+        _fail(f"cuobjdump -sass failed ({res.returncode}): {res.stderr.strip()[-500:]}")
+    counts, current = {name: 0 for name in WGMMA_KERNELS}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            # the longest matching name: bidir_attention_sm90 holds attention_sm90
+            hits = [k for k, v in WGMMA_KERNELS.items() if v in fn]
+            current = max(hits, key=lambda k: len(WGMMA_KERNELS[k])) if hits else None
+        elif current is not None and "HGMMA" in line:
+            counts[current] += 1
+    return counts
 
 
 def _masks(torch, gen, B, N, dev):
@@ -685,6 +724,7 @@ def check_bidir_attention(torch, dev, card):
 
 
 def check_qkv(torch, dev, card):
+    from deep_image_matching_tpu_torch.models.lightglue import cross_prologue, self_prologue
     from deep_image_matching_tpu_torch.ops.qkv import (
         proj_rotary_fused, proj_rotary_reference, rotate_half)
 
@@ -715,11 +755,21 @@ def check_qkv(torch, dev, card):
             equal += (g == r).float().mean().item() / sections
         del ref, y, diff, bound
         ins = (x, w, b, cos, sin) if rot else (x, w, b)
+        # the path's own unfused prologue (models/lightglue.py) on the same
+        # inputs: F.linear, the head split and, in self mode, the rotary
+        if rot:
+            p = {"t.self_attn.Wqkv.weight": w, "t.self_attn.Wqkv.bias": b}
+            unfused = lambda: self_prologue(x, p, "t", cos, sin, H)  # noqa: E731
+        else:
+            p = {"c.to_qk.weight": w[:D], "c.to_qk.bias": b[:D],
+                 "c.to_v.weight": w[D:], "c.to_v.bias": b[D:]}
+            unfused = lambda: cross_prologue(x, p, "c", H)  # noqa: E731
         res[sections] = {"err": err, "tol": tol, "equal": equal,
                          **_bound(_nbytes(*ins, *got), 2.0 * B * N * D * sections * D, "bf16"),
                          "ms": _time_ms(lambda: proj_rotary_fused(*args)),
                          "plain_ms": _time_ms(lambda: proj_rotary_reference(*args)),
-                         "library_ms": _time_ms(lambda: torch.nn.functional.linear(x, w, b))}
+                         "library_ms": _time_ms(lambda: torch.nn.functional.linear(x, w, b)),
+                         "unfused_ms": _time_ms(unfused)}
         del got
         torch.cuda.empty_cache()
     a, c = res[3], res[2]
@@ -727,11 +777,14 @@ def check_qkv(torch, dev, card):
             f"mode (3 sections, rotary) at (65536, 256) reported, bitwise equal {a['equal']:.6f}; "
             f"cross mode (2 sections): max err {c['err']:.3e}, equal {c['equal']:.6f}, kernel "
             f"{c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms, F.linear {c['library_ms']:.3f} ms, "
-            f"bound {c['bound_ms']:.3f} ms")
+            f"unfused prologue {c['unfused_ms']:.3f} ms, bound {c['bound_ms']:.3f} ms; self mode's "
+            f"unfused prologue {a['unfused_ms']:.3f} ms")
     drop = ("err", "tol", "equal")
     extra = {k: v for k, v in a.items() if k not in drop}
     extra.update({"library_note": "F.linear(x, W, b) alone: without the head relayout and the "
                                   "rotary embedding",
+                  "unfused_note": "the path's own unfused prologue (models/lightglue.py "
+                                  "self_prologue / cross_prologue): F.linear, head split, rotary",
                   "shape": [B * N, D], "bitwise_equal_share": a["equal"],
                   "cross_max_abs_err": c["err"], "cross_bitwise_equal_share": c["equal"],
                   **{f"cross_{k}": v for k, v in c.items() if k not in drop}})

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -48,12 +49,14 @@ PATHS = {
     "aliked+lightglue": ("synthetic16", "    attn_impl: bidir\nmatcher:\n  filter_threshold: 0.0\n"),
 }
 
-# the __global__ functions of csrc/*.cu -> the kernel they belong to
+# the __global__ functions of csrc/*.cu -> the kernel they belong to; a name
+# matches where no letter or underscore precedes it (attention_sm90 is not
+# bidir_attention_sm90)
 OUR_KERNELS = {
-    "attention_kernel": "attention", "ffn_kernel": "ffn", "dual_pass_kernel": "assignment",
+    "attention_sm90": "attention", "ffn_kernel": "ffn", "dual_pass_kernel": "assignment",
     "nullspace_kernel": "nullspace", "nn_top2_kernel": "nn",
     "sinkhorn_iter_kernel": "sinkhorn", "lse_rows_kernel": "lse_rows",
-    "refiner_block_kernel": "refiner", "bidir_kernel": "bidir_attention", "qkv_kernel": "qkv",
+    "refiner_block_kernel": "refiner", "bidir_attention_sm90": "bidir_attention", "qkv_kernel": "qkv",
 }
 
 
@@ -94,7 +97,7 @@ def profile_path(pipeline: str, project: Path, config: Path, warm: int, top: int
     ours = {}
     for ms, n, key in events:
         for fn, kernel in OUR_KERNELS.items():
-            if fn in key:
+            if re.search(rf"(?<![A-Za-z_]){fn}", key):
                 ms0, n0 = ours.get(kernel, (0.0, 0))
                 ours[kernel] = (ms0 + ms, n0 + n)
     return {

@@ -1,0 +1,620 @@
+// The Hopper attention core shared by kernel 1 (attention.cu, masked
+// attention) and kernel 6 (bidir_attention.cu, LightGlue's bidirectional
+// cross attention): one block computes 192 query rows of softmax(Q K^T) V
+// over every key tile of one (batch, head), with an online softmax.
+//
+// What bounds it on the H100: tensor-core issue in principle (at LightGlue's
+// shape a call is ~4 * 2048^2 * 64 FLOP per (batch, head) against 1 MB of
+// operands, far above the card's ~295 operations per byte), but at head dim
+// 64 the softmax's exp2 on the SFUs (16 a clock per SM) needs as many cycles
+// as the two products on the tensor cores, and every 128 x 64 K or V tile is
+// read from L2 once per block. The design:
+//
+// - Block of four warpgroups. Warpgroups 0-2 consume, each owning 64 query
+//   rows, so each K/V tile serves 192 rows; one warp of warpgroup 3 produces.
+//   `setmaxnreg` moves the producer's registers to the consumers (32 / 160 a
+//   thread). A warpgroup whose rows all lie past the end only releases tiles.
+// - TMA-fed tiles. The producer loads the Q tile once and keeps a ring of
+//   STAGES (K, V) tiles of 128 keys x 64 bf16 in flight, each signalled on a
+//   full mbarrier and released on an empty one. The tensor maps are 3-D,
+//   (64, rows, batch x head) with 128-byte swizzle, so a ragged last tile
+//   zero-fills instead of reading the next head's rows.
+// - wgmma. S = Q K^T is m64n128k16 with both operands in shared memory
+//   (K-major). The probabilities are rounded to bf16 and reused from the
+//   accumulator registers as the A operand of O += P V (m64n64k16), whose B
+//   operand is the V tile as stored, (key, d), read with the transpose bit.
+//   S of tile t is issued together with PV of tile t - 1, so the tensor cores
+//   run PV(t - 1) while tile t's maxima are taken.
+// - Masks. The producer turns each key tile's mask into an additive bias
+//   (0 valid, -1e30 masked, -inf past the end) stored beside the tile, and
+//   skips a tile whose keys are all masked when the batch element has at
+//   least one valid key: for a valid query those keys add exp(-1e30 - m) = 0
+//   in f32, so the skip is exact. If every key is masked nothing is skipped
+//   (kernel 1 then averages all keys uniformly, as the reference does). A
+//   query tile whose rows are all masked is written as zeros and skipped.
+// - Softmax in registers on the accumulator fragments, the scale folded into
+//   exp2; running maxima from -inf (kernel 1) or -1e30 (kernel 6, where a
+//   row bias of -1e30 for a masked row is added to S); f32 sums; the output
+//   times 1/l (kernel 1) or over max(l, 1e-30) (kernel 6), rounded to bf16.
+//   A key tile whose keys are all valid takes a short form (one FFMA and one
+//   exp2 per score). Kernel 6 takes it in a warpgroup whose 64 rows are all
+//   valid, which runs a second instantiation of the tile loop without row
+//   biases: keeping them beside the branch made ptxas spill.
+// - Blocks run the ragged last row tiles last, so the last, partial wave
+//   holds the cheaper blocks.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace attn_sm90 {
+
+constexpr int D = 64;         // head dim: one 128-byte swizzle row
+constexpr int BQ = 192;       // query rows per block, 64 per consumer warpgroup
+constexpr int BK = 128;       // keys per tile
+constexpr int STAGES = 4;     // (K, V) tiles in flight
+constexpr int CONSUMERS = BQ / 64 * 128;  // threads of the consumer warpgroups
+constexpr int THREADS = CONSUMERS + 128;   // warpgroups 0-2 consume, warpgroup 3 produces
+constexpr int TILE_BYTES = BK * D * 2;     // one K or V tile: 16 KB
+constexpr int Q_BYTES = BQ * D * 2;        // the Q tile: 24 KB
+constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// shared memory, from a 1024-byte aligned base (the 128-byte swizzle repeats
+// every 8 rows of 128 bytes); a stage's info is 1 if all its keys are valid,
+// 0 if not, -1 for the end marker
+constexpr int OFF_Q = 0;
+constexpr int OFF_K = OFF_Q + Q_BYTES;
+constexpr int OFF_V = OFF_K + STAGES * TILE_BYTES;
+constexpr int OFF_BIAS = OFF_V + STAGES * TILE_BYTES;  // float [STAGES][BK]
+constexpr int OFF_FLAG = OFF_BIAS + STAGES * BK * 4;   // int [BQ / 16]: kernel 6's warps
+constexpr int OFF_INFO = OFF_FLAG + 4 * (BQ / 16);     // int [STAGES], below
+constexpr int OFF_BAR = OFF_INFO + 16 * STAGES;        // u64: q, full[STAGES], empty[STAGES]
+constexpr int SMEM_BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+
+struct Job {
+  const CUtensorMap* qmap;  // (64, Nq, B*H) bf16
+  const CUtensorMap* kmap;  // (64, Nk, B*H) bf16
+  const CUtensorMap* vmap;  // (64, Nk, B*H) bf16
+  const uint8_t* qmask;     // (Nq) of this batch element, or null
+  const uint8_t* kmask;     // (Nk) of this batch element, or null
+  uint16_t* out;            // (Nq, 64) of this (batch, head)
+  int bh, q0, Nq, Nk;
+  float scale_log2;         // the softmax scale times log2(e)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte swizzled tile: start address,
+// leading and stride byte offsets (16-byte units), base offset 0 (the tiles
+// are 1024-byte aligned), layout 1 = 128-byte swizzle. The stride offset is
+// the 1024 bytes between groups of 8 rows: along M/N for a K-major operand,
+// along K for an MN-major one. The leading offset is unused for K-major
+// swizzled operands and, for MN-major ones, steps between 64-wide column
+// blocks, of which a 64-wide operand has one.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo16) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo16) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma and its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 128 f32 fragments) (+)= A (64 x 16, shared, K-major) B^T (128 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 f32 fragments) += A (64 x 16 bf16, registers) B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S (64 x 128) = Q K^T over the head dim: 4 k-steps of 16 (32 bytes along
+// the swizzled 128-byte rows of both tiles)
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq, uint32_t k_tile) {
+  const uint64_t dk = sw128_desc(k_tile, 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_qk(s, dq + 2 * kk, dk + 2 * kk, kk);
+}
+
+// O (64 x 64) += P V over 128 keys: 8 k-steps of 16 keys, 2048 bytes of V each
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[32],
+                                         uint32_t v_tile) {
+  const uint64_t dv = sw128_desc(v_tile, 1024 >> 4);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) wgmma_pv(o, pa + 4 * kk, dv + (2048 >> 4) * kk);
+}
+
+// The maximum (sum) of row r's 32 values s[4 j + 2 r + {0, 1}], r = 0 for
+// the thread's first row, 1 for its second: four interleaved chains of eight,
+// so the chains stay short and few registers are live.
+template <int R>
+__device__ __forceinline__ float row_max(const float (&s)[64]) {
+  float a[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) a[k] = fmaxf(s[2 * R + 4 * k], s[2 * R + 4 * k + 1]);
+#pragma unroll
+  for (int j = 4; j < 16; ++j) {
+    a[j & 3] = fmaxf(a[j & 3], s[4 * j + 2 * R]);
+    a[j & 3] = fmaxf(a[j & 3], s[4 * j + 2 * R + 1]);
+  }
+  return fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
+}
+template <int R>
+__device__ __forceinline__ float row_sum(const float (&s)[64]) {
+  float a[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) a[k] = s[2 * R + 4 * k] + s[2 * R + 4 * k + 1];
+#pragma unroll
+  for (int j = 4; j < 16; ++j) a[j & 3] += s[4 * j + 2 * R] + s[4 * j + 2 * R + 1];
+  return (a[0] + a[1]) + (a[2] + a[3]);
+}
+
+// the new running maxima from the tile maxima of this thread's two rows
+// (reduced over the 4 threads of each row); corr rescales the old sums
+__device__ __forceinline__ void update_max(const float (&mx)[2], float (&m)[2],
+                                           float (&corr)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float v = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    const float m_new = fmaxf(m[r], v);  // finite: the tile holds a key < Nk
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+  }
+}
+
+// Online softmax of one tile on the accumulator fragments: s[4 j + e] is
+// row r + 8 (e / 2), key 8 j + c + (e % 2) of the tile. Scales, adds the key
+// (and row) biases, updates the running maxima m and sums l, leaves the
+// probabilities in s and the factor that rescales the old sums in corr.
+// ROWB: the rows carry kernel 6's row biases qb. Without them a tile whose
+// keys are all valid (bias 0) takes the short form: the maximum of s * C is
+// C times that of s (C > 0), and exp2(s * C - m) is one FFMA.
+template <bool ROWB>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], const float* bias, bool all_valid,
+                                             int c, const float (&qb)[2], float C,
+                                             float (&m)[2], float (&l)[2], float (&corr)[2]) {
+  if (!ROWB && all_valid) {
+    update_max({row_max<0>(s) * C, row_max<1>(s) * C}, m, corr);
+    const float negm[2] = {-m[0], -m[1]};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = ex2(fmaf(s[i], C, negm[(i >> 1) & 1]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 kb = *reinterpret_cast<const float2*>(bias + 8 * j + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = s[4 * j + e] * C + ((e & 1) ? kb.y : kb.x);
+        if (ROWB) val += qb[e >> 1];
+        s[4 * j + e] = val;
+      }
+    }
+    update_max({row_max<0>(s), row_max<1>(s)}, m, corr);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+  }
+  l[0] = l[0] * corr[0] + row_sum<0>(s);
+  l[1] = l[1] * corr[1] + row_sum<1>(s);
+}
+
+// Block order: the first n - 1 row tiles of every (batch, head), row tiles
+// fastest so that blocks running together share keys and values in L2, then
+// the last (ragged) row tile of every (batch, head), so the last wave holds
+// the cheaper blocks. Block L of BH * n -> (batch x head, row tile).
+__device__ __forceinline__ void block_tile(int L, int BH, int n, int& bh, int& x) {
+  const int full = BH * (n - 1);
+  if (L < full) {
+    bh = L / (n - 1);
+    x = L % (n - 1);
+  } else {
+    bh = L - full;
+    x = n - 1;
+  }
+}
+
+// P rounded to bf16 in the A-fragment order of m64nNk16: for 16 keys kk,
+// (row, keys c..c+1), (row + 8, c..c+1), (row, 8 + c..), (row + 8, 8 + c..)
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[32], const float (&s)[64]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+// The tile loop of one consumer warpgroup over its 64 rows (the thread's
+// rows r_loc and r_loc + 8, columns 8 j + c and 8 j + c + 1). BIDIR selects
+// kernel 6's numerics (maxima from -1e30, output over max(l, 1e-30)); ROWB
+// adds its row biases qb. A warpgroup whose rows are all valid runs kernel 6
+// without them, so that loop holds no qb and takes the short softmax.
+template <bool BIDIR, bool ROWB>
+__device__ __forceinline__ void consume(const Job& sjob, uint32_t base, const float* sbias,
+                                        const int* sinfo, int wg, int r_loc, int c,
+                                        const float (&qb)[2]) {
+  const uint32_t bar_q = base + OFF_BAR;
+  const uint32_t bar_full = bar_q + 8;                // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * STAGES;   // + 8 * stage
+  const float C = sjob.scale_log2;
+  float m[2] = {BIDIR ? NEG : -INFINITY, BIDIR ? NEG : -INFINITY};
+  float l[2] = {0.f, 0.f};  // per-thread partial row sums
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+
+  const uint64_t dq = sw128_desc(base + OFF_Q + wg * 64 * 128, 1);
+  float s[64];      // the scores of the newest tile, then its probabilities
+  uint32_t pa[32];  // the previous tile's P as bf16 A fragments, 4 registers per 16 keys
+  float corr[2];
+  mbar_wait(bar_q, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+
+  // the first tile (there is one: a skipped tile is all masked, and then
+  // some tile has a valid key): S, then its softmax
+  mbar_wait(bar_full, 0);
+  wg_fence();
+  issue_qk(s, dq, base + OFF_K);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(s);
+  softmax_tile<ROWB>(s, sbias, sinfo[0] > 0, c, qb, C, m, l, corr);
+  pack_p(pa, s);
+  int prev = stage;
+  if (++stage == STAGES) {
+    stage = 0;
+    phase ^= 1;
+  }
+
+  // Steady state: S of tile t is issued with the PV product of tile t - 1,
+  // so the softmax of tile t runs on the CUDA cores while the tensor cores
+  // run PV(t - 1). Tile t - 1's stage is released once PV(t - 1) is done.
+  while (true) {
+    mbar_wait(bar_full + 8 * stage, phase);
+    const int info = *reinterpret_cast<const volatile int*>(sinfo + stage);
+    if (info < 0) break;
+    wg_fence();
+    issue_qk(s, dq, base + OFF_K + stage * TILE_BYTES);
+    wg_commit();
+    issue_pv(o, pa, base + OFF_V + prev * TILE_BYTES);
+    wg_commit();
+    wg_wait<1>();  // S(t) is done, PV(t - 1) may still run
+    fence_regs(s);
+    softmax_tile<ROWB>(s, sbias + stage * BK, info > 0, c, qb, C, m, l, corr);
+    wg_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);  // PV(t - 1) has read them: pa may now be rewritten
+    mbar_arrive(bar_empty + 8 * prev);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+    pack_p(pa, s);
+    prev = stage;
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  wg_fence();
+  issue_pv(o, pa, base + OFF_V + prev * TILE_BYTES);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(o);
+  mbar_arrive(bar_empty + 8 * prev);
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = BIDIR ? 1.f / fmaxf(l[r], 1e-30f) : 1.f / l[r];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = sjob.q0 + r_loc + 8 * r;
+    if (row < sjob.Nq) {
+      uint16_t* dst = sjob.out + static_cast<size_t>(row) * D + c;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+// One block of BQ query rows. BIDIR selects kernel 6's numerics (row bias,
+// maxima from -1e30, output over max(l, 1e-30)) over kernel 1's.
+template <bool BIDIR>
+__device__ __forceinline__ void attention_block(const Job& job) {
+  extern __shared__ __align__(1024) uint8_t dyn_smem[];
+  const int tid = threadIdx.x;
+  uint32_t base = smem_u32(dyn_smem);
+  const uint32_t pad = (1024u - (base & 1023u)) & 1023u;
+  uint8_t* sm = dyn_smem + pad;
+  base += pad;
+  float* sbias = reinterpret_cast<float*>(sm + OFF_BIAS);
+  int* sinfo = reinterpret_cast<int*>(sm + OFF_INFO);
+  const uint32_t bar_q = base + OFF_BAR;
+  const uint32_t bar_full = bar_q + 8;                // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * STAGES;   // + 8 * stage
+
+  // a query tile whose rows are all masked: zeros, nothing else
+  bool any_q = job.qmask == nullptr;
+  if (!any_q && tid < BQ && job.q0 + tid < job.Nq) any_q = job.qmask[job.q0 + tid] != 0;
+  if (!__syncthreads_or(any_q)) {
+    for (int i = tid; i < BQ * D / 8; i += THREADS) {
+      const int r = job.q0 + i / (D / 8);
+      if (r < job.Nq)
+        *reinterpret_cast<uint4*>(job.out + static_cast<size_t>(r) * D + (i % (D / 8)) * 8) =
+            make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  // whether this batch element has a valid key (then all-masked tiles skip)
+  bool any_k = job.kmask == nullptr;
+  for (int i = tid; !any_k && i < job.Nk; i += THREADS) any_k = job.kmask[i] != 0;
+  any_k = __syncthreads_or(any_k);
+
+  // the item's description, read from shared memory after the role split so
+  // that the consumers do not hold it in registers through the tile loop
+  __shared__ Job sjob;
+  if (tid == 0) {
+    sjob = job;
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 32);    // the producer warp's lanes
+      mbar_init(bar_empty + 8 * s, CONSUMERS);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---------------- producer warpgroup: one warp issues, three idle -------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
+    if (tid < CONSUMERS + 32) {
+      const int lane = tid - CONSUMERS;
+      if (lane == 0) {
+        mbar_arrive_tx(bar_q, Q_BYTES);
+        tma_load_3d(base + OFF_Q, sjob.qmap, bar_q, 0, sjob.q0, sjob.bh);
+      }
+      const int ntiles = (sjob.Nk + BK - 1) / BK;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < ntiles; ++t) {
+        float kb[4];
+        bool valid = false, all4 = true;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = t * BK + lane * 4 + e;
+          const bool ok = key < sjob.Nk && (sjob.kmask == nullptr || sjob.kmask[key] != 0);
+          kb[e] = key >= sjob.Nk ? -INFINITY : (ok ? 0.f : NEG);
+          valid |= ok;
+          all4 &= ok;
+        }
+        if (!__any_sync(0xffffffffu, valid) && any_k) continue;  // all masked: skip
+        const bool all_valid = __all_sync(0xffffffffu, all4);
+        mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+        reinterpret_cast<float4*>(sbias + stage * BK)[lane] =
+            make_float4(kb[0], kb[1], kb[2], kb[3]);
+        if (lane == 0) {
+          sinfo[stage] = all_valid;
+          const uint32_t full = bar_full + 8 * stage;
+          mbar_arrive_tx(full, 2 * TILE_BYTES);
+          tma_load_3d(base + OFF_K + stage * TILE_BYTES, sjob.kmap, full, 0, t * BK, sjob.bh);
+          tma_load_3d(base + OFF_V + stage * TILE_BYTES, sjob.vmap, full, 0, t * BK, sjob.bh);
+        } else {
+          mbar_arrive(bar_full + 8 * stage);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      // the end marker
+      mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+      if (lane == 0) sinfo[stage] = -1;
+      mbar_arrive(bar_full + 8 * stage);
+    }
+  } else {
+    // ---------------- consumer warpgroups: 64 query rows each ---------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n" ::: "memory");
+    const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    if (sjob.q0 + wg * 64 >= sjob.Nq) {
+      // every row of this warpgroup is past the end: only release the tiles
+      int stage = 0;
+      uint32_t phase = 0;
+      while (true) {
+        mbar_wait(bar_full + 8 * stage, phase);
+        if (*reinterpret_cast<volatile int*>(sinfo + stage) < 0) return;
+        mbar_arrive(bar_empty + 8 * stage);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    const int r_loc = wg * 64 + warp * 16 + lane / 4;  // this thread's rows: r_loc, r_loc + 8
+    const int c = (lane % 4) * 2;                      // and columns 8 j + c, 8 j + c + 1
+    const float zero[2] = {0.f, 0.f};
+    if (!BIDIR) {
+      consume<false, false>(sjob, base, sbias, sinfo, wg, r_loc, c, zero);
+      return;
+    }
+    // kernel 6: the row biases (-1e30 for a masked row or one past the end);
+    // whether all 64 rows of the warpgroup are valid, agreed on through
+    // shared memory and the warpgroup's named barrier (wgmma needs the whole
+    // warpgroup on one code path)
+    float qb[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = sjob.q0 + r_loc + 8 * r;
+      qb[r] = (row < sjob.Nq && sjob.qmask[row]) ? 0.f : NEG;
+    }
+    int* sflag = reinterpret_cast<int*>(sm + OFF_FLAG) + wg * 4;
+    const bool warp_ok = __all_sync(0xffffffffu, qb[0] == 0.f && qb[1] == 0.f);
+    if (lane == 0) sflag[warp] = warp_ok;
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    if (sflag[0] && sflag[1] && sflag[2] && sflag[3])
+      consume<true, false>(sjob, base, sbias, sinfo, wg, r_loc, c, zero);
+    else
+      consume<true, true>(sjob, base, sbias, sinfo, wg, r_loc, c, qb);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side: 3-D tensor maps (64, rows, batch x head) of bf16 with 128-byte
+// swizzle and (64, 128, 1) boxes; rows past the end read as zeros
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query,
+// so the library needs no link against libcuda
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// 0 on success, else a CUDA runtime error code
+inline int make_map(CUtensorMap* map, const void* ptr, int rows, int bh, int box_rows = BK) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};  // bytes, dims 1-2
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(D), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace attn_sm90

@@ -232,6 +232,26 @@ def _prologue_fused_ok(x: torch.Tensor) -> bool:
     return D % 128 == 0 and (B * N) % 128 == 0
 
 
+def self_prologue(x, p, t, cos, sin, num_heads):
+    """The unfused self-attention prologue: the Wqkv projection of layer
+    ``t``, the head split and the rotary encoding of q and k; (B, H, N, hd)
+    each, contiguous (the layout kernel 10 writes)."""
+    qkv = _lin(x, p, f"{t}.self_attn.Wqkv")                  # (B, N, 3D)
+    B, N, D3 = qkv.shape
+    # torch layout: last dim = (heads, head_dim, 3)
+    qkv = qkv.reshape(B, N, num_heads, D3 // (3 * num_heads), 3).permute(0, 2, 1, 3, 4)
+    q = _apply_rotary(qkv[..., 0], cos, sin).contiguous()
+    k = _apply_rotary(qkv[..., 1], cos, sin).contiguous()
+    return q, k, qkv[..., 2].contiguous()
+
+
+def cross_prologue(x, p, c, num_heads):
+    """The unfused cross-attention prologue of one side: the to_qk and to_v
+    projections of block ``c`` split into (B, H, N, hd) heads."""
+    return (_heads(_lin(x, p, f"{c}.to_qk"), num_heads),
+            _heads(_lin(x, p, f"{c}.to_v"), num_heads))
+
+
 def _self_block(x, enc, mask, p, t, num_heads, fused=None):
     """``fused``: the layer's prologue weights (``LightGlue.prologue_weights``),
     used when the fused prologue runs."""
@@ -239,13 +259,7 @@ def _self_block(x, enc, mask, p, t, num_heads, fused=None):
     if fused is not None and _prologue_fused_ok(x):
         q, k, v = qkv_rotary_fused(x, *fused["self"], cos, sin, num_heads)
     else:
-        qkv = _lin(x, p, f"{t}.self_attn.Wqkv")                  # (B, N, 3D)
-        B, N, D3 = qkv.shape
-        # torch layout: last dim = (heads, head_dim, 3)
-        qkv = qkv.reshape(B, N, num_heads, D3 // (3 * num_heads), 3).permute(0, 2, 1, 3, 4)
-        q = _apply_rotary(qkv[..., 0], cos, sin).contiguous()
-        k = _apply_rotary(qkv[..., 1], cos, sin).contiguous()
-        v = qkv[..., 2].contiguous()
+        q, k, v = self_prologue(x, p, t, cos, sin, num_heads)
     ctx = fused_attention(q, k, v, mask, mask, q.shape[-1] ** -0.5)
     msg = _lin(_merge(ctx), p, f"{t}.self_attn.out_proj")
     return _ffn(x, msg, p, f"{t}.self_attn")
@@ -257,10 +271,8 @@ def _cross_block(x0, x1, mask0, mask1, p, t, num_heads, attn_impl="flash", fused
         qk0, v0 = qk_v_fused(x0, *fused["cross"], num_heads)
         qk1, v1 = qk_v_fused(x1, *fused["cross"], num_heads)
     else:
-        qk0 = _heads(_lin(x0, p, f"{c}.to_qk"), num_heads)
-        qk1 = _heads(_lin(x1, p, f"{c}.to_qk"), num_heads)
-        v0 = _heads(_lin(x0, p, f"{c}.to_v"), num_heads)
-        v1 = _heads(_lin(x1, p, f"{c}.to_v"), num_heads)
+        qk0, v0 = cross_prologue(x0, p, c, num_heads)
+        qk1, v1 = cross_prologue(x1, p, c, num_heads)
     if attn_impl == "bidir":
         # one kernel: both directions of the shared-score cross attention
         m0, m1 = bidir_cross_attention(qk0, qk1, v0, v1, mask0, mask1)

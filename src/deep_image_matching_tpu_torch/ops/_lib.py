@@ -4,9 +4,10 @@ The ``.cu`` files compile with ``nvcc``, one process per source, all
 started together, and link into one shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds), loaded with ``ctypes``. The
 build runs at first use into ``build/torch_kernels/`` at the
-root of the checkout, keyed by a hash of the sources and flags, so an
-unchanged checkout reuses its library. ``-Xptxas -v`` output (registers,
-shared memory, spills per kernel) is kept in ``build/torch_kernels/ptxas.log``.
+root of the checkout, keyed by a hash of the sources, the headers they
+include and the flags, so an unchanged checkout reuses its library.
+``-Xptxas -v`` output (registers, shared memory, spills per kernel) is kept
+in ``build/torch_kernels/ptxas.log``.
 
 Every kernel wrapper adds one to its entry of ``LAUNCHES`` where it launches
 its kernel, and nowhere else, so a run can show which kernels its main path
@@ -30,6 +31,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("attention.cu", "ffn.cu", "assignment.cu", "nullspace.cu", "nn.cu",
            "sinkhorn.cu", "refiner.cu", "bidir_attention.cu", "qkv.cu")
+HEADERS = ("attention_sm90.cuh",)  # included by attention.cu and bidir_attention.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -79,7 +81,7 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile ``csrc/*.cu`` for sm_90a unless this exact build exists."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     so = BUILD_DIR / f"libdim_kernels_{h.hexdigest()[:16]}.so"
     if so.exists():

@@ -37,22 +37,61 @@ def _prefix_masks(gen, B, N, low):
     return torch.arange(N)[None] < counts[:, None]
 
 
-def test_attention_kernel_matches_plain(cuda):
+def _within_two_ulps(got, ref, mask):
+    """Two bf16 ulps elementwise on the rows ``mask`` (B, T) keeps: the
+    output's rounding and the probabilities', which the kernel rounds before
+    normalising and the plain version after."""
+    rows = mask[:, None, :, None].expand_as(got)
+    got, ref = got.float(), ref.float()
+    return bool(((got - ref).abs()[rows] <= 2.0 ** -6 * ref.abs()[rows].clamp(min=1.0)).all())
+
+
+def _middle_tile_masks(gen, B, N, cuda):
+    """Random non-prefix masks; in element 0 the second 128-key tile is
+    masked whole (the kernels skip it), element 1 keeps every key."""
+    m = torch.rand(B, N, generator=gen) < 0.7
+    m[0, 128:256] = False
+    m[1] = True
+    return m.to(cuda)
+
+
+# (B, H, Tq, Tk, masks): ragged against the 128-row tiles, fewer than 64
+# queries, DINOv2's unmasked ragged 1601 tokens at 16 heads, and a non-prefix
+# key mask with a fully masked 128-key tile in the middle
+ATTENTION_CASES = {
+    "ragged": (2, 4, 300, 131, "prefix"),
+    "short": (2, 4, 40, 200, "prefix"),
+    "dinov2": (2, 16, 1601, 1601, None),
+    "middle_tile": (3, 4, 300, 520, "middle"),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTENTION_CASES))
+def test_attention_kernel_matches_plain(cuda, case):
+    B, H, N, M, masks = ATTENTION_CASES[case]
     gen = torch.Generator().manual_seed(1)
-    B, H, N, M = 2, 4, 200, 150  # ragged against the 64-row tiles
     q, k, v = (torch.randn(B, H, n, 64, generator=gen).to(cuda, torch.bfloat16)
                for n in (N, M, M))
-    qm = _prefix_masks(gen, B, N, 10).to(cuda)
-    km = _prefix_masks(gen, B, M, 10).to(cuda)
-    km[1] = False  # every key masked: the uniform average of all keys
+    qm = km = None
+    if masks == "prefix":
+        qm = _prefix_masks(gen, B, N, 10).to(cuda)
+        km = _prefix_masks(gen, B, M, 10).to(cuda)
+        km[1] = False  # every key masked: the uniform average of all keys
+    elif masks == "middle":
+        qm = _prefix_masks(gen, B, N, 10).to(cuda)
+        km = _middle_tile_masks(gen, B, M, cuda)
+        qm[2, :] = False  # every query masked: the kernel writes zeros
     before = _lib.LAUNCHES["attention"]
-    got = tattn.fused_attention(q, k, v, qm, km, 0.125).float()
+    got = tattn.fused_attention(q, k, v, qm, km, 0.125)
     assert _lib.LAUNCHES["attention"] == before + 1
-    ref = tattn.attention_reference(q, k, v, km, 0.125).float()
-    rows = qm[:, None, :, None].expand_as(got)
-    diff = (got - ref).abs()[rows]
-    # two bf16 ulps: the output's rounding and the probabilities' rounding
-    assert bool((diff <= 2.0 ** -6 * ref.abs()[rows].clamp(min=1.0)).all())
+    ref = tattn.attention_reference(q, k, v, km, 0.125)
+    rows = qm if qm is not None else torch.ones(B, N, dtype=torch.bool, device=cuda)
+    assert _within_two_ulps(got, ref, rows)
+    if masks == "prefix":  # the all-masked element: every key weighted alike
+        mean = v[1].float().mean(1, keepdim=True).expand(H, N, 64)
+        assert _within_two_ulps(got[1:2], mean[None].to(torch.bfloat16), rows[1:2])
+    if masks == "middle":
+        assert bool((got[2] == 0).all())
 
 
 @pytest.mark.parametrize("mode", ["ln_gelu", "relu"])
@@ -240,15 +279,31 @@ def test_refiner_kernel_matches_plain(cuda, C):
                                   torch.zeros(1, 65, device=cuda))
 
 
-def test_bidir_attention_kernel_matches_plain(cuda):
-    """Ragged M != N against the 64-row tiles, partial masks, a fully
-    masked row on one side and a fully masked batch element on the other."""
+# (B, H, M, N, masks): ragged M != N against the 128-row tiles, fewer than
+# 64 rows on one side, and non-prefix masks with a fully masked 128-column
+# tile in the middle
+BIDIR_CASES = {
+    "ragged": (3, 4, 200, 130, "prefix"),
+    "ragged_131": (3, 4, 300, 131, "prefix"),
+    "short": (3, 4, 40, 600, "prefix"),
+    "middle_tile": (3, 4, 520, 400, "middle"),
+}
+
+
+@pytest.mark.parametrize("case", list(BIDIR_CASES))
+def test_bidir_attention_kernel_matches_plain(cuda, case):
+    """Partial masks, a fully masked row on one side and a fully masked
+    batch element on the other (its outputs stay finite)."""
+    B, H, M, N, masks = BIDIR_CASES[case]
     gen = torch.Generator().manual_seed(15)
-    B, H, M, N = 3, 4, 200, 130
     qk0, v0 = (torch.randn(B, H, M, 64, generator=gen).to(cuda, torch.bfloat16) for _ in range(2))
     qk1, v1 = (torch.randn(B, H, N, 64, generator=gen).to(cuda, torch.bfloat16) for _ in range(2))
-    m0 = _prefix_masks(gen, B, M, 10).to(cuda)
-    m1 = _prefix_masks(gen, B, N, 10).to(cuda)
+    if masks == "prefix":
+        m0 = _prefix_masks(gen, B, M, 10).to(cuda)
+        m1 = _prefix_masks(gen, B, N, 10).to(cuda)
+    else:
+        m0 = _middle_tile_masks(gen, B, M, cuda)
+        m1 = _middle_tile_masks(gen, B, N, cuda)
     m0[1, 5] = False
     m1[2] = False  # every side-1 token of element 2 masked
     before = _lib.LAUNCHES["bidir_attention"]
@@ -256,12 +311,8 @@ def test_bidir_attention_kernel_matches_plain(cuda):
     assert _lib.LAUNCHES["bidir_attention"] == before + 1
     ref = tbidir.bidir_cross_attention_reference(qk0, qk1, v0, v1, m0, m1)
     for g, r, m in zip(got, ref, (m0, m1)):
-        rows = m[:, None, :, None].expand_as(g)
-        g, r = g.float(), r.float()
-        # two bf16 ulps: the output's rounding and the probabilities', which
-        # the kernel rounds before normalising and the plain version after
-        assert bool(((g - r).abs()[rows] <= 2.0 ** -6 * r.abs()[rows].clamp(min=1.0)).all())
-        assert bool(torch.isfinite(g).all())
+        assert _within_two_ulps(g, r, m)
+        assert bool(torch.isfinite(g.float()).all())
 
 
 @pytest.mark.parametrize("sections", [3, 2])
