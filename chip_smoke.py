@@ -7,7 +7,8 @@ Phases, each printing its own lines:
 2. kernel build: the CUDA sources of ``src/deep_image_matching_tpu_torch/csrc``
    compiled for sm_90a (one nvcc per source, all started together), with
    ptxas' register and spill report, and the count of HGMMA instructions in
-   the SASS of the two attention kernels (``cuobjdump -sass``; none fails);
+   the SASS of the two attention kernels and the FFN (``cuobjdump -sass``;
+   none fails);
 3. each kernel against its plain PyTorch version on the card, at the
    main-path shapes (partial masks, degenerate hypotheses, integer
    descriptors with ties), with its tolerance and both times (CUDA events
@@ -210,7 +211,8 @@ def phase_build() -> None:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {line.strip()}", flush=True)
-    # the attention core must have compiled to Hopper's warpgroup products
+    # the attention core and the FFN must have compiled to Hopper's
+    # warpgroup products
     for kernel, count in _sass_hgmma(so).items():
         print(f"[build] {kernel}: {count} HGMMA instructions in its SASS", flush=True)
         if not count:
@@ -218,7 +220,30 @@ def phase_build() -> None:
 
 
 # kernel entry -> the name its SASS section carries (anonymous namespace)
-WGMMA_KERNELS = {"attention": "attention_sm90", "bidir_attention": "bidir_attention_sm90"}
+WGMMA_KERNELS = {"attention": "attention_sm90", "bidir_attention": "bidir_attention_sm90",
+                 "ffn": "ffn_sm90"}
+
+
+def _ptxas(name: str) -> dict:
+    """Registers and spill bytes per entry function whose (mangled) name
+    holds ``name``, from the build's ``ptxas -v`` log."""
+    from deep_image_matching_tpu_torch.ops import _lib
+
+    log = _lib.BUILD_DIR / "ptxas.log"
+    out, current = {}, None
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        if "Compiling entry function '" in line:
+            fn = line.split("'")[1]
+            current = fn if name in fn else None
+            if current:
+                out[current] = {}
+        elif current and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[current].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                                spill_load_bytes=nums[2])
+        elif current and "Used " in line and " registers" in line:
+            out[current]["registers"] = int(line.split("Used ")[1].split()[0])
+    return out
 
 
 def _sass_hgmma(so: Path) -> dict:
@@ -389,7 +414,7 @@ def check_ffn(torch, dev, card):
                              "PyTorch call does all of them",
              "relu_shape": [16, 4096, D], "relu_max_abs_err": errs["relu"][0],
              "relu_ms": times["relu"][0], "relu_plain_ms": times["relu"][1],
-             "relu_bound_ms": bounds["relu"]["bound_ms"]}
+             "relu_bound_ms": bounds["relu"]["bound_ms"], "ptxas": _ptxas("ffn_sm90")}
     return err, tol, what, extra
 
 
@@ -589,7 +614,7 @@ def check_sinkhorn(torch, dev, card):
              "library_ms": None,
              "library_note": "none: an iteration is two logsumexp passes (rows, then "
                              "columns) with an update between them",
-             "max_abs_err_100_iterations": err100}
+             "max_abs_err_100_iterations": err100, "ptxas": _ptxas("sinkhorn_")}
     return err, tol, what, extra
 
 
@@ -819,6 +844,12 @@ def phase_kernels(card: str) -> dict:
               f"{'OK' if good else 'FAIL'}; kernel {extra['ms']:.3f} ms, plain "
               f"{extra['plain_ms']:.3f} ms, bound {extra['bound_ms']:.3f} ms "
               f"({extra['bound_by']}), library call {lib} [{card}]", flush=True)
+        if extra.get("ptxas"):
+            info = extra["ptxas"].values()
+            print(f"[kernel] {name}: ptxas, {len(info)} entry functions: "
+                  f"{min(i['registers'] for i in info)}-{max(i['registers'] for i in info)} "
+                  f"registers, {sum(i['spill_store_bytes'] + i['spill_load_bytes'] for i in info)} "
+                  f"bytes of spills", flush=True)
     if not ok:
         _fail("a kernel disagrees with its plain version")
     return report

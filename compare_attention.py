@@ -1,15 +1,17 @@
-"""Kernels 1 and 6 of two checkouts of the port, timed on one GPU in turns.
+"""Kernels of two checkouts of the port, timed on one GPU in turns.
 
-    python3 compare_attention.py OTHER_ROOT
+    python3 compare_attention.py OTHER_ROOT [KERNEL ...]
 
 OTHER_ROOT is another checkout of this repository (for example the parent
-commit unpacked with ``git archive``). Each measurement runs in its own
-process, in the order other, this, this, other, and calls ``chip_smoke.py``'s
-``check_attention`` and ``check_bidir_attention`` with that checkout's
+commit unpacked with ``git archive``). KERNEL names checks of
+``chip_smoke.py`` (``attention``, ``ffn``, ``sinkhorn``, ``bidir_attention``,
+any key of its kernel phase); the default is the two attention kernels. Each
+measurement runs in its own process, in the order other, this, this, other,
+and calls ``chip_smoke.py``'s check of each kernel with that checkout's
 package first on the path: the same inputs, tolerances and timings as the
-kernel phase of ``chip_smoke.py`` (runs of back-to-back calls).
-Prints one JSON line per run, then the mean of each checkout's two runs as
-the last line.
+kernel phase of ``chip_smoke.py`` (runs of back-to-back calls). Prints one
+JSON line per run with every time the check reports (its keys ending in
+``ms``), then the mean of each checkout's two runs as the last line.
 """
 
 from __future__ import annotations
@@ -20,11 +22,10 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KEYS = ("ms", "library_ms")
-SHAPES = {"attention": ("", "superglue_", "dinov2_"), "bidir_attention": ("", "aliked_")}
+DEFAULT = ("attention", "bidir_attention")
 
 
-def measure(src: str) -> dict:
+def measure(src: str, names: list) -> dict:
     sys.path.insert(0, src)
     sys.path.insert(1, str(ROOT))
     import torch
@@ -35,24 +36,26 @@ def measure(src: str) -> dict:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     out = {"src": src, "card": card}
-    for name, fn in (("attention", chip_smoke.check_attention),
-                     ("bidir_attention", chip_smoke.check_bidir_attention)):
-        err, tol, _, extra = fn(torch, dev, card)
+    for name in names:
+        err, tol, _, extra = getattr(chip_smoke, f"check_{name}")(torch, dev, card)
         if not err <= tol:
             raise SystemExit(f"{name} from {src} disagrees with its plain version")
-        out[name] = {p + k: extra[p + k] for p in SHAPES[name] for k in KEYS}
+        out[name] = {k: v for k, v in extra.items()
+                     if k.endswith("ms") and isinstance(v, (int, float))}
+        torch.cuda.empty_cache()
     return out
 
 
 def main() -> None:
     if sys.argv[1:2] == ["--measure"]:
-        print(json.dumps(measure(sys.argv[2])), flush=True)
+        print(json.dumps(measure(sys.argv[2], sys.argv[3:])), flush=True)
         return
     other = Path(sys.argv[1]).resolve()
+    names = sys.argv[2:] or list(DEFAULT)
     runs = {"other": [], "this": []}
     for who in ("other", "this", "this", "other"):
         src = (other if who == "other" else ROOT) / "src"
-        res = subprocess.run([sys.executable, __file__, "--measure", str(src)],
+        res = subprocess.run([sys.executable, __file__, "--measure", str(src), *names],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise SystemExit(f"{who} failed:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
@@ -61,7 +64,7 @@ def main() -> None:
         runs[who].append(line)
     # the mean of each checkout's two runs
     summary = {who: {name: {k: sum(r[name][k] for r in rs) / len(rs) for k in rs[0][name]}
-                     for name in SHAPES} for who, rs in runs.items()}
+                     for name in names} for who, rs in runs.items()}
     print(json.dumps(summary), flush=True)
 
 

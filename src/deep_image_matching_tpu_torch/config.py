@@ -110,8 +110,8 @@ conf_general: Dict[str, Any] = {
         "gv_workers": 0,
         # numerics for the matching transformer
         "dtype": "bfloat16",
-        # "auto" = the first CUDA device when present, else the CPU; "cuda"
-        # fails at start without one (utils/device.py)
+        # "auto" (like "cuda") = the first CUDA device, failing at start
+        # without one; "cpu" asks for the CPU (utils/device.py)
         "device": "auto",
     },
 }

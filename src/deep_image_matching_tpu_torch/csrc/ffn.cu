@@ -8,228 +8,416 @@
 // (_ffn_kernel, both modes), which streams row tiles so the (rows, 2D) f32
 // intermediate never reaches device memory.
 //
-// What bounds it on the H100: at the main-path shape (32768 rows, D = 256)
-// one call is 25.8 GFLOP of bf16 matrix products against 34 MB of
-// activations and 0.8 MB of weights, so it is bound by tensor-core issue. The
-// unfused form writes and re-reads the (rows, 512) f32 intermediate several
-// times (LayerNorm, GELU, casts: 67 MB per pass). Here one block takes a
-// 32-row tile: [x | msg] (bf16) and then the 32 x 512 f32 h tile live in
-// shared memory (99 KB, dynamic), so LayerNorm statistics see the whole
-// 512-wide row in one block. Eight warps run bf16 mma.sync m16n8k16 with f32
-// accumulation; B fragments come straight from the L2-resident weights in
-// nn.Linear (out, in) layout, where two consecutive k of one output are one
-// 32-bit load. No wgmma, TMA or weight staging yet.
+// What bounds it on the H100: at LightGlue's shape (32768 rows, D = 256) one
+// call is 25.8 GFLOP of bf16 products (0.026 ms at the tensor cores' peak)
+// against 50 MB of activations in and out, so it is bound by tensor-core
+// issue, and close behind by the weights' traffic from L2: every 64-row tile
+// streams all 768 KB of W1 and W2. The design, on the pattern of the
+// attention core (attention_sm90.cuh):
+//
+// - One block takes 64 rows. Its [x | msg] tile is loaded once by TMA as
+//   eight 64 x 64 slabs in the 128-byte swizzle: the K-major A operand of
+//   wgmma.
+// - A producer warp streams the weights through a ring of two 64 KB stages
+//   by TMA (one 64-wide k-slab of W1's 512 rows, then one of W2's 256 rows,
+//   16 stages in all), each signalled on a full mbarrier and released on an
+//   empty one. The weights stay in nn.Linear (out, in) layout, which is the
+//   K-major B operand wgmma takes without a transpose.
+// - Two consumer warpgroups hold the same 64 rows of h, 256 columns each:
+//   h = [x | msg] W1^T is wgmma m64n256k16 into 128 f32 registers a thread
+//   (`setmaxnreg` moves the producer's registers to them). The LayerNorm's
+//   row sums and sums of squares are exchanged between the two through 1 KB
+//   of shared memory; LayerNorm, the exact-erf GELU (or the relu) run in
+//   registers, and the bf16 activation is written over the [x | msg] tile in
+//   the swizzled layout the second product's A descriptor reads.
+// - The second product (64 x 256, K = 512) is split by output columns: each
+//   warpgroup runs m64n128k16 on its half of W2's slab. The epilogue adds b2
+//   and the residual x (re-read from global memory) in f32.
+// - Weight reuse is the trade-off: each 64-row tile re-streams W1 and W2
+//   from L2 (393 MB per call at 32768 rows). A taller tile does not fit
+//   (h of 128 rows is 256 KB of f32 registers), and the 192 KB of tiles
+//   leave room for one block per SM; a cluster of two blocks sharing each
+//   weight slab by TMA multicast would halve the traffic.
 //
 // Numerics follow the Pallas kernel: f32 accumulation, f32 LayerNorm
-// statistics with eps 1e-5, exact GELU through erff (the Pallas kernel's
-// Abramowitz-Stegun erf differs from it by at most 1.5e-7), or relu of the
-// f32 h, the activation cast to bf16 before the second product, the residual
-// added in f32. The mode is a template parameter: the relu kernel has no
-// LayerNorm code at all.
+// statistics with eps 1e-5 (mean, then the mean of squared deviations),
+// exact GELU through erff (the Pallas kernel's Abramowitz-Stegun erf differs
+// from it by at most 1.5e-7), or relu of the f32 h, the activation cast to
+// bf16 before the second product, the residual added in f32. Rows past the
+// end are zero-filled by TMA and never stored. The mode is a template
+// parameter: the relu kernel has no LayerNorm code at all.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 namespace {
 
-constexpr int D = 256;         // model width
-constexpr int D2 = 2 * D;      // hidden width and concat width
-constexpr int TM = 32;         // rows per block
-constexpr int LDA = D2 + 8;    // bf16 row of the [x | msg] / activation tile
-constexpr int LDH = D2 + 4;    // f32 row of h
-constexpr int THREADS = 256;   // 8 warps
-constexpr size_t SMEM = sizeof(uint16_t) * TM * LDA + sizeof(float) * TM * LDH;
+using namespace sm90;
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
+constexpr int D = 256;            // model width
+constexpr int D2 = 2 * D;         // hidden width and concat width
+constexpr int BM = 64;            // rows per block
+constexpr int SLAB = 64;          // k per slab: one 128-byte swizzle row of bf16
+constexpr int NSLAB = D2 / SLAB;  // 8 k-slabs of each product
+constexpr int CONSUMERS = 256;    // two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
+constexpr int A_SLAB_BYTES = BM * SLAB * 2;       // 8 KB
+constexpr int STAGE_BYTES = D2 * SLAB * 2;        // 64 KB: a slab of W1's 512 rows
+constexpr int W2_SLAB_BYTES = D * SLAB * 2;       // 32 KB: a slab of W2's 256 rows,
+                                                  // or of W1's rows of one warpgroup
+constexpr int STAGES = 2;
+
+// shared memory from a 1024-byte aligned base
+constexpr int OFF_A = 0;                                  // [x | msg], then the activation
+constexpr int OFF_W = OFF_A + NSLAB * A_SLAB_BYTES;       // the weight ring
+constexpr int OFF_B1 = OFF_W + STAGES * STAGE_BYTES;      // f32 [512]
+constexpr int OFF_G = OFF_B1 + D2 * 4;                    // f32 [512]
+constexpr int OFF_BETA = OFF_G + D2 * 4;                  // f32 [512]
+constexpr int OFF_B2 = OFF_BETA + D2 * 4;                 // f32 [256]
+constexpr int OFF_RED = OFF_B2 + D * 4;                   // f32 [2 stats][2 wg][64 rows]
+constexpr int OFF_BAR = OFF_RED + 2 * 2 * BM * 4;         // u64: a, full[STAGES], empty[STAGES]
+constexpr int SMEM_BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+
+// d (64 x 256 f32 fragments) (+)= A (64 x 16, shared, K-major) B^T (256 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const uint16_t* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
+// d (64 x 128 f32 fragments) (+)= A (64 x 16, shared, K-major) B^T (128 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 __device__ __forceinline__ float bf2f(uint16_t x) {
   return __uint_as_float(static_cast<uint32_t>(x) << 16);
 }
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint16_t f2bf(float x) {
-  __nv_bfloat16 v = __float2bfloat16_rn(x);
-  return *reinterpret_cast<uint16_t*>(&v);
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
 }
 
-// A fragments of rows [16 mt, 16 mt + 16) and k in [16 kk, 16 kk + 16)
-__device__ __forceinline__ void load_a(uint32_t a[4], const uint16_t* tile,
-                                       int mt, int kk, int g, int cc) {
-  const int r = mt * 16 + g, c = kk * 16 + cc;
-  a[0] = ld32(&tile[r * LDA + c]);
-  a[1] = ld32(&tile[(r + 8) * LDA + c]);
-  a[2] = ld32(&tile[r * LDA + c + 8]);
-  a[3] = ld32(&tile[(r + 8) * LDA + c + 8]);
+// the sum over the four threads that share a row of the accumulator layout
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// The accumulator layout of m64nNk16 (f32): d[4 j + e] is row
+// 16 warp + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + (e % 2).
 template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-ffn_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ msg,
-           const uint16_t* __restrict__ w1, const uint16_t* __restrict__ b1,
-           const uint16_t* __restrict__ gam, const uint16_t* __restrict__ beta,
-           const uint16_t* __restrict__ w2, const uint16_t* __restrict__ b2,
-           uint16_t* __restrict__ out, int R) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* tile = reinterpret_cast<uint16_t*>(smem);
-  float* hs = reinterpret_cast<float*>(smem + sizeof(uint16_t) * TM * LDA);
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap mmap,
+         const __grid_constant__ CUtensorMap w1map, const __grid_constant__ CUtensorMap w2map,
+         const uint16_t* __restrict__ x, const uint16_t* __restrict__ b1,
+         const uint16_t* __restrict__ gam, const uint16_t* __restrict__ beta,
+         const uint16_t* __restrict__ b2, uint16_t* __restrict__ out, int R) {
+  extern __shared__ __align__(1024) uint8_t dyn_smem[];
+  const int tid = threadIdx.x;
+  uint32_t base = smem_u32(dyn_smem);
+  const uint32_t pad = (1024u - (base & 1023u)) & 1023u;
+  uint8_t* sm = dyn_smem + pad;
+  base += pad;
+  const uint32_t bar_a = base + OFF_BAR;
+  const uint32_t bar_full = bar_a + 8;                // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * STAGES;   // + 8 * stage
+  const int row0 = blockIdx.x * BM;
 
-  const int row0 = blockIdx.x * TM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, cc = (lane % 4) * 2;
-
-  // [x | msg] rows into the tile; rows past R are zero
-  for (int i = tid; i < TM * (D2 / 8); i += THREADS) {
-    const int r = i / (D2 / 8), c = (i % (D2 / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < R) {
-      const uint16_t* src = c < D ? x + static_cast<size_t>(row0 + r) * D + c
-                                  : msg + static_cast<size_t>(row0 + r) * D + (c - D);
-      val = *reinterpret_cast<const uint4*>(src);
+  if (tid == 0) {
+    mbar_init(bar_a, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMERS);
     }
-    *reinterpret_cast<uint4*>(&tile[r * LDA + c]) = val;
+    mbar_init_fence();
   }
   __syncthreads();
 
-  // h = [x | msg] W1^T + b1: warp w owns h columns [64 w, 64 w + 64)
-  {
-    float acc[2][8][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-    for (int kk = 0; kk < D2 / 16; ++kk) {
-      uint32_t a[2][4];
-      load_a(a[0], tile, 0, kk, g, cc);
-      load_a(a[1], tile, 1, kk, g, cc);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint16_t* wrow = w1 + static_cast<size_t>(warp * 64 + j * 8 + g) * D2 + kk * 16 + cc;
-        uint32_t bf[2] = {ldg32(wrow), ldg32(wrow + 8)};
-        mma_bf16_16816(acc[0][j], a[0], bf);
-        mma_bf16_16816(acc[1][j], a[1], bf);
+  if (tid >= CONSUMERS) {
+    // ---------------- producer warpgroup: one thread issues ---------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == CONSUMERS) {
+      mbar_arrive_tx(bar_a, NSLAB * A_SLAB_BYTES);
+      for (int s = 0; s < NSLAB / 2; ++s) {
+        tma_load_2d(base + OFF_A + s * A_SLAB_BYTES, &xmap, bar_a, s * SLAB, row0);
+        tma_load_2d(base + OFF_A + (s + NSLAB / 2) * A_SLAB_BYTES, &mmap, bar_a, s * SLAB, row0);
       }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = warp * 64 + j * 8 + cc, r = mt * 16 + g;
-        const float bb0 = bf2f(b1[col]), bb1 = bf2f(b1[col + 1]);
-        hs[r * LDH + col] = acc[mt][j][0] + bb0;
-        hs[r * LDH + col + 1] = acc[mt][j][1] + bb1;
-        hs[(r + 8) * LDH + col] = acc[mt][j][2] + bb0;
-        hs[(r + 8) * LDH + col + 1] = acc[mt][j][3] + bb1;
-      }
-  }
-  __syncthreads();
-
-  if (MODE == 0) {
-    // LayerNorm + GELU per row (warp w: rows 4w .. 4w + 3); the bf16
-    // activation overwrites the input tile
-    for (int rr = 0; rr < TM / 8; ++rr) {
-      const int r = warp * (TM / 8) + rr;
-      float vals[D2 / 32];
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < D2 / 32; ++i) {
-        vals[i] = hs[r * LDH + lane + 32 * i];
-        sum += vals[i];
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float mu = sum / D2;
-      float var = 0.f;
-#pragma unroll
-      for (int i = 0; i < D2 / 32; ++i) {
-        vals[i] -= mu;
-        var += vals[i] * vals[i];
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
-      const float rstd = rsqrtf(var / D2 + 1e-5f);
-#pragma unroll
-      for (int i = 0; i < D2 / 32; ++i) {
-        const int col = lane + 32 * i;
-        const float hn = vals[i] * rstd * bf2f(gam[col]) + bf2f(beta[col]);
-        const float act = 0.5f * hn * (1.f + erff(hn * 0.7071067811865476f));
-        tile[r * LDA + col] = f2bf(act);
-      }
-    }
-  } else {
-    // relu of the f32 h; the bf16 activation overwrites the input tile
-    for (int i = tid; i < TM * D2; i += THREADS) {
-      const int r = i / D2, col = i % D2;
-      tile[r * LDA + col] = f2bf(fmaxf(hs[r * LDH + col], 0.f));
-    }
-  }
-  __syncthreads();
-
-  // out = x + act W2^T + b2: warp w owns output columns [32 w, 32 w + 32)
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-  for (int kk = 0; kk < D2 / 16; ++kk) {
-    uint32_t a[2][4];
-    load_a(a[0], tile, 0, kk, g, cc);
-    load_a(a[1], tile, 1, kk, g, cc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint16_t* wrow = w2 + static_cast<size_t>(warp * 32 + j * 8 + g) * D2 + kk * 16 + cc;
-      uint32_t bf[2] = {ldg32(wrow), ldg32(wrow + 8)};
-      mma_bf16_16816(acc[0][j], a[0], bf);
-      mma_bf16_16816(acc[1][j], a[1], bf);
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = warp * 32 + j * 8 + cc;
-      const float bb0 = bf2f(b2[col]), bb1 = bf2f(b2[col + 1]);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = row0 + mt * 16 + g + 8 * half;
-        if (row < R) {
-          const uint16_t* xr = x + static_cast<size_t>(row) * D + col;
-          const float o0 = bf2f(xr[0]) + (acc[mt][j][2 * half] + bb0);
-          const float o1 = bf2f(xr[1]) + (acc[mt][j][2 * half + 1] + bb1);
-          *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * D + col) =
-              pack_f32(o0, o1);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < 2 * NSLAB; ++t) {
+        mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+        const uint32_t full = bar_full + 8 * stage, dst = base + OFF_W + stage * STAGE_BYTES;
+        if (t < NSLAB) {  // W1 slab t: both 256-row halves
+          mbar_arrive_tx(full, STAGE_BYTES);
+          tma_load_2d(dst, &w1map, full, t * SLAB, 0);
+          tma_load_2d(dst + W2_SLAB_BYTES, &w1map, full, t * SLAB, D);
+        } else {          // W2 slab t - 8
+          mbar_arrive_tx(full, W2_SLAB_BYTES);
+          tma_load_2d(dst, &w2map, full, (t - NSLAB) * SLAB, 0);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
         }
       }
     }
+    return;
+  }
+
+  // ---------------- consumer warpgroups ------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int c = (lane % 4) * 2;
+  const int rl = warp * 16 + lane / 4;  // this thread's rows rl, rl + 8 of the tile
+  float* sb1 = reinterpret_cast<float*>(sm + OFF_B1);
+  float* sg = reinterpret_cast<float*>(sm + OFF_G);
+  float* sbeta = reinterpret_cast<float*>(sm + OFF_BETA);
+  float* sb2 = reinterpret_cast<float*>(sm + OFF_B2);
+  float* red = reinterpret_cast<float*>(sm + OFF_RED);
+  for (int i = tid; i < D2; i += CONSUMERS) {
+    sb1[i] = bf2f(b1[i]);
+    if (MODE == 0) {
+      sg[i] = bf2f(gam[i]);
+      sbeta[i] = bf2f(beta[i]);
+    }
+    if (i < D) sb2[i] = bf2f(b2[i]);
+  }
+  consumers_sync();
+
+  int stage = 0;
+  uint32_t phase = 0;
+  auto advance = [&]() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+
+  // h = [x | msg] W1^T for columns [256 wg, 256 wg + 256): 8 slabs of 4
+  // k-steps; slab s's stage is released once slab s + 1 is issued and s done
+  float h[128];
+  mbar_wait(bar_a, 0);
+  int prev = -1;
+#pragma unroll 1
+  for (int s = 0; s < NSLAB; ++s) {
+    mbar_wait(bar_full + 8 * stage, phase);
+    const uint64_t da = sw128_desc(base + OFF_A + s * A_SLAB_BYTES, 1);
+    const uint64_t db = sw128_desc(base + OFF_W + stage * STAGE_BYTES + wg * W2_SLAB_BYTES, 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < SLAB / 16; ++kk) wgmma_n256(h, da + 2 * kk, db + 2 * kk, s | kk);
+    wg_commit();
+    wg_wait<1>();  // slab s - 1 is done (s is still running into the same h)
+    if (prev >= 0) mbar_arrive(bar_empty + 8 * prev);
+    prev = stage;
+    advance();
+  }
+  wg_wait<0>();
+  fence_regs(h);
+  mbar_arrive(bar_empty + 8 * prev);
+
+  // + b1, then the activation
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = wg * D + 8 * j + c;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[4 * j + e] += sb1[col + (e & 1)];
+  }
+  if (MODE == 0) {
+    // LayerNorm over the 512 columns of each row: this warpgroup's 256
+    // through the quad, the other's through shared memory
+    float mu[2], rstd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sum += h[4 * j + 2 * r] + h[4 * j + 2 * r + 1];
+      sum = quad_sum(sum);
+      if (c == 0) red[wg * BM + rl + 8 * r] = sum;
+    }
+    consumers_sync();  // also: both warpgroups are done reading [x | msg]
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mu[r] = (red[rl + 8 * r] + red[BM + rl + 8 * r]) / D2;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float var = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float d0 = h[4 * j + 2 * r] - mu[r], d1 = h[4 * j + 2 * r + 1] - mu[r];
+        var += d0 * d0 + d1 * d1;
+      }
+      var = quad_sum(var);
+      if (c == 0) red[2 * BM + wg * BM + rl + 8 * r] = var;
+    }
+    consumers_sync();
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      rstd[r] = rsqrtf((red[2 * BM + rl + 8 * r] + red[3 * BM + rl + 8 * r]) / D2 + 1e-5f);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = wg * D + 8 * j + c;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float hn = (h[4 * j + e] - mu[r]) * rstd[r] * sg[col + (e & 1)] + sbeta[col + (e & 1)];
+        h[4 * j + e] = 0.5f * hn * (1.f + erff(hn * 0.7071067811865476f));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) h[i] = fmaxf(h[i], 0.f);
+    consumers_sync();  // both warpgroups are done reading [x | msg]
+  }
+
+  // the bf16 activation over the [x | msg] tile, in the swizzled K-major
+  // layout: column k of row r is slab k / 64, 16-byte chunk (k % 64) / 8
+  // XOR (r % 8)
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int slab = wg * (D / SLAB) + j / 8;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rl + 8 * r;
+      const int off = OFF_A + slab * A_SLAB_BYTES + row * 128 + (((j & 7) ^ (row & 7)) << 4) + c * 2;
+      *reinterpret_cast<uint32_t*>(sm + off) = pack_bf16(h[4 * j + 2 * r], h[4 * j + 2 * r + 1]);
+    }
+  }
+  fence_proxy_async();
+  consumers_sync();
+
+  // out = act W2^T for columns [128 wg, 128 wg + 128)
+  float o[64];
+#pragma unroll 1
+  for (int s = 0; s < NSLAB; ++s) {
+    mbar_wait(bar_full + 8 * stage, phase);
+    const uint64_t da = sw128_desc(base + OFF_A + s * A_SLAB_BYTES, 1);
+    const uint64_t db = sw128_desc(base + OFF_W + stage * STAGE_BYTES + wg * (W2_SLAB_BYTES / 2), 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < SLAB / 16; ++kk) wgmma_n128(o, da + 2 * kk, db + 2 * kk, s | kk);
+    wg_commit();
+    wg_wait<1>();
+    if (s > 0) mbar_arrive(bar_empty + 8 * prev);
+    prev = stage;
+    advance();
+  }
+  wg_wait<0>();
+  fence_regs(o);
+  mbar_arrive(bar_empty + 8 * prev);
+
+  // out = x + (o + b2), in f32, rows past the end not stored
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + rl + 8 * r;
+    if (row < R) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = wg * (D / 2) + 8 * j + c;
+        const uint32_t xv = *reinterpret_cast<const uint32_t*>(x + static_cast<size_t>(row) * D + col);
+        const float o0 = __uint_as_float(xv << 16) + (o[4 * j + 2 * r] + sb2[col]);
+        const float o1 = __uint_as_float(xv & 0xffff0000u) + (o[4 * j + 2 * r + 1] + sb2[col + 1]);
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * D + col) = pack_bf16(o0, o1);
+      }
+    }
+  }
+}
+
+// a 2-D bf16 tensor map (inner, outer) with (64, box_outer) boxes in the
+// 128-byte swizzle; rows past the end read as zeros. 0 on success.
+int make_map(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer,
+             uint32_t box_outer) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {inner * 2};  // bytes, dim 1
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(SLAB), box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// x, msg, out (R, 256) bf16; w1 (512, 512) and w2 (256, 512) bf16 in
-// nn.Linear (out, in) layout; b1, g, beta (512,), b2 (256,) bf16. mode 0 is
-// "ln_gelu", mode 1 "relu" (g and beta are not read and may be null).
+// x, msg, out (R, 256) bf16, x and msg 16-byte aligned; w1 (512, 512) and w2
+// (256, 512) bf16 in nn.Linear (out, in) layout, 16-byte aligned; b1, g,
+// beta (512,), b2 (256,) bf16. mode 0 is "ln_gelu", mode 1 "relu" (g and
+// beta are not read and may be null).
 extern "C" int dim_ffn_bf16(int device, const void* x, const void* msg,
                             const void* w1, const void* b1, const void* g,
                             const void* beta, const void* w2, const void* b2,
@@ -237,16 +425,19 @@ extern "C" int dim_ffn_bf16(int device, const void* x, const void* msg,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (mode != 0 && mode != 1) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = mode == 0 ? ffn_kernel<0> : ffn_kernel<1>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(SMEM));
+  if (R <= 0) return 0;
+  CUtensorMap xm, mm, w1m, w2m;
+  int rc = make_map(&xm, x, D, R, BM);
+  if (rc == 0) rc = make_map(&mm, msg, D, R, BM);
+  if (rc == 0) rc = make_map(&w1m, w1, D2, D2, D);
+  if (rc == 0) rc = make_map(&w2m, w2, D2, D, D);
+  if (rc != 0) return rc;
+  auto kernel = mode == 0 ? ffn_sm90<0> : ffn_sm90<1>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((R + TM - 1) / TM);
-  kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(msg),
-      static_cast<const uint16_t*>(w1), static_cast<const uint16_t*>(b1),
+  kernel<<<(R + BM - 1) / BM, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      xm, mm, w1m, w2m, static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(b1),
       static_cast<const uint16_t*>(g), static_cast<const uint16_t*>(beta),
-      static_cast<const uint16_t*>(w2), static_cast<const uint16_t*>(b2),
-      static_cast<uint16_t*>(out), R);
+      static_cast<const uint16_t*>(b2), static_cast<uint16_t*>(out), R);
   return static_cast<int>(cudaGetLastError());
 }

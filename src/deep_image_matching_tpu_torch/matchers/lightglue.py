@@ -11,8 +11,13 @@ confident-but-unmatchable points are masked out of later layers.
 ``tpu.attn_impl`` is read as the JAX package reads it: "bidir" runs the
 cross attention on the shared-score bidirectional kernel; "flash", "xla" and
 the default keep two attention calls (the JAX package's two XLA routes have
-one counterpart here); any other value raises. ``DIM_TPU_FUSED_PROLOGUE=1``
-fuses the attention prologue (``models/lightglue.py``).
+one counterpart here); any other value raises. ``tpu.ffn_impl`` ("auto",
+the default, "fused" or "xla") is resolved as the JAX package resolves it:
+"auto" is the fused kernel under "flash" or "bidir" attention and the JAX
+package's unfused arithmetic under "xla". ``tpu.assignment_impl`` is
+"fused" (kernel 3, the default) or "dense" (the (B, M, N) log assignment).
+Any other value of either raises. ``DIM_TPU_FUSED_PROLOGUE=1`` fuses the
+attention prologue (``models/lightglue.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..models.lightglue import check_attn_impl, forward, load_default_model
+from ..models.lightglue import (check_assignment_impl, check_attn_impl, forward,
+                                load_default_model, resolve_ffn_impl)
+from ..utils.device import check_matcher_dtype
 from .matcher_base import BatchedMatcher
 
 
@@ -42,13 +49,12 @@ class LightGlueMatcher(BatchedMatcher):
         self.filter_threshold = float(self.conf.get("filter_threshold", 0.1))
         self.depth_confidence = float(self.conf.get("depth_confidence", -1))
         self.width_confidence = float(self.conf.get("width_confidence", -1))
-        self.compute_dtype = getattr(torch, str(self.tpu.get("dtype", "bfloat16")))
+        self.compute_dtype = check_matcher_dtype(
+            self.device, getattr(torch, str(self.tpu.get("dtype", "bfloat16"))))
         self.attn_impl = check_attn_impl(str(self.tpu.get("attn_impl", "flash")))
-        if self.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
-            raise ValueError(
-                f"tpu.dtype {self.compute_dtype} on CUDA: the attention and FFN "
-                "kernels take bfloat16 (float32 runs on the CPU only)"
-            )
+        self.ffn_impl = resolve_ffn_impl(str(self.tpu.get("ffn_impl", "auto")), self.attn_impl)
+        self.assignment_impl = check_assignment_impl(
+            str(self.tpu.get("assignment_impl", "fused")))
         self.model = load_default_model(
             str(self.conf.get("features", "superpoint")), self.n_layers
         ).to(self.device)
@@ -67,5 +73,7 @@ class LightGlueMatcher(BatchedMatcher):
             width_confidence=self.width_confidence,
             compute_dtype=self.compute_dtype,
             attn_impl=self.attn_impl,
+            ffn_impl=self.ffn_impl,
+            assignment_impl=self.assignment_impl,
         )
         return out["matches0"], out["valid0"]

@@ -15,6 +15,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..models.superglue import forward, load_default_model
+from ..utils.device import check_matcher_dtype
 from .matcher_base import BatchedMatcher
 
 
@@ -29,12 +30,8 @@ class SuperGlueMatcher(BatchedMatcher):
         super().__init__(config)
         self.sinkhorn_iterations = int(self.conf.get("sinkhorn_iterations", 100))
         self.match_threshold = float(self.conf.get("match_threshold", 0.3))
-        self.compute_dtype = getattr(torch, str(self.tpu.get("dtype", "bfloat16")))
-        if self.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
-            raise ValueError(
-                f"tpu.dtype {self.compute_dtype} on CUDA: the attention and FFN "
-                "kernels take bfloat16 (float32 runs on the CPU only)"
-            )
+        self.compute_dtype = check_matcher_dtype(
+            self.device, getattr(torch, str(self.tpu.get("dtype", "bfloat16"))))
         self.model = load_default_model(str(self.conf.get("weights", "outdoor"))).to(self.device)
         # BatchNorm folded and weights cast once, not per pair batch
         self.params = self.model.folded_params(self.compute_dtype)

@@ -14,8 +14,12 @@ capacity and validity masks, masked self and cross attention, and
   expressed as mask updates, exactly as the JAX package does it.
 
 Attention, the FFN and the assignment go through the kernel wrappers of
-``ops/`` (CUDA kernels on the GPU, their plain versions on the CPU). The
-JAX package's two opt-ins are honoured:
+``ops/`` (CUDA kernels on the GPU, their plain versions on the CPU). The FFN
+and assignment routes are the JAX package's: ``ffn_impl`` "fused" (kernel 2)
+or "xla" (its unfused arithmetic, ``ops/ffn.py::ffn_xla``), "auto" resolved
+from ``attn_impl`` as there; ``assignment_impl`` "fused" (kernel 3) or
+"dense". A checkpoint deeper than the model gives its first ``n_layers``
+layers. The JAX package's two opt-ins are honoured:
 
 - ``attn_impl="bidir"`` (the matcher's ``tpu.attn_impl``) runs the cross
   block through the shared-score bidirectional kernel
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import logging
 import os
+import re
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -43,7 +48,7 @@ import torch.nn.functional as F
 from ..ops.assignment import filter_matches_fused, log_assignment_dense
 from ..ops.attention import fused_attention
 from ..ops.bidir_attention import bidir_cross_attention
-from ..ops.ffn import ffn_fused
+from ..ops.ffn import ffn_fused, ffn_xla
 from ..ops.qkv import qk_v_fused, qk_v_weights, qkv_rotary_fused, qkv_weights, rotate_half
 
 logger = logging.getLogger("dim_tpu_torch")
@@ -51,12 +56,49 @@ logger = logging.getLogger("dim_tpu_torch")
 # "flash" and "xla" name the JAX package's two XLA-side routes; both run the
 # attention kernel here. "bidir" runs the cross block on kernel 6.
 ATTN_IMPLS = ("flash", "xla", "bidir")
+# "fused" is kernel 2, "xla" the JAX package's unfused arithmetic
+# (``ops/ffn.py::ffn_xla``); "auto" picks between them as the JAX package does
+FFN_IMPLS = ("auto", "fused", "xla")
+# "fused" is kernel 3, "dense" the (B, M, N) log assignment and its filter
+ASSIGNMENT_IMPLS = ("fused", "dense")
 
 
 def check_attn_impl(attn_impl: str) -> str:
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r}; expected one of {ATTN_IMPLS}")
     return attn_impl
+
+
+def resolve_ffn_impl(ffn_impl: str, attn_impl: str) -> str:
+    """``tpu.ffn_impl`` as the JAX package reads it: "auto" is "fused"
+    wherever the attention kernel route is "flash" or "bidir", else "xla"."""
+    check_attn_impl(attn_impl)
+    if ffn_impl not in FFN_IMPLS:
+        raise ValueError(f"ffn_impl {ffn_impl!r}; expected one of {FFN_IMPLS}")
+    if ffn_impl == "auto":
+        return "fused" if attn_impl in ("flash", "bidir") else "xla"
+    return ffn_impl
+
+
+def check_assignment_impl(assignment_impl: str) -> str:
+    if assignment_impl not in ASSIGNMENT_IMPLS:
+        raise ValueError(
+            f"assignment_impl {assignment_impl!r}; expected one of {ASSIGNMENT_IMPLS}")
+    return assignment_impl
+
+
+def truncate_layers(state_dict: dict, n_layers: int) -> dict:
+    """The entries of the first ``n_layers`` layers of a deeper checkpoint
+    (the JAX package's ``params_from_torch(sd, n_layers=...)``): those of
+    ``transformers.{i}`` and ``log_assignment.{i}`` for i >= n_layers and of
+    ``token_confidence.{i}`` for i >= n_layers - 1 are dropped."""
+    out = {}
+    for k, v in state_dict.items():
+        m = re.match(r"(transformers|log_assignment|token_confidence)\.(\d+)\.", k)
+        if m and int(m.group(2)) >= n_layers - (m.group(1) == "token_confidence"):
+            continue
+        out[k] = v
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -209,27 +251,28 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, N, H * hd)
 
 
-def _ffn(x, msg, p, prefix):
-    return ffn_fused(
-        x, msg, p[f"{prefix}.ffn.0.weight"], p[f"{prefix}.ffn.0.bias"],
-        p[f"{prefix}.ffn.1.weight"], p[f"{prefix}.ffn.1.bias"],
-        p[f"{prefix}.ffn.3.weight"], p[f"{prefix}.ffn.3.bias"],
-    )
+def _ffn(x, msg, p, prefix, impl="fused"):
+    """The FFN of block ``prefix``: kernel 2 for "fused" (any row count; on
+    CUDA it takes D = 256 and raises otherwise), ``ffn_xla`` for "xla"."""
+    fn = ffn_fused if impl == "fused" else ffn_xla
+    return fn(x, msg, p[f"{prefix}.ffn.0.weight"], p[f"{prefix}.ffn.0.bias"],
+              p[f"{prefix}.ffn.1.weight"], p[f"{prefix}.ffn.1.bias"],
+              p[f"{prefix}.ffn.3.weight"], p[f"{prefix}.ffn.3.bias"])
 
 
 def _lin(x, p, prefix):
     return F.linear(x, p[f"{prefix}.weight"], p.get(f"{prefix}.bias"))
 
 
-def _prologue_fused_ok(x: torch.Tensor) -> bool:
+def _prologue_fused_ok(x: torch.Tensor, ffn_impl: str = "fused") -> bool:
     """The fused prologue (kernel 10) when ``DIM_TPU_FUSED_PROLOGUE=1``,
-    read on every call as the JAX package reads it, and the width and the
-    row count are multiples of 128 (the JAX package's gate). The JAX gate's
-    ``ffn_impl == "fused"`` term always holds here: the FFN is the fused one."""
+    read on every call as the JAX package reads it, the FFN is the fused one
+    and the width and the row count are multiples of 128 (the JAX package's
+    gate)."""
     if os.environ.get("DIM_TPU_FUSED_PROLOGUE", "0") != "1":
         return False
     B, N, D = x.shape
-    return D % 128 == 0 and (B * N) % 128 == 0
+    return ffn_impl == "fused" and D % 128 == 0 and (B * N) % 128 == 0
 
 
 def self_prologue(x, p, t, cos, sin, num_heads):
@@ -252,22 +295,23 @@ def cross_prologue(x, p, c, num_heads):
             _heads(_lin(x, p, f"{c}.to_v"), num_heads))
 
 
-def _self_block(x, enc, mask, p, t, num_heads, fused=None):
+def _self_block(x, enc, mask, p, t, num_heads, fused=None, ffn_impl="fused"):
     """``fused``: the layer's prologue weights (``LightGlue.prologue_weights``),
     used when the fused prologue runs."""
     cos, sin = enc
-    if fused is not None and _prologue_fused_ok(x):
+    if fused is not None and _prologue_fused_ok(x, ffn_impl):
         q, k, v = qkv_rotary_fused(x, *fused["self"], cos, sin, num_heads)
     else:
         q, k, v = self_prologue(x, p, t, cos, sin, num_heads)
     ctx = fused_attention(q, k, v, mask, mask, q.shape[-1] ** -0.5)
     msg = _lin(_merge(ctx), p, f"{t}.self_attn.out_proj")
-    return _ffn(x, msg, p, f"{t}.self_attn")
+    return _ffn(x, msg, p, f"{t}.self_attn", ffn_impl)
 
 
-def _cross_block(x0, x1, mask0, mask1, p, t, num_heads, attn_impl="flash", fused=None):
+def _cross_block(x0, x1, mask0, mask1, p, t, num_heads, attn_impl="flash", fused=None,
+                 ffn_impl="fused"):
     c = f"{t}.cross_attn"
-    if fused is not None and _prologue_fused_ok(x0) and x0.shape == x1.shape:
+    if fused is not None and _prologue_fused_ok(x0, ffn_impl) and x0.shape == x1.shape:
         qk0, v0 = qk_v_fused(x0, *fused["cross"], num_heads)
         qk1, v1 = qk_v_fused(x1, *fused["cross"], num_heads)
     else:
@@ -284,7 +328,7 @@ def _cross_block(x0, x1, mask0, mask1, p, t, num_heads, attn_impl="flash", fused
         m1 = fused_attention(qk1, qk0, v0, mask1, mask0, scale)
     m0 = _lin(_merge(m0), p, f"{c}.to_out")
     m1 = _lin(_merge(m1), p, f"{c}.to_out")
-    return _ffn(x0, m0, p, c), _ffn(x1, m1, p, c)
+    return _ffn(x0, m0, p, c, ffn_impl), _ffn(x1, m1, p, c, ffn_impl)
 
 
 def _assign_inputs(desc0, desc1, p, i):
@@ -347,6 +391,8 @@ def forward(
     pruning_min_kpts: int = 1536,
     compute_dtype: torch.dtype = torch.float32,
     attn_impl: str = "flash",
+    ffn_impl: str = "auto",
+    assignment_impl: str = "fused",
 ) -> Dict[str, torch.Tensor]:
     """Batched LightGlue matching (the JAX package's ``forward_impl``).
 
@@ -359,9 +405,11 @@ def forward(
     more than ``pruning_min_kpts`` points. ``compute_dtype`` bf16 runs the
     transformer in bf16 (f32 accumulation and softmax); assignment scores
     stay f32. ``attn_impl`` "bidir" runs the cross attention on kernel 6
-    (``ATTN_IMPLS``). Returns matches0 (B, M) int32, matching_scores0,
-    valid0 and layers_run (int)."""
-    check_attn_impl(attn_impl)
+    (``ATTN_IMPLS``); ``ffn_impl`` and ``assignment_impl`` pick the FFN and
+    assignment routes (``FFN_IMPLS``, ``ASSIGNMENT_IMPLS``). Returns
+    matches0 (B, M) int32, matching_scores0, valid0 and layers_run (int)."""
+    ffn_impl = resolve_ffn_impl(ffn_impl, attn_impl)
+    check_assignment_impl(assignment_impl)
     num_heads = model.num_heads
     mask0 = mask0.bool()
     mask1 = mask1.bool()
@@ -393,9 +441,10 @@ def forward(
     for i in range(n_layers):
         t = f"transformers.{i}"
         fl = None if fused is None else fused[i]
-        desc0 = _self_block(desc0, enc0, mask0, p, t, num_heads, fl)
-        desc1 = _self_block(desc1, enc1, mask1, p, t, num_heads, fl)
-        desc0, desc1 = _cross_block(desc0, desc1, mask0, mask1, p, t, num_heads, attn_impl, fl)
+        desc0 = _self_block(desc0, enc0, mask0, p, t, num_heads, fl, ffn_impl)
+        desc1 = _self_block(desc1, enc1, mask1, p, t, num_heads, fl, ffn_impl)
+        desc0, desc1 = _cross_block(desc0, desc1, mask0, mask1, p, t, num_heads, attn_impl, fl,
+                                    ffn_impl)
         if not (do_stop or do_prune):
             continue
         last = i == n_layers - 1
@@ -425,10 +474,14 @@ def forward(
             layers_run = i + 1
             break
 
-    md0, md1, z0, z1 = _assign_inputs(desc0, desc1, p, layers_run - 1)
-    matches0, mscores0, valid0 = filter_matches_fused(
-        md0, md1, z0, z1, mask0, mask1, filter_threshold
-    )
+    if assignment_impl == "fused":
+        md0, md1, z0, z1 = _assign_inputs(desc0, desc1, p, layers_run - 1)
+        matches0, mscores0, valid0 = filter_matches_fused(
+            md0, md1, z0, z1, mask0, mask1, filter_threshold
+        )
+    else:
+        scores = _log_assignment(desc0, desc1, mask0, mask1, p, layers_run - 1)
+        matches0, mscores0, valid0 = filter_matches_static(scores, mask0, mask1, filter_threshold)
     return {
         "matches0": matches0,
         "matching_scores0": mscores0,
@@ -465,7 +518,10 @@ def load_default_model(features: str = "superpoint", n_layers: int = 9) -> Light
         for name in names:
             cand = base / name
             if cand.exists():
-                model.load_state_dict(torch.load(str(cand), map_location="cpu"))
+                # a deeper checkpoint (the published 9 layers for the
+                # 7-layer preset) gives its first n_layers layers
+                sd = torch.load(str(cand), map_location="cpu")
+                model.load_state_dict(truncate_layers(sd, n_layers))
                 logger.info(f"Loaded LightGlue weights from {cand}")
                 _DEFAULT_MODELS[key] = model.eval()
                 return _DEFAULT_MODELS[key]

@@ -31,7 +31,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("attention.cu", "ffn.cu", "assignment.cu", "nullspace.cu", "nn.cu",
            "sinkhorn.cu", "refiner.cu", "bidir_attention.cu", "qkv.cu")
-HEADERS = ("attention_sm90.cuh",)  # included by attention.cu and bidir_attention.cu
+# attention_sm90.cuh is included by attention.cu and bidir_attention.cu;
+# sm90_common.cuh (mbarriers, TMA, wgmma helpers) by it, sinkhorn.cu and ffn.cu
+HEADERS = ("attention_sm90.cuh", "sm90_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

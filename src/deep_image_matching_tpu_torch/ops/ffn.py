@@ -39,6 +39,25 @@ def ffn_reference(x, msg, w1, b1, g, beta, w2, b2, mode: str = "ln_gelu") -> tor
     return (x.to(f32) + (y + b2.to(f32))).to(x.dtype)
 
 
+def ffn_xla(x, msg, w1, b1, g, beta, w2, b2) -> torch.Tensor:
+    """LightGlue's unfused FFN, the arithmetic of the JAX package's "xla"
+    route (``models/lightglue.py::_ffn``), which runs outside any Pallas
+    kernel: each product accumulates in f32 and is rounded to ``x.dtype``,
+    and so is each bias add; LayerNorm and the exact-erf GELU run in f32,
+    the activation is rounded to ``x.dtype``, and the residual is added in
+    ``x.dtype``. Plain tensor operations on every device."""
+    dt, f32 = x.dtype, torch.float32
+    cat = torch.cat([x, msg.to(dt)], dim=-1)
+    h = (cat.to(f32) @ w1.to(f32).T).to(dt) + b1.to(dt)
+    h32 = h.to(f32)
+    mu = h32.mean(-1, keepdim=True)
+    var = ((h32 - mu) ** 2).mean(-1, keepdim=True)
+    hn = (h32 - mu) * torch.rsqrt(var + 1e-5) * g.to(f32) + beta.to(f32)
+    act = torch.nn.functional.gelu(hn).to(dt)
+    y = (act.to(f32) @ w2.to(f32).T).to(dt) + b2.to(dt)
+    return x + y
+
+
 def ffn_fused(x, msg, w1, b1, g, beta, w2, b2, mode: str = "ln_gelu") -> torch.Tensor:
     """Fused FFN; on CUDA the kernel takes bf16 everywhere and D = 256 and
     raises otherwise. Any row count works: the kernel masks the last tile.

@@ -9,19 +9,33 @@ import torch
 
 
 def resolve_device(spec=None) -> torch.device:
-    """``general.tpu.device``: "auto" (or None) picks the first CUDA device
-    when one is present, else the CPU; "cuda" or "cpu" (or "cuda:N")
-    requests one. A requested CUDA device that is missing raises: the run
-    never moves to the CPU behind the user's back."""
-    if spec is None or str(spec).lower() == "auto":
-        return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
-    dev = torch.device(spec)
+    """``general.tpu.device``: "auto" (the default, or None) is the first
+    CUDA device, as are "cuda" and "cuda:N"; "cpu" asks for the CPU. A CUDA
+    device that is missing raises: the run never moves to the CPU behind the
+    user's back, and the CPU is only ever taken when asked for."""
+    auto = spec is None or str(spec).lower() == "auto"
+    dev = torch.device("cuda" if auto else spec)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError(f"device '{spec}' requested but CUDA is not available")
+            raise RuntimeError(
+                f"device '{spec or 'auto'}' needs CUDA, which is not available; set "
+                "`general.tpu.device: cpu` to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", 0)
     return dev
+
+
+def check_matcher_dtype(device: torch.device, dtype: torch.dtype) -> torch.dtype:
+    """``tpu.dtype`` of a transformer matcher. On CUDA the attention, FFN
+    and bidirectional attention kernels (kernels 1, 2 and 6) take bfloat16
+    only, and a CUDA tensor never falls back to a plain version, so any other
+    dtype raises there at start; the CPU runs every dtype."""
+    if device.type == "cuda" and dtype != torch.bfloat16:
+        raise ValueError(
+            f"tpu.dtype {dtype} on CUDA: the attention and FFN kernels take bfloat16 "
+            "only; use tpu.dtype: bfloat16, or run in float32 on the CPU with "
+            "`general.tpu.device: cpu`")
+    return dtype
 
 
 @contextlib.contextmanager

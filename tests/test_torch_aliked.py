@@ -381,7 +381,7 @@ def test_run_matching_aliked_lightglue_agrees_with_jax(tmp_path, aliked_weights)
     cfg = tmp_path / "config.yaml"
     # random weights never reach LightGlue's 0.1 match score: keep every
     # mutual nearest neighbour
-    cfg.write_text("general:\n  tpu:\n    dtype: float32\n"
+    cfg.write_text("general:\n  tpu:\n    device: cpu\n    dtype: float32\n"
                    "extractor:\n  max_num_keypoints: 1024\nmatcher:\n  filter_threshold: 0.0\n")
     outs = {}
     for tag, run in (("jax", jax_run_matching), ("torch", torch_run_matching)):

@@ -94,10 +94,16 @@ def test_attention_kernel_matches_plain(cuda, case):
         assert bool((got[2] == 0).all())
 
 
+# (B, K): fewer rows than one 64-row tile, a ragged last tile (231 rows),
+# and SuperGlue's 16 x 4096 rows
+FFN_CASES = {"short": (1, 40), "ragged": (3, 77), "superglue": (16, 4096)}
+
+
+@pytest.mark.parametrize("case", list(FFN_CASES))
 @pytest.mark.parametrize("mode", ["ln_gelu", "relu"])
-def test_ffn_kernel_matches_plain(cuda, mode):
+def test_ffn_kernel_matches_plain(cuda, mode, case):
     gen = torch.Generator().manual_seed(3)
-    B, K, D = 3, 77, 256  # 231 rows: a partial 32-row tile
+    (B, K), D = FFN_CASES[case], 256
 
     def rnd(*shape, s=1.0, mean=0.0):
         return (mean + s * torch.randn(*shape, generator=gen)).to(cuda, torch.bfloat16)
@@ -105,7 +111,9 @@ def test_ffn_kernel_matches_plain(cuda, mode):
     args = (rnd(B, K, D), rnd(B, K, D), rnd(2 * D, 2 * D, s=(2 * D) ** -0.5),
             rnd(2 * D, s=0.1), rnd(2 * D, s=0.1, mean=1.0), rnd(2 * D, s=0.1),
             rnd(D, 2 * D, s=(2 * D) ** -0.5), rnd(D, s=0.1))
+    before = _lib.LAUNCHES["ffn"]
     got = tffn.ffn_fused(*args, mode=mode).float()
+    assert _lib.LAUNCHES["ffn"] == before + 1
     ref = tffn.ffn_reference(*args, mode=mode).float()
     # one bf16 ulp of the output
     assert bool(((got - ref).abs() <= 2.0 ** -7 * ref.abs().clamp(min=1.0) + 1e-6).all())
@@ -231,18 +239,72 @@ def _couplings(gen, B, M, N, cuda):
     return z.to(cuda), log_mu.to(cuda), log_nu.to(cuda)
 
 
-def test_sinkhorn_kernel_matches_plain(cuda):
+def _masked_couplings(gen, B, M, N, cuda):
+    """Random prefix masks per batch element with the last row and column
+    (the dustbins) kept; element 1 loses a row and a column in the middle
+    (fully masked), element 2, where there is one, is masked whole."""
+    m0 = torch.arange(M)[None] < torch.randint(1, M + 1, (B,), generator=gen)[:, None]
+    m1 = torch.arange(N)[None] < torch.randint(1, N + 1, (B,), generator=gen)[:, None]
+    m0[:, -1] = True
+    m1[:, -1] = True
+    if B > 1:
+        m0[1, M // 2] = False
+        m1[1, N // 2] = False
+    if B > 2:
+        m0[2] = False
+        m1[2] = False
+    z = torch.randn(B, M, N, generator=gen) * 3
+    z = torch.where(m0[:, :, None] & m1[:, None, :], z, torch.tensor(-1e30))
+    norm = -torch.log((m0.sum(1) + m1.sum(1)).clamp(min=1).float())[:, None]
+    log_mu = torch.where(m0, norm, torch.tensor(-1e30))
+    log_nu = torch.where(m1, norm, torch.tensor(-1e30))
+    return z.to(cuda), log_mu.to(cuda), log_nu.to(cuda)
+
+
+# (B, M, N): row widths N = 1, 2, 3 and 0 (mod 4), so a chunk's start is not
+# 16-byte aligned for the bulk copy; a single row (fewer than one two-row
+# stage); runs of rows per block that are not a multiple of the stage's
+# rows; enough batch elements for one block per element; a width whose
+# column count is an instantiated one (SuperGlue's 4097) and one rounded up
+# to the next; rows so wide that the ring takes one-row stages; and rows
+# wider than the widest register instantiation (10240), whose column
+# accumulators live in global memory
+SINKHORN_CASES = {
+    "n_mod1": (2, 301, 257),
+    "n_mod2": (3, 130, 258),
+    "n_mod3": (3, 77, 259),
+    "n_mod0": (2, 64, 256),
+    "one_row": (2, 1, 203),
+    "ragged_rows": (3, 1000, 131),
+    "one_block_per_element": (140, 9, 37),
+    "exact_columns": (2, 33, 4097),
+    "columns_rounded_up": (2, 40, 3001),
+    "wide_one_row_stages": (2, 7, 10001),
+    "wider_than_registers": (2, 7, 12289),
+    "wider_than_registers_16001": (2, 5, 16001),
+}
+
+
+@pytest.mark.parametrize("case", list(SINKHORN_CASES))
+def test_sinkhorn_kernel_matches_plain(cuda, case):
+    B, M, N = SINKHORN_CASES[case]
     gen = torch.Generator().manual_seed(11)
-    z, log_mu, log_nu = _couplings(gen, 2, 301, 257, cuda)
-    v = torch.randn(2, 257, generator=gen).to(cuda)
+    z, log_mu, log_nu = _masked_couplings(gen, B, M, N, cuda)
+    v = torch.randn(B, N, generator=gen).to(cuda)
     before = _lib.LAUNCHES["sinkhorn"]
     u1, v1 = tsink.sinkhorn_iteration(z, v, log_mu, log_nu)
     assert _lib.LAUNCHES["sinkhorn"] == before + 1
     ru, rv = tsink.sinkhorn_iteration_reference(z, v, log_mu, log_nu)
     assert float((u1 - ru).abs().max()) < 1e-4 and float((v1 - rv).abs().max()) < 1e-4
     u, v = tsink.sinkhorn_fused(z, log_mu, log_nu, 50)
+    assert _lib.LAUNCHES["sinkhorn"] == before + 51
     cu, cv = tsink.sinkhorn_fused(z.cpu(), log_mu.cpu(), log_nu.cpu(), 50)
     assert float((u.cpu() - cu).abs().max()) < 1e-3 and float((v.cpu() - cv).abs().max()) < 1e-3
+    if case == "wider_than_registers_16001":  # two one-row stages no longer fit
+        n = 30000
+        row, col = torch.zeros(1, n, device=cuda), torch.zeros(1, 2, device=cuda)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tsink.sinkhorn_iteration(torch.zeros(1, 2, n, device=cuda), row, col, row)
 
 
 def test_lse_rows_kernel_matches_plain(cuda):

@@ -132,7 +132,8 @@ def test_detector_free_tail_and_multiview_match_jax(tmp_path):
         cfg = cfg_cls(args={"dir": str(proj), "outs": str(tmp_path / tag), "pipeline": "roma",
                             "strategy": "bruteforce", "skip_reconstruction": True,
                             "force": True})
-        conf = {"general": cfg.general, "extractor": cfg.extractor, "matcher": cfg.matcher}
+        general = {**cfg.general, "tpu": {**cfg.general["tpu"], "device": "cpu"}}
+        conf = {"general": general, "extractor": cfg.extractor, "matcher": cfg.matcher}
         feats, matches = cfg.output_dir / "features.h5", cfg.output_dir / "matches.h5"
         ext_cls(conf).extract_batch(list(images(proj / "images")), feats)
         results = stub(conf).match_all(pairs, feats, matches)
@@ -189,7 +190,8 @@ def test_detector_free_bisects_oom_and_keeps_finished_pairs(tmp_path):
                          for i, p in enumerate(pairs)}
     cfg = TConfig(args={"dir": str(proj), "outs": str(tmp_path / "out"), "pipeline": "roma",
                         "strategy": "bruteforce", "skip_reconstruction": True, "force": True})
-    conf = {"general": cfg.general, "extractor": cfg.extractor,
+    general = {**cfg.general, "tpu": {**cfg.general["tpu"], "device": "cpu"}}
+    conf = {"general": general, "extractor": cfg.extractor,
             "matcher": {**cfg.matcher, "pair_batch_size": 3}}
     feats, matches = cfg.output_dir / "features.h5", cfg.output_dir / "matches.h5"
     TNoExtractor(conf).extract_batch(list(TImageList(proj / "images")), feats)

@@ -119,11 +119,11 @@ def test_run_matching_agrees_with_jax(tmp_path, shared_weights, pipeline):
     images, extra = PIPELINES[pipeline]
     if images == "synthetic":
         proj = _project(tmp_path / "proj")
-        tpu = "general:\n  tpu:\n    dtype: float32\n"
+        tpu = "general:\n  tpu:\n    device: cpu\n    dtype: float32\n"
     else:
         proj = tmp_path / "proj"
         shutil.copytree(DEMO_IMAGES, proj / "images")
-        tpu = "general:\n  tpu:\n    dtype: float32\n    match_batch_size: 2\n"
+        tpu = "general:\n  tpu:\n    device: cpu\n    dtype: float32\n    match_batch_size: 2\n"
     n_images = len(list((proj / "images").iterdir()))
     cfg = tmp_path / "config.yaml"
     cfg.write_text(tpu + extra)  # f32 matcher on both sides
