@@ -7,8 +7,8 @@ Phases, each printing its own lines:
 2. kernel build: the CUDA sources of ``src/deep_image_matching_tpu_torch/csrc``
    compiled for sm_90a (one nvcc per source, all started together), with
    ptxas' register and spill report, and the count of HGMMA instructions in
-   the SASS of the two attention kernels and the FFN (``cuobjdump -sass``;
-   none fails);
+   the SASS of the two attention kernels, the FFN, the assignment and the
+   QKV prologue (``cuobjdump -sass``; none fails);
 3. each kernel against its plain PyTorch version on the card, at the
    main-path shapes (partial masks, degenerate hypotheses, integer
    descriptors with ties), with its tolerance and both times (CUDA events
@@ -18,7 +18,8 @@ Phases, each printing its own lines:
    same function, where there is one: attention (LightGlue's, SuperGlue's
    and DINOv2's shapes), the FFN in both modes (ln_gelu at LightGlue's
    shape, relu at SuperGlue's),
-   assignment, null space, nearest neighbours, the Sinkhorn iteration, the
+   assignment (SuperPoint's and ALIKED's keypoint counts), null space,
+   nearest neighbours, the Sinkhorn iteration, the
    row logsumexp, RoMa's refiner stack (both passes' shapes), LightGlue's
    bidirectional cross attention (LightGlue's and ALIKED's lengths) and its
    fused QKV + rotary prologue (both modes, beside the path's own unfused
@@ -109,9 +110,9 @@ KERNELS = {
 }
 
 # NVIDIA H100 SXM data sheet: HBM bytes/s, dense peak operations/s by type
-# (bf16 on the tensor cores, f32 outside them)
+# (bf16 and TF32 on the tensor cores, f32 outside them)
 HBM_RATE = 3.35e12
-PEAK_RATE = {"bf16": 989e12, "f32": 67e12}
+PEAK_RATE = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 
 def _bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -211,8 +212,8 @@ def phase_build() -> None:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {line.strip()}", flush=True)
-    # the attention core and the FFN must have compiled to Hopper's
-    # warpgroup products
+    # the attention core, the FFN, the assignment and the QKV prologue must
+    # have compiled to Hopper's warpgroup products
     for kernel, count in _sass_hgmma(so).items():
         print(f"[build] {kernel}: {count} HGMMA instructions in its SASS", flush=True)
         if not count:
@@ -221,7 +222,7 @@ def phase_build() -> None:
 
 # kernel entry -> the name its SASS section carries (anonymous namespace)
 WGMMA_KERNELS = {"attention": "attention_sm90", "bidir_attention": "bidir_attention_sm90",
-                 "ffn": "ffn_sm90"}
+                 "ffn": "ffn_sm90", "assignment": "assignment_sm90", "qkv": "qkv_sm90"}
 
 
 def _ptxas(name: str) -> dict:
@@ -418,21 +419,23 @@ def check_ffn(torch, dev, card):
     return err, tol, what, extra
 
 
-def check_assignment(torch, dev, card):
+def _assignment_case(torch, gen, B, N, D, dev):
+    """One assignment shape with partial masks: the error on valid rows and
+    columns (inf if an argmax differs beyond a near-tie), the near-ties, the
+    times and the bounds."""
     from deep_image_matching_tpu_torch.ops.assignment import (
         assignment_fused, assignment_reference, log_assignment_dense)
 
-    gen = torch.Generator().manual_seed(3)
-    B, N, D = 16, 2048, 256
     md0 = (torch.randn(B, N, D, generator=gen) * D ** -0.25).to(dev)
     md1 = (torch.randn(B, N, D, generator=gen) * D ** -0.25).to(dev)
     z0 = torch.randn(B, N, generator=gen).to(dev)
     z1 = torch.randn(B, N, generator=gen).to(dev)
     m0 = _masks(torch, gen, B, N, dev)
     m1 = _masks(torch, gen, B, N, dev)
-    got = assignment_fused(md0, md1, z0, z1, m0, m1)
-    ref = assignment_reference(md0, md1, z0, z1, m0, m1)
-    scores = log_assignment_dense(md0, md1, z0, z1, m0, m1)
+    args = (md0, md1, z0, z1, m0, m1)
+    got = assignment_fused(*args)
+    ref = assignment_reference(*args)
+    scores = log_assignment_dense(*args)
     torch.cuda.synchronize()
     err = max((got[0] - ref[0]).abs()[m0].max().item(),
               (got[2] - ref[2]).abs()[m1].max().item())
@@ -444,17 +447,43 @@ def check_assignment(torch, dev, card):
     ties = int(((got[1] != ref[1]) & m0).sum().item() + ((got[3] != ref[3]) & m1).sum().item())
     if far0 or far1:
         err = float("inf")
-    tol = 1e-3  # f32 sums in another order over D = 256 and N = 2048
-    # the product over valid rows and columns (f32 outside the tensor
-    # cores); inputs read once, the four (B, N) outputs written once
+    del ref, scores, s_at0, s_at1
+    torch.cuda.empty_cache()
+    # one product over the valid rows and columns: the kernel's arithmetic,
+    # three TF32 products per multiply-add on the tensor cores, and, kept for
+    # comparison with the earlier rows, one f32 product outside them; inputs
+    # read once, the four (B, N) outputs written once
     pairs = float((m0.sum(1).double() * m1.sum(1).double()).sum())
-    extra = {"ms": _time_ms(lambda: assignment_fused(md0, md1, z0, z1, m0, m1)),
-             "plain_ms": _time_ms(lambda: assignment_reference(md0, md1, z0, z1, m0, m1)),
-             **_bound(_nbytes(md0, md1, z0, z1, m0, m1, *got), 2.0 * D * pairs, "f32"),
-             "library_ms": None,
+    nbytes = _nbytes(*args, *got)
+    return err, ties, {
+        "ms": _time_ms(lambda: assignment_fused(*args)),
+        "plain_ms": _time_ms(lambda: assignment_reference(*args)),
+        **_bound(nbytes, 3 * 2.0 * D * pairs, "tf32"),
+        "fma_bound_ms": _bound(nbytes, 2.0 * D * pairs, "f32")["bound_ms"]}
+
+
+def check_assignment(torch, dev, card):
+    gen = torch.Generator().manual_seed(3)
+    # SuperPoint's K = 2048 (reported), then ALIKED's 4096
+    err, ties, main = _assignment_case(torch, gen, 16, 2048, 256, dev)
+    torch.cuda.empty_cache()
+    a_err, a_ties, aliked = _assignment_case(torch, gen, 16, 4096, 256, dev)
+    tol = 1e-3  # f32-level sums in another order over D = 256 and N <= 4096
+    extra = {**main, "library_ms": None,
              "library_note": "none: the row and column maxima and argmaxima of a dual "
-                             "softmax over a product; no single PyTorch call gives them"}
-    return err, tol, f"valid rows; argmax near-ties {ties}", extra
+                             "softmax over a product; no single PyTorch call gives them",
+             "bound_note": "bound_ms: one product of the valid pairs as three TF32 products "
+                           "at 495 TFLOP/s; fma_bound_ms: as one f32 product at 67 TFLOP/s",
+             "aliked_shape": [16, 4096, 4096, 256], "aliked_max_abs_err": a_err,
+             **{f"aliked_{k}": v for k, v in aliked.items()},
+             "ptxas": _ptxas("assignment_sm90")}
+    what = (f"valid rows and columns; (16, 2048, 2048, 256) reported, argmax near-ties {ties}; "
+            f"ALIKED's (16, 4096, 4096, 256): max err {a_err:.3e}, near-ties {a_ties}, kernel "
+            f"{aliked['ms']:.3f} ms, plain {aliked['plain_ms']:.3f} ms, bound "
+            f"{aliked['bound_ms']:.3f} ms ({aliked['bound_by']}), f32-FMA bound "
+            f"{aliked['fma_bound_ms']:.3f} ms; f32-FMA bound at 2048 {main['fma_bound_ms']:.3f} ms")
+    # each shape is held to the same rule (inf on a far argmax)
+    return max(err, a_err), tol, what, extra
 
 
 def check_nullspace(torch, dev, card):
@@ -758,8 +787,9 @@ def check_qkv(torch, dev, card):
     B, N, D, H = 16, 4096, 256, 4
     x = torch.randn(B, N, D, generator=gen).to(dev, torch.bfloat16)
     ang = torch.rand(B, N, 32, generator=gen) * 6.3
-    cos = torch.repeat_interleave(torch.cos(ang), 2, -1).to(dev)
-    sin = torch.repeat_interleave(torch.sin(ang), 2, -1).to(dev)
+    # rounded to bf16 once per forward, as models/lightglue.py passes them
+    cos = torch.repeat_interleave(torch.cos(ang), 2, -1).to(dev, torch.bfloat16)
+    sin = torch.repeat_interleave(torch.sin(ang), 2, -1).to(dev, torch.bfloat16)
     res = {}
     for sections, rot in ((3, (0, 1)), (2, ())):
         w = (torch.randn(sections * D, D, generator=gen) / 16).to(dev, torch.bfloat16)
@@ -811,6 +841,7 @@ def check_qkv(torch, dev, card):
                   "unfused_note": "the path's own unfused prologue (models/lightglue.py "
                                   "self_prologue / cross_prologue): F.linear, head split, rotary",
                   "shape": [B * N, D], "bitwise_equal_share": a["equal"],
+                  "ptxas": _ptxas("qkv_sm90"),
                   "cross_max_abs_err": c["err"], "cross_bitwise_equal_share": c["equal"],
                   **{f"cross_{k}": v for k, v in c.items() if k not in drop}})
     # each mode is held to its own elementwise bound (inf on failure); a

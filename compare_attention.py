@@ -7,11 +7,12 @@ commit unpacked with ``git archive``). KERNEL names checks of
 ``chip_smoke.py`` (``attention``, ``ffn``, ``sinkhorn``, ``bidir_attention``,
 any key of its kernel phase); the default is the two attention kernels. Each
 measurement runs in its own process, in the order other, this, this, other,
-and calls ``chip_smoke.py``'s check of each kernel with that checkout's
-package first on the path: the same inputs, tolerances and timings as the
-kernel phase of ``chip_smoke.py`` (runs of back-to-back calls). Prints one
-JSON line per run with every time the check reports (its keys ending in
-``ms``), then the mean of each checkout's two runs as the last line.
+and calls each checkout's own ``chip_smoke.py`` check of each kernel with its
+package first on the path: the inputs, tolerances and timings of that
+checkout's kernel phase (runs of back-to-back calls), the same in both unless
+a check changed its inputs with its path. Prints one JSON line per run with
+every time the check reports (its keys ending in ``ms``), then the mean of
+each checkout's two runs as the last line.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ DEFAULT = ("attention", "bidir_attention")
 
 def measure(src: str, names: list) -> dict:
     sys.path.insert(0, src)
-    sys.path.insert(1, str(ROOT))
+    sys.path.insert(1, str(Path(src).parent))
     import torch
 
     import chip_smoke

@@ -53,11 +53,13 @@ PATHS = {
 # matches where no letter or underscore precedes it (attention_sm90 is not
 # bidir_attention_sm90)
 OUR_KERNELS = {
-    "attention_sm90": "attention", "ffn_sm90": "ffn", "dual_pass_kernel": "assignment",
+    "attention_sm90": "attention", "ffn_sm90": "ffn",
+    "assignment_sm90": "assignment", "tf32_split_kernel": "assignment",
+    "combine_cols_kernel": "assignment",
     "nullspace_kernel": "nullspace", "nn_top2_kernel": "nn",
     "sinkhorn_iter_kernel": "sinkhorn", "sinkhorn_cols_kernel": "sinkhorn",
     "lse_rows_kernel": "lse_rows",
-    "refiner_block_kernel": "refiner", "bidir_attention_sm90": "bidir_attention", "qkv_kernel": "qkv",
+    "refiner_block_kernel": "refiner", "bidir_attention_sm90": "bidir_attention", "qkv_sm90": "qkv",
 }
 
 

@@ -11,17 +11,32 @@
 // (3 sections, rotary on q and k) and qk_v_fused (2 sections, no rotary).
 //
 // What bounds it on the H100: at (65536 rows, 256) in 3-section mode it moves
-// 168 MB (x 34 MB, cos and sin 34 MB, the three outputs 101 MB) against 26
-// GFLOP of bf16 products, so it is bound by memory. The unfused form writes
-// and re-reads the (rows, 768) projection and each rotary operand. Here one
-// block takes 64 rows: x in shared memory, the weight (section-contiguous
-// rows [q | k | v], each ordered (head, hd), in nn.Linear (out, in) layout,
-// permuted once at model load) read from L2, one section at a time on bf16
-// mma.sync m16n8k16 with f32 accumulators (8 warps x 32 columns). In the
-// accumulator layout each thread holds an adjacent column pair (2i, 2i+1),
-// so rotate_half is a register swap with a negation. Each section's 64 x 256
-// bf16 tile is staged in shared memory and written with 16-byte stores
-// straight into the (B, H, N, 64) head layout the attention kernels take.
+// 151 MB (x 34 MB, cos and sin 17 MB in bf16, the three outputs 101 MB)
+// against 26 GFLOP of bf16 products, so it is bound by memory; the weight
+// (384 KB) is reread from L2 by every row tile. The design follows the FFN
+// (ffn.cu):
+//
+// - One block takes 128 rows. A producer warp loads the x tile once by TMA
+//   as four 64-wide k-slabs in the 128-byte swizzle (the K-major A operand),
+//   then streams the weight through a ring of six 16 KB stages: a 64-wide
+//   k-slab of 128 output rows (half a section), in nn.Linear (out, in) layout
+//   (the K-major B operand), half-section after half-section. Rows past the
+//   end read as zeros. 128-row tiles halve the weight's L2 traffic of 64-row
+//   tiles (200 MB a self call at 65536 rows).
+// - The tile's cos and sin rows come by TMA too, in bf16 (the rotary rounds
+//   them to bf16 anyway, so the caller passes them rounded, once per
+//   forward), 128 bytes a row in the same swizzle; the consumers wait for
+//   them only before the first rotary epilogue.
+// - Two consumer warpgroups hold 64 rows each: a half-section's 64 x 128
+//   tile is wgmma m64n128k16 into 64 f32 registers a thread, which leaves
+//   the epilogue room (a 64 x 256 tile in 128 registers made ptxas spill).
+//   In the accumulator layout each thread holds adjacent column pairs
+//   (2i, 2i+1), so rotate_half is a register swap with a negation. The bf16
+//   tile is staged in shared memory (16-byte chunks XOR-swizzled by row) and
+//   written with 16-byte stores into the (B, H, N, 64) head layout the
+//   attention kernels take; rows map to (b, n) one by one, so a tile may
+//   straddle two images. While a warpgroup stores, the producer already
+//   streams the next half-section's slabs.
 //
 // Numerics follow the Pallas kernel: f32 accumulation, the bias added in f32
 // before rounding, the rotary multiply-add in bf16 arithmetic (each product
@@ -31,35 +46,34 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 namespace {
 
-constexpr int D = 256;        // model width (one section)
-constexpr int HD = 64;        // head dim
-constexpr int TM = 64;        // rows per block
-constexpr int LDX = D + 8;    // bf16 row of the staged tiles
-constexpr int THREADS = 256;  // 8 warps, 32 columns each
-constexpr size_t SMEM = 2 * sizeof(uint16_t) * TM * LDX;
+using namespace sm90;
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int D = 256;            // model width (one section)
+constexpr int HD = 64;            // head dim
+constexpr int HALF = 128;         // output columns per pass: two heads
+constexpr int BM = 128;           // rows per block, 64 per consumer warpgroup
+constexpr int SLAB = 64;          // k per slab: one 128-byte swizzle row of bf16
+constexpr int NSLAB = D / SLAB;   // 4 k-slabs per pass
+constexpr int CONSUMERS = 256;    // two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
+constexpr int X_SLAB_BYTES = BM * SLAB * 2;     // 16 KB
+constexpr int W_SLAB_BYTES = HALF * SLAB * 2;   // 16 KB: 128 output rows
+constexpr int STAGES = 6;
+constexpr int O_BYTES = 64 * HALF * 2;          // 16 KB: a warpgroup's staged tile
+constexpr int CS_BYTES = BM * HD * 2;           // 16 KB: cos (or sin) rows in bf16
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const uint16_t* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ float bf2f(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
+// shared memory from a 1024-byte aligned base
+constexpr int OFF_X = 0;
+constexpr int OFF_W = OFF_X + NSLAB * X_SLAB_BYTES;
+constexpr int OFF_O = OFF_W + STAGES * W_SLAB_BYTES;
+constexpr int OFF_COS = OFF_O + 2 * O_BYTES;
+constexpr int OFF_SIN = OFF_COS + CS_BYTES;
+constexpr int OFF_BAR = OFF_SIN + CS_BYTES;  // u64: x, cs, full[STAGES], empty[STAGES]
+constexpr int SMEM_BYTES = OFF_BAR + 8 * (2 + 2 * STAGES) + 1024;  // + alignment slack
 
 __device__ __forceinline__ float round_bf(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -70,111 +84,191 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__global__ void __launch_bounds__(THREADS)
-qkv_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
-           const uint16_t* __restrict__ bias, const float* __restrict__ cosv,
-           const float* __restrict__ sinv, uint16_t* __restrict__ out0,
-           uint16_t* __restrict__ out1, uint16_t* __restrict__ out2, int R, int N,
-           int sections, int rot_mask) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* xs = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* ys = xs + TM * LDX;
+__device__ __forceinline__ float lo_f(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float hi_f(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
-  const int row0 = blockIdx.x * TM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, cc = (lane % 4) * 2;
+// byte offset of element (row, d) in a [rows][64] bf16 tile as TMA writes it
+// in the 128-byte swizzle: 16-byte chunks XOR-ed with the row's low 3 bits
+__device__ __forceinline__ int cs_off(int row, int d) {
+  return row * (HD * 2) + ((((d >> 3) ^ row) & 7) << 4) + (d & 7) * 2;
+}
 
-  for (int i = tid; i < TM * (D / 8); i += THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < R)
-      val = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(&xs[r * LDX + c]) = val;
+// byte offset of 16-byte chunk ch of row `row` in a staged [64][128] bf16
+// tile, XOR-swizzled within each 8-chunk head so a warp's stores of 8 rows
+// hit distinct banks
+__device__ __forceinline__ int o_off(int row, int ch) {
+  return row * (HALF * 2) + ((((ch ^ row) & 7) | (ch & 8)) << 4);
+}
+
+// The accumulator layout of m64n128k16 (f32): acc[4 j + e] is row
+// 16 warp + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + (e % 2).
+__global__ void __launch_bounds__(THREADS, 1)
+qkv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+         const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CUtensorMap smap,
+         const uint16_t* __restrict__ bias, uint16_t* __restrict__ out0,
+         uint16_t* __restrict__ out1, uint16_t* __restrict__ out2, int R, int N,
+         int sections, int rot_mask) {
+  extern __shared__ __align__(1024) uint8_t dyn_smem[];
+  const int tid = threadIdx.x;
+  uint32_t base = smem_u32(dyn_smem);
+  const uint32_t pad = (1024u - (base & 1023u)) & 1023u;
+  uint8_t* sm = dyn_smem + pad;
+  base += pad;
+  const uint32_t bar_x = base + OFF_BAR;
+  const uint32_t bar_cs = bar_x + 8;
+  const uint32_t bar_full = bar_cs + 8;               // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * STAGES;   // + 8 * stage
+  const int row0 = blockIdx.x * BM;
+
+  if (tid == 0) {
+    mbar_init(bar_x, 1);
+    mbar_init(bar_cs, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMERS);
+    }
+    mbar_init_fence();
   }
   __syncthreads();
 
-  uint16_t* outs[3] = {out0, out1, out2};
-  for (int sec = 0; sec < sections; ++sec) {
-    const bool rot = (rot_mask >> sec) & 1;
-    // this warp's columns of the section: [32 warp, 32 warp + 32)
-    float acc[TM / 16][4][4];
-#pragma unroll
-    for (int mt = 0; mt < TM / 16; ++mt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-    const uint16_t* wsec = w + static_cast<size_t>(sec) * D * D;
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint16_t* wrow = wsec + static_cast<size_t>(warp * 32 + j * 8 + g) * D + kk * 16 + cc;
-        bf[j][0] = ldg32(wrow);
-        bf[j][1] = ldg32(wrow + 8);
+  if (tid >= CONSUMERS) {
+    // ---------------- producer warpgroup: one thread issues ---------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == CONSUMERS) {
+      mbar_arrive_tx(bar_x, NSLAB * X_SLAB_BYTES);
+      for (int s = 0; s < NSLAB; ++s)
+        tma_load_2d(base + OFF_X + s * X_SLAB_BYTES, &xmap, bar_x, s * SLAB, row0);
+      if (rot_mask) {
+        mbar_arrive_tx(bar_cs, 2 * CS_BYTES);
+        tma_load_2d(base + OFF_COS, &cmap, bar_cs, 0, row0);
+        tma_load_2d(base + OFF_SIN, &smap, bar_cs, 0, row0);
       }
-#pragma unroll
-      for (int mt = 0; mt < TM / 16; ++mt) {
-        const int r = mt * 16 + g, c = kk * 16 + cc;
-        uint32_t a[4];
-        a[0] = ld32(&xs[r * LDX + c]);
-        a[1] = ld32(&xs[(r + 8) * LDX + c]);
-        a[2] = ld32(&xs[r * LDX + c + 8]);
-        a[3] = ld32(&xs[(r + 8) * LDX + c + 8]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[mt][j], a, bf[j]);
-      }
-    }
-    // epilogue: bias in f32, round, rotary on the column pair, stage in bf16
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = warp * 32 + j * 8 + cc;  // even: the pair (col, col + 1)
-      const float b0 = bf2f(bias[sec * D + col]), b1 = bf2f(bias[sec * D + col + 1]);
-      const int d = col % HD;
-#pragma unroll
-      for (int mt = 0; mt < TM / 16; ++mt) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = mt * 16 + g + 8 * half;
-          const float y0 = acc[mt][j][2 * half] + b0;
-          const float y1 = acc[mt][j][2 * half + 1] + b1;
-          float o0 = y0, o1 = y1;
-          if (rot && row0 + r < R) {
-            const float2 c2 = __ldg(reinterpret_cast<const float2*>(
-                cosv + static_cast<size_t>(row0 + r) * HD + d));
-            const float2 s2 = __ldg(reinterpret_cast<const float2*>(
-                sinv + static_cast<size_t>(row0 + r) * HD + d));
-            // bf16 arithmetic: each product rounded, then the sum (rounded
-            // when packed)
-            const float t0 = round_bf(y0), t1 = round_bf(y1);
-            o0 = round_bf(t0 * round_bf(c2.x)) + round_bf(-t1 * round_bf(s2.x));
-            o1 = round_bf(t1 * round_bf(c2.y)) + round_bf(t0 * round_bf(s2.y));
-          }
-          *reinterpret_cast<uint32_t*>(&ys[r * LDX + col]) = pack_f32(o0, o1);
+      int stage = 0;
+      uint32_t phase = 0;
+      // slab t: k-slab t % 4 of the 128 output rows starting at (t / 4) * 128
+      for (int t = 0; t < sections * (D / HALF) * NSLAB; ++t) {
+        mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+        const uint32_t full = bar_full + 8 * stage;
+        mbar_arrive_tx(full, W_SLAB_BYTES);
+        tma_load_2d(base + OFF_W + stage * W_SLAB_BYTES, &wmap, full, (t % NSLAB) * SLAB,
+                    (t / NSLAB) * HALF);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
         }
       }
     }
-    __syncthreads();
-    // (row, head) runs of 64 bf16 (128 bytes) into the (B, H, N, 64) layout
-    uint16_t* o = outs[sec];
-    for (int i = tid; i < TM * (D / 8); i += THREADS) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const int row = row0 + r;
-      if (row < R) {
-        const int bb = row / N, n = row % N, h = c / HD;
-        const size_t dst = ((static_cast<size_t>(bb) * (D / HD) + h) * N + n) * HD + c % HD;
-        *reinterpret_cast<uint4*>(o + dst) = *reinterpret_cast<const uint4*>(&ys[r * LDX + c]);
+    return;
+  }
+
+  // ---------------- consumer warpgroups ------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
+  const int c = (lane % 4) * 2;
+  const int rl = warp * 16 + lane / 4;  // this thread's rows rl, rl + 8 of the 64
+  uint8_t* ost = sm + OFF_O + wg * O_BYTES;
+
+  int stage = 0;
+  uint32_t phase = 0;
+  bool cs_ready = false;
+  mbar_wait(bar_x, 0);
+#pragma unroll 1
+  for (int pass = 0; pass < sections * (D / HALF); ++pass) {
+    const int sec = pass / (D / HALF), col0 = (pass % (D / HALF)) * HALF;
+    // y = x W^T for the pass's 128 columns: 4 slabs of 4 k-steps; a slab's
+    // stage is released once the next slab is issued and it is done
+    float acc[64];
+    int prev = -1;
+#pragma unroll 1
+    for (int s = 0; s < NSLAB; ++s) {
+      mbar_wait(bar_full + 8 * stage, phase);
+      const uint64_t da = sw128_desc(base + OFF_X + s * X_SLAB_BYTES + wg * (X_SLAB_BYTES / 2), 1);
+      const uint64_t db = sw128_desc(base + OFF_W + stage * W_SLAB_BYTES, 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < SLAB / 16; ++kk) wgmma_n128(acc, da + 2 * kk, db + 2 * kk, s | kk);
+      wg_commit();
+      wg_wait<1>();
+      if (prev >= 0) mbar_arrive(bar_empty + 8 * prev);
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-    __syncthreads();  // the staged tile is read before the next section
+    wg_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(bar_empty + 8 * prev);
+
+    // the previous pass's tile is stored before this one is staged
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    const bool rot = (rot_mask >> sec) & 1;
+    if (rot && !cs_ready) {
+      mbar_wait(bar_cs, 0);
+      cs_ready = true;
+    }
+    const uint16_t* bp = bias + sec * D + col0;
+    // by the column within the head: its cos and sin serve both heads
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      uint32_t cv[2] = {0u, 0u}, sv[2] = {0u, 0u};
+      if (rot) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int off = cs_off(wg * 64 + rl + 8 * r, 8 * jj + c);
+          cv[r] = *reinterpret_cast<const uint32_t*>(sm + OFF_COS + off);
+          sv[r] = *reinterpret_cast<const uint32_t*>(sm + OFF_SIN + off);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < HALF / HD; ++h) {
+        const int j = 8 * h + jj;  // columns (8 j + c, 8 j + c + 1) of the pass
+        const uint32_t bv = __ldg(reinterpret_cast<const unsigned int*>(bp + 8 * j + c));
+        const float b0 = lo_f(bv), b1 = hi_f(bv);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = rl + 8 * r;
+          const float y0 = acc[4 * j + 2 * r] + b0;
+          const float y1 = acc[4 * j + 2 * r + 1] + b1;
+          float o0 = y0, o1 = y1;
+          if (rot) {
+            // bf16 arithmetic: each product rounded, then the sum (rounded
+            // when packed)
+            const float t0 = round_bf(y0), t1 = round_bf(y1);
+            o0 = round_bf(t0 * lo_f(cv[r])) + round_bf(-t1 * lo_f(sv[r]));
+            o1 = round_bf(t1 * hi_f(cv[r])) + round_bf(t0 * hi_f(sv[r]));
+          }
+          *reinterpret_cast<uint32_t*>(ost + o_off(row, j) + c * 2) = pack_f32(o0, o1);
+        }
+      }
+    }
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    // (row, head) runs of 64 bf16 (128 bytes) into the (B, H, N, 64) layout:
+    // this thread's 16-byte chunk ch of rows wt / 16 + 8 u
+    uint16_t* o = sec == 0 ? out0 : sec == 1 ? out1 : out2;
+    const int ch = wt % (HALF / 8);
+    const size_t chunk_off =
+        static_cast<size_t>(col0 / HD + ch / (HD / 8)) * N * HD + (ch % (HD / 8)) * 8;
+#pragma unroll 4
+    for (int row = wt / (HALF / 8); row < 64; row += 128 / (HALF / 8)) {
+      const int grow = row0 + wg * 64 + row;
+      if (grow < R) {
+        const int bb = grow / N, n = grow % N;
+        const size_t dst =
+            static_cast<size_t>(bb) * (D / HD) * N * HD + static_cast<size_t>(n) * HD + chunk_off;
+        *reinterpret_cast<uint4*>(o + dst) = *reinterpret_cast<const uint4*>(ost + o_off(row, ch));
+      }
+    }
   }
 }
 
 }  // namespace
 
 // x (B N, 256) bf16; w (S 256, 256) bf16, rows section-contiguous, nn.Linear
-// (out, in) layout; bias (S 256,) bf16; cos, sin (B N, 64) f32 (may be null
-// when rot_mask is 0); out0..out{S-1} (B, 4, N, 64) bf16 (unused ones null).
-// sections is 2 or 3; bit s of rot_mask applies the rotary to section s.
+// (out, in) layout; bias (S 256,) bf16; cos, sin (B N, 64) bf16 (may be null
+// when rot_mask is 0); x, w, cos and sin 16-byte aligned; out0..out{S-1}
+// (B, 4, N, 64) bf16 (unused ones null). sections is 2 or 3; bit s of
+// rot_mask applies the rotary to section s.
 extern "C" int dim_qkv_rotary_bf16(int device, const void* x, const void* w,
                                    const void* bias, const void* cosv, const void* sinv,
                                    void* out0, void* out1, void* out2, int R, int N,
@@ -182,15 +276,24 @@ extern "C" int dim_qkv_rotary_bf16(int device, const void* x, const void* w,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (sections < 1 || sections > 3 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(SMEM));
+  if (R <= 0) return 0;
+  CUtensorMap xm, wm, cos_map = {}, sin_map = {};
+  const uint64_t xdims[2] = {D, static_cast<uint64_t>(R)};
+  const uint32_t xbox[2] = {SLAB, BM};
+  const uint64_t wdims[2] = {D, static_cast<uint64_t>(sections) * D};
+  const uint32_t wbox[2] = {SLAB, HALF};
+  const uint64_t cdims[2] = {HD, static_cast<uint64_t>(R)};
+  int rc = encode_sw128(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, 2, xdims, xbox);
+  if (rc == 0) rc = encode_sw128(&wm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, 2, wdims, wbox);
+  if (rc == 0 && rot_mask)
+    rc = encode_sw128(&cos_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, cosv, 2, cdims, xbox);
+  if (rc == 0 && rot_mask)
+    rc = encode_sw128(&sin_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, sinv, 2, cdims, xbox);
+  if (rc != 0) return rc;
+  err = cudaFuncSetAttribute(qkv_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((R + TM - 1) / TM);
-  qkv_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
-      static_cast<const uint16_t*>(bias), static_cast<const float*>(cosv),
-      static_cast<const float*>(sinv), static_cast<uint16_t*>(out0),
-      static_cast<uint16_t*>(out1), static_cast<uint16_t*>(out2), R, N, sections,
-      rot_mask);
+  qkv_sm90<<<(R + BM - 1) / BM, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      xm, wm, cos_map, sin_map, static_cast<const uint16_t*>(bias), static_cast<uint16_t*>(out0),
+      static_cast<uint16_t*>(out1), static_cast<uint16_t*>(out2), R, N, sections, rot_mask);
   return static_cast<int>(cudaGetLastError());
 }

@@ -425,8 +425,11 @@ def forward(
     fused = (model.prologue_weights(p)
              if os.environ.get("DIM_TPU_FUSED_PROLOGUE", "0") == "1" else None)
     wr = p["posenc.Wr.weight"].T
-    enc0 = rotary_encoding(normalize_keypoints(kpts0, size0), wr)
-    enc1 = rotary_encoding(normalize_keypoints(kpts1, size1), wr)
+    # every rotary use rounds cos and sin to the compute dtype: round them once
+    enc0 = tuple(e.to(compute_dtype)
+                 for e in rotary_encoding(normalize_keypoints(kpts0, size0), wr))
+    enc1 = tuple(e.to(compute_dtype)
+                 for e in rotary_encoding(normalize_keypoints(kpts1, size1), wr))
 
     n_layers = model.n_layers
     if depth is not None and depth < n_layers:

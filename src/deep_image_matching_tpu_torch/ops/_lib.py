@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("attention.cu", "ffn.cu", "assignment.cu", "nullspace.cu", "nn.cu",
            "sinkhorn.cu", "refiner.cu", "bidir_attention.cu", "qkv.cu")
 # attention_sm90.cuh is included by attention.cu and bidir_attention.cu;
-# sm90_common.cuh (mbarriers, TMA, wgmma helpers) by it, sinkhorn.cu and ffn.cu
+# sm90_common.cuh (mbarriers, TMA, wgmma helpers) by it, sinkhorn.cu, ffn.cu,
+# assignment.cu and qkv.cu
 HEADERS = ("attention_sm90.cuh", "sm90_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,7 +51,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "dim_attention_bf16": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "dim_ffn_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "dim_assignment_pass": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "dim_assignment_pass": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _F, _I, _P],
     "dim_nullspace_8x9": [_I, _P, _P, _I, _P],
     "dim_nn_top2": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -84,7 +84,8 @@ def proj_rotary_reference(x, w, b, cos, sin, num_heads: int, n_sections: int = 3
 def proj_rotary_fused(x, w, b, cos, sin, num_heads: int, n_sections: int = 3,
                       rot: Sequence[int] = (0, 1)) -> Tuple[torch.Tensor, ...]:
     """x (B, N, D); w (n_sections*D, D) section-contiguous rows; b
-    (n_sections*D,); cos, sin (B, N, hd) f32 (ignored, and may be None, when
+    (n_sections*D,); cos, sin (B, N, hd), f32 or already rounded to
+    ``x.dtype`` as the rotary rounds them (ignored, and may be None, when
     ``rot`` is empty). Returns ``n_sections`` (B, H, N, hd) tensors in
     ``x.dtype``. On CUDA the kernel takes bf16, D = 256, hd = 64 and raises
     otherwise; any row count works."""
@@ -102,8 +103,10 @@ def proj_rotary_fused(x, w, b, cos, sin, num_heads: int, n_sections: int = 3,
     _lib.check_cuda("w", w, bf16, (n_sections * D, D), dev)
     _lib.check_cuda("b", b, bf16, (n_sections * D,), dev)
     if rot:
-        _lib.check_cuda("cos", cos, torch.float32, (B, N, 64), dev)
-        _lib.check_cuda("sin", sin, torch.float32, (B, N, 64), dev)
+        # the kernel reads them in bf16, which the rotary rounds them to
+        cos, sin = cos.to(bf16), sin.to(bf16)
+        _lib.check_cuda("cos", cos, bf16, (B, N, 64), dev)
+        _lib.check_cuda("sin", sin, bf16, (B, N, 64), dev)
     outs = [torch.empty(B, num_heads, N, 64, dtype=bf16, device=dev) for _ in range(n_sections)]
     if B * N == 0:
         return tuple(outs)

@@ -119,28 +119,77 @@ def test_ffn_kernel_matches_plain(cuda, mode, case):
     assert bool(((got - ref).abs() <= 2.0 ** -7 * ref.abs().clamp(min=1.0) + 1e-6).all())
 
 
-def test_assignment_kernel_matches_plain(cuda):
+# (B, M, N, masks): ragged against the 128 x 128 tiles with planted matches
+# (argmax held exactly), scattered masks as LightGlue's pruning leaves them, a
+# fully masked tile in the middle of both sides, one element whose side 1 is
+# all masked, and ALIKED's 4096 points
+ASSIGNMENT_CASES = {
+    "ragged": (2, 300, 200, "prefix"),
+    "ragged_131": (2, 300, 131, "prefix"),
+    "scattered": (2, 520, 400, "scattered"),
+    "middle_tile": (3, 300, 520, "middle"),
+    "masked_side": (2, 256, 300, "side"),
+    "aliked": (2, 4096, 4096, "prefix"),
+}
+
+
+@pytest.mark.parametrize("case", list(ASSIGNMENT_CASES))
+def test_assignment_kernel_matches_plain(cuda, case):
     gen = torch.Generator().manual_seed(6)
-    B, M, N, D = 2, 300, 200, 256
+    B, M, N, masks = ASSIGNMENT_CASES[case]
+    D = 256
     md0 = (torch.randn(B, M, D, generator=gen) / 4).to(cuda)
     md1 = (torch.randn(B, N, D, generator=gen) / 4).to(cuda)
     md1[:, :100] = md0[:, :100] + 0.01 * torch.randn(B, 100, D, generator=gen).to(cuda)
     z0 = torch.randn(B, M, generator=gen).to(cuda)
     z1 = torch.randn(B, N, generator=gen).to(cuda)
-    m0 = _prefix_masks(gen, B, M, 150).to(cuda)
-    m1 = _prefix_masks(gen, B, N, 150).to(cuda)
-    got = tassign.assignment_fused(md0, md1, z0, z1, m0, m1)
-    ref = tassign.assignment_reference(md0, md1, z0, z1, m0, m1)
-    # f32 FMAs in another order than the dense product
-    assert float((got[0] - ref[0]).abs()[m0].max()) < 1e-3
+    if masks == "scattered":
+        m0, m1 = (torch.rand(B, n, generator=gen) < 0.6 for n in (M, N))
+    else:
+        low0, low1 = (150, 150) if case == "ragged" else (M // 2, N // 2)
+        m0 = _prefix_masks(gen, B, M, low0)
+        m1 = _prefix_masks(gen, B, N, low1)
+    if masks == "middle":
+        m0[0, 128:256] = False
+        m1[0, 256:512] = False
+        m1[1, 256:384] = False
+    if masks == "side":
+        m1[1] = False
+    m0, m1 = m0.to(cuda), m1.to(cuda)
+    args = (md0, md1, z0, z1, m0, m1)
+    before = _lib.LAUNCHES["assignment"]
+    got = tassign.assignment_fused(*args)
+    assert _lib.LAUNCHES["assignment"] == before + 2  # one per pass
+    ref = tassign.assignment_reference(*args)
+    # the side-1-masked element: its valid rows come out as the Pallas
+    # kernels leave them (max logsigmoid(z0) at index 0), not as the dense
+    # -1e30; its columns are all masked
+    keep0 = m0 & m1.any(1, keepdim=True)
+    # split-TF32 products, f32-level, summed in another order than the dense one
+    assert float((got[0] - ref[0]).abs()[keep0].max()) < 1e-3
     assert float((got[2] - ref[2]).abs()[m1].max()) < 1e-3
-    assert bool((got[1] == ref[1])[m0].all()) and bool((got[3] == ref[3])[m1].all())
-    # ties keep the first index, in rows and in columns: rows 0 and 1 of a
-    # and columns 0 and 1 of b are equal
-    a = torch.tensor([1.0, 1.0, 0.2], device=cuda)[None, :, None].repeat(1, 1, 16)
-    _, row_arg, _, col_arg = tassign._pass(a, a, torch.zeros(1, 3, device=cuda),
-                                           torch.zeros(1, 3, device=cuda), 1.0, True)
-    assert row_arg.tolist() == [[0, 0, 0]] and col_arg.tolist() == [[0, 0, 0]]
+    if masks == "side":
+        ls0 = torch.nn.functional.logsigmoid(z0[1])
+        assert bool((got[0][1] - ls0).abs()[m0[1]].max() < 1e-6)
+        assert bool((got[1][1][m0[1]] == 0).all())
+    if case == "ragged":
+        assert bool((got[1] == ref[1])[m0].all()) and bool((got[3] == ref[3])[m1].all())
+    else:
+        # argmax: equal, or a near-tie whose dense score is within 1e-4 of the max
+        scores = tassign.log_assignment_dense(*args)
+        s0 = torch.gather(scores, 2, got[1].long()[..., None])[..., 0]
+        s1 = torch.gather(scores, 1, got[3].long()[:, None, :])[:, 0, :]
+        assert bool(((got[1] == ref[1]) | ((ref[0] - s0).abs() <= 1e-4))[keep0].all())
+        assert bool(((got[3] == ref[3]) | ((ref[2] - s1).abs() <= 1e-4))[m1].all())
+    if case == "ragged":
+        # ties keep the first index, in rows and in columns: rows 0 and 1 of
+        # a and columns 0 and 1 of b are equal
+        a = torch.tensor([1.0, 1.0, 0.2], device=cuda)[None, :, None].repeat(1, 1, 16)
+        before = _lib.LAUNCHES["assignment"]
+        _, row_arg, _, col_arg = tassign._pass(a, a, torch.zeros(1, 3, device=cuda),
+                                               torch.zeros(1, 3, device=cuda), 1.0, True)
+        assert _lib.LAUNCHES["assignment"] == before + 1
+        assert row_arg.tolist() == [[0, 0, 0]] and col_arg.tolist() == [[0, 0, 0]]
 
 
 def test_nullspace_kernel_matches_plain(cuda):
@@ -377,12 +426,18 @@ def test_bidir_attention_kernel_matches_plain(cuda, case):
         assert bool(torch.isfinite(g.float()).all())
 
 
+# (B, N): fewer rows than one 128-row tile; 2 x 100 rows, whose tiles
+# straddle two images; 3 x 300 rows, a ragged last tile and straddling tiles
+QKV_CASES = {"short": (1, 40), "straddle": (2, 100), "ragged": (3, 300)}
+
+
+@pytest.mark.parametrize("case", list(QKV_CASES))
 @pytest.mark.parametrize("sections", [3, 2])
-def test_qkv_kernel_matches_plain(cuda, sections):
+def test_qkv_kernel_matches_plain(cuda, sections, case):
     """Self mode (3 sections, rotary on q and k) and cross mode (2 sections,
-    no rotary) at 2 x 100 rows, a partial 64-row tile."""
+    no rotary)."""
     gen = torch.Generator().manual_seed(16)
-    B, N, D, H = 2, 100, 256, 4
+    (B, N), D, H = QKV_CASES[case], 256, 4
     rot = (0, 1) if sections == 3 else ()
     x = torch.randn(B, N, D, generator=gen).to(cuda, torch.bfloat16)
     w = (torch.randn(sections * D, D, generator=gen) / 16).to(cuda, torch.bfloat16)
