@@ -8,11 +8,14 @@ Phases, each printing its own lines:
    compiled for sm_90a (one nvcc per source, all started together), with
    ptxas' register and spill report, and the count of HGMMA instructions in
    the SASS of the two attention kernels, the FFN, the assignment and the
-   QKV prologue (``cuobjdump -sass``; none fails);
+   QKV prologue, and of HMMA (``mma.sync``) in the refiner's
+   (``cuobjdump -sass``; none fails);
 3. each kernel against its plain PyTorch version on the card, at the
    main-path shapes (partial masks, degenerate hypotheses, integer
    descriptors with ties), with its tolerance and both times (CUDA events
-   around runs of back-to-back calls, median of 10), its bound (the larger of
+   around runs of back-to-back calls, median of 10; for the null space and
+   the refiner also ``device_ms``, the device time of their own kernels under
+   ``torch.profiler``), its bound (the larger of
    the bytes it must move over 3.35 TB/s and its operations over the peak
    rate of their type) and the time of one PyTorch call that computes the
    same function, where there is one: attention (LightGlue's, SuperGlue's
@@ -179,6 +182,30 @@ def _time_ms(fn, reps: int = 10) -> float:
     return times[len(times) // 2]
 
 
+def _device_ms(fn, names, reps: int = 20):
+    """Device milliseconds per call of ``fn`` spent in the ``__global__``
+    functions whose names hold one of ``names``: ``torch.profiler``'s CUDA
+    events over ``reps`` back-to-back calls, after a warm-up call. Unlike
+    ``_time_ms`` it leaves out the host's dispatch between launches. None
+    where the profiler recorded no such event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, seen = 0.0, 0
+    for e in prof.key_averages():
+        if any(n in e.key for n in names):
+            us = getattr(e, "self_device_time_total", None)
+            total_us += us if us is not None else getattr(e, "self_cuda_time_total", 0)
+            seen += e.count
+    return total_us / 1e3 / reps if seen and total_us > 0 else None
+
+
 def phase_environment() -> str:
     import torch
 
@@ -213,16 +240,21 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {line.strip()}", flush=True)
     # the attention core, the FFN, the assignment and the QKV prologue must
-    # have compiled to Hopper's warpgroup products
-    for kernel, count in _sass_hgmma(so).items():
-        print(f"[build] {kernel}: {count} HGMMA instructions in its SASS", flush=True)
+    # have compiled to Hopper's warpgroup products, the refiner's 1x1 mix to
+    # tensor-core products
+    for kernel, count in _sass_mma(so).items():
+        op = MMA_KERNELS[kernel][1]
+        print(f"[build] {kernel}: {count} {op} instructions in its SASS", flush=True)
         if not count:
-            _fail(f"{kernel}: no HGMMA in its SASS (wgmma did not compile)")
+            _fail(f"{kernel}: no {op} in its SASS (its tensor-core products did not compile)")
 
 
-# kernel entry -> the name its SASS section carries (anonymous namespace)
-WGMMA_KERNELS = {"attention": "attention_sm90", "bidir_attention": "bidir_attention_sm90",
-                 "ffn": "ffn_sm90", "assignment": "assignment_sm90", "qkv": "qkv_sm90"}
+# kernel entry -> (the name its SASS section carries (anonymous namespace),
+# the tensor-core instruction it must hold)
+MMA_KERNELS = {"attention": ("attention_sm90", "HGMMA"),
+               "bidir_attention": ("bidir_attention_sm90", "HGMMA"),
+               "ffn": ("ffn_sm90", "HGMMA"), "assignment": ("assignment_sm90", "HGMMA"),
+               "qkv": ("qkv_sm90", "HGMMA"), "refiner": ("refiner_block_kernel", "HMMA")}
 
 
 def _ptxas(name: str) -> dict:
@@ -247,23 +279,23 @@ def _ptxas(name: str) -> dict:
     return out
 
 
-def _sass_hgmma(so: Path) -> dict:
-    """HGMMA instructions per wgmma kernel in the library's SASS, from the
-    CUDA toolkit's ``cuobjdump -sass``."""
+def _sass_mma(so: Path) -> dict:
+    """Tensor-core instructions per kernel of ``MMA_KERNELS`` in the
+    library's SASS, from the CUDA toolkit's ``cuobjdump -sass``."""
     from deep_image_matching_tpu_torch.ops import _lib
 
     tool = Path(_lib._nvcc()).with_name("cuobjdump")
     res = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True)
     if res.returncode != 0:
         _fail(f"cuobjdump -sass failed ({res.returncode}): {res.stderr.strip()[-500:]}")
-    counts, current = {name: 0 for name in WGMMA_KERNELS}, None
+    counts, current = {name: 0 for name in MMA_KERNELS}, None
     for line in res.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             # the longest matching name: bidir_attention_sm90 holds attention_sm90
-            hits = [k for k, v in WGMMA_KERNELS.items() if v in fn]
-            current = max(hits, key=lambda k: len(WGMMA_KERNELS[k])) if hits else None
-        elif current is not None and "HGMMA" in line:
+            hits = [k for k, v in MMA_KERNELS.items() if v[0] in fn]
+            current = max(hits, key=lambda k: len(MMA_KERNELS[k][0])) if hits else None
+        elif current is not None and MMA_KERNELS[current][1] in line:
             counts[current] += 1
     return counts
 
@@ -523,10 +555,14 @@ def check_nullspace(torch, dev, card):
     # (m = 9, n = 8), and the null vector; the systems read once, the
     # vectors written once
     extra = {"ms": _time_ms(lambda: nullspace_planes(A9)),
+             "device_ms": _device_ms(lambda: nullspace_planes(A9), ("nullspace_kernel",)),
              "plain_ms": _time_ms(lambda: nullspace_reference(A9)),
              **_bound(_nbytes(A9, got), N * (2 * 9 * 64 - 2 * 512 / 3), "f32"),
              "library_ms": _time_ms(lambda: torch.linalg.svd(A_rows))}
-    return err, tol, "generic up to sign; residual < 1e-4 incl. f33 = 0", extra
+    dev_ms = extra["device_ms"]
+    what = (f"generic up to sign; residual < 1e-4 incl. f33 = 0; device time of its kernel "
+            f"alone {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}")
+    return err, tol, what, extra
 
 
 def check_nn(torch, dev, card):
@@ -685,37 +721,56 @@ def check_refiner(torch, dev, card):
     # both passes' shapes: 2 images at coarse_res 560 and upsample_res 864
     for side in (560, 864):
         x = torch.randn(2, side, side, C, generator=gen).to(dev)
-        got = refiner_dw_stack(x, w1, b1, w2, b2)
-        ref = refiner_dw_stack_reference(x, w1, b1, w2, b2)
+        args = (x, w1, b1, w2, b2)
+        got = refiner_dw_stack(*args)
+        ref = refiner_dw_stack_reference(*args)
         torch.cuda.synchronize()
+        px = 2.0 * N * x.numel()  # (pixel, channel, block) triples, times 2 flops
+        # the stack as one function: x read once, the result written once
+        t_bytes = _nbytes(*args, got) / HBM_RATE * 1e3
+        # the arithmetic the kernel runs: 25 taps per pixel, channel and
+        # block in f32 FMA, the 1x1's C products as three TF32 products
+        t_ops = (px * 25 / PEAK_RATE["f32"] + 3 * px * C / PEAK_RATE["tf32"]) * 1e3
         res[side] = {
             "err": ((got - ref).abs().max() / ref.abs().max()).item(),
-            "ms": _time_ms(lambda: refiner_dw_stack(x, w1, b1, w2, b2)),
-            "plain_ms": _time_ms(lambda: refiner_dw_stack_reference(x, w1, b1, w2, b2)),
-            # the stack as one function: x read once, the result written
-            # once; 25 taps and C products per pixel, channel and block
-            **_bound(_nbytes(x, w1, b1, w2, b2, got), 2.0 * N * x.numel() * (25 + C), "f32"),
+            "ms": _time_ms(lambda: refiner_dw_stack(*args)),
+            "device_ms": _device_ms(lambda: refiner_dw_stack(*args), ("refiner_block_kernel",)),
+            "plain_ms": _time_ms(lambda: refiner_dw_stack_reference(*args)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            # the same work with the 1x1 in f32 FMA as well
+            "fma_bound_ms": _bound(_nbytes(*args, got), px * (25 + C), "f32")["bound_ms"],
             # what this design moves: one launch per block reads and writes
             # the activations
             "per_block_traffic_ms": N * _nbytes(x, got) / HBM_RATE * 1e3,
         }
-        del x, got, ref
+        del x, got, ref, args
         torch.cuda.empty_cache()
-    # relative to the output's max: f32 sums of 25 taps and 24 products in
-    # another order than cuDNN's, compounded over 9 blocks
+    # relative to the output's max: f32 sums of 25 taps and 24 split-TF32
+    # products in another order than cuDNN's, compounded over 9 blocks
     tol = 1e-5
     err = max(r["err"] for r in res.values())
     a, b = res[864], res[560]
-    what = (f"|err| / max|out|, TF32 off; (2, 864, 864, 24) reported; (2, 560, 560, 24): "
-            f"err {b['err']:.3e}, kernel {b['ms']:.3f} ms, plain {b['plain_ms']:.3f} ms, bound "
-            f"{b['bound_ms']:.3f} ms; one launch per block moves the activations in "
-            f"{a['per_block_traffic_ms']:.3f} / {b['per_block_traffic_ms']:.3f} ms")
-    extra = {"ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-             "bound_by": a["bound_by"], "library_ms": None,
+
+    def dms(v):
+        return "not measured" if v is None else f"{v:.3f} ms"
+
+    what = (f"|err| / max|out|, TF32 off in cuDNN; (2, 864, 864, 24) reported, {N} launches, "
+            f"device {dms(a['device_ms'])}, f32-FMA bound {a['fma_bound_ms']:.3f} ms, the "
+            f"launches' traffic {a['per_block_traffic_ms']:.3f} ms; (2, 560, 560, 24): err "
+            f"{b['err']:.3e}, kernel {b['ms']:.3f} ms (device {dms(b['device_ms'])}), plain "
+            f"{b['plain_ms']:.3f} ms, bound {b['bound_ms']:.3f} ms, f32-FMA bound "
+            f"{b['fma_bound_ms']:.3f} ms")
+    extra = {"ms": a["ms"], "device_ms": a["device_ms"], "plain_ms": a["plain_ms"],
+             "bound_ms": a["bound_ms"], "bound_by": a["bound_by"], "library_ms": None,
              "library_note": "none: nine blocks of a depthwise 5x5 and a 1x1 convolution; "
                              "cuDNN runs them as 18 convolution calls",
-             "shape": [2, 864, 864, C], "blocks": N,
-             "per_block_traffic_ms": a["per_block_traffic_ms"],
+             "bound_note": "bound_ms: the taps in f32 FMA at 67 TFLOP/s plus the 1x1 as three "
+                           "TF32 products at 495 TFLOP/s, or the bytes; fma_bound_ms: the 1x1 "
+                           "in f32 FMA too",
+             "shape": [2, 864, 864, C], "blocks": N, "launches_per_stack": N,
+             "fma_bound_ms": a["fma_bound_ms"], "per_block_traffic_ms": a["per_block_traffic_ms"],
+             "ptxas": _ptxas("refiner_block_kernel"),
              "coarse_shape": [2, 560, 560, C], "coarse_max_abs_err": b["err"],
              **{f"coarse_{k}": v for k, v in b.items() if k != "err"}}
     return err, tol, what, extra
@@ -875,6 +930,10 @@ def phase_kernels(card: str) -> dict:
               f"{'OK' if good else 'FAIL'}; kernel {extra['ms']:.3f} ms, plain "
               f"{extra['plain_ms']:.3f} ms, bound {extra['bound_ms']:.3f} ms "
               f"({extra['bound_by']}), library call {lib} [{card}]", flush=True)
+        if extra.get("device_ms") is not None:
+            print(f"[kernel] {name}: device time of its own kernels {extra['device_ms']:.4f} ms "
+                  f"a call (torch.profiler), against {extra['ms']:.4f} ms between CUDA events "
+                  f"[{card}]", flush=True)
         if extra.get("ptxas"):
             info = extra["ptxas"].values()
             print(f"[kernel] {name}: ptxas, {len(info)} entry functions: "

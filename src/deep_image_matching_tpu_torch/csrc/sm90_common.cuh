@@ -1,12 +1,12 @@
 // Hopper building blocks shared by the hand-written kernels, as inline PTX
-// (no CuTe): shared-memory addresses, mbarriers, TMA tensor and 1-D bulk
-// copies, the wgmma descriptor of a 128-byte swizzled tile, the wgmma
+// (no CuTe): shared-memory addresses, mbarriers, TMA tensor (2-D to 4-D) and
+// 1-D bulk copies, the wgmma descriptor of a 128-byte swizzled tile, the wgmma
 // fence / commit / wait, the bf16 m64n256k16 and m64n128k16 products, and
 // the host-side tensor-map encoder fetched at run time (so no library links
 // against libcuda). Used by the attention core (attention_sm90.cuh: kernels 1 and 6),
 // the Sinkhorn iteration (sinkhorn.cu: kernel 7), the FFN (ffn.cu: kernel 2),
-// the assignment (assignment.cu: kernel 3) and the QKV + rotary prologue
-// (qkv.cu: kernel 10).
+// the assignment (assignment.cu: kernel 3), the QKV + rotary prologue
+// (qkv.cu: kernel 10) and the refiner stack (refiner.cu: kernel 9).
 
 #pragma once
 
@@ -69,6 +69,15 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -231,10 +240,12 @@ inline EncodeTiledFn encode_tiled() {
 
 // a tensor map of a dense row-major tensor of `rank` <= 5 dimensions
 // (innermost first; every row 16-byte aligned) read in boxes of `box`
-// elements in the 128-byte swizzle (an inner box of 128 bytes); elements past
-// the end read as zeros. 0 on success, else a cudaError_t.
-inline int encode_sw128(CUtensorMap* map, CUtensorMapDataType type, uint64_t elem_bytes,
-                        const void* ptr, int rank, const uint64_t* dims, const uint32_t* box) {
+// elements laid out in shared memory with `swizzle`; elements outside the
+// tensor (past either end: coordinates may be negative) read as zeros.
+// 0 on success, else a cudaError_t.
+inline int encode_tiled_map(CUtensorMap* map, CUtensorMapDataType type, uint64_t elem_bytes,
+                            const void* ptr, int rank, const uint64_t* dims, const uint32_t* box,
+                            CUtensorMapSwizzle swizzle) {
   if (rank < 1 || rank > 5) return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -249,10 +260,16 @@ inline int encode_sw128(CUtensorMap* map, CUtensorMapDataType type, uint64_t ele
     stride *= dims[i];
   }
   const CUresult r = fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(ptr), d,
-                        strides, b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        strides, b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the same in the 128-byte swizzle (an inner box of 128 bytes), as the
+// wgmma operands read it
+inline int encode_sw128(CUtensorMap* map, CUtensorMapDataType type, uint64_t elem_bytes,
+                        const void* ptr, int rank, const uint64_t* dims, const uint32_t* box) {
+  return encode_tiled_map(map, type, elem_bytes, ptr, rank, dims, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

@@ -33,7 +33,7 @@ SOURCES = ("attention.cu", "ffn.cu", "assignment.cu", "nullspace.cu", "nn.cu",
            "sinkhorn.cu", "refiner.cu", "bidir_attention.cu", "qkv.cu")
 # attention_sm90.cuh is included by attention.cu and bidir_attention.cu;
 # sm90_common.cuh (mbarriers, TMA, wgmma helpers) by it, sinkhorn.cu, ffn.cu,
-# assignment.cu and qkv.cu
+# assignment.cu, qkv.cu and refiner.cu
 HEADERS = ("attention_sm90.cuh", "sm90_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,7 +57,7 @@ _SIGNATURES = {
     "dim_nn_top2": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "dim_sinkhorn_iteration": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "dim_lse_rows": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
-    "dim_refiner_block": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dim_refiner_block": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dim_bidir_attention_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "dim_qkv_rotary_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

@@ -6,10 +6,16 @@ boundary (``ops/pallas_refiner.py::refiner_dw_stack``): x (B, H, W, C),
 w1 (N, 5, 5, 1, C) depthwise HWIO taps, b1 (N, C), w2 (N, 1, 1, C, C) 1x1
 HWIO weights, b2 (N, C). For CUDA tensors it launches the kernel of
 ``csrc/refiner.cu`` once per block, ping-ponging two buffers; for CPU
-tensors it runs ``refiner_dw_stack_reference``. Both are f32 throughout.
+tensors it runs ``refiner_dw_stack_reference``. Both are f32 throughout (the
+kernel's 1x1 mix in split TF32, which keeps f32-level results).
+
+``refiner_plan`` chooses the kernel's work units: strips of ``Wt`` output
+columns over bands of ``Hb`` rows, one thread block each.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -17,7 +23,26 @@ import torch.nn.functional as F
 from ..utils.device import full_f32
 from . import _lib
 
-MAX_C = 64  # the kernel's shared memory holds the tile of up to 64 channels
+MAX_C = 64     # the kernel's widest activation (its taps and tiles are sized for it)
+THREADS = 256  # threads of a kernel block; THREADS // C columns of C channels take part
+MAXI = 4       # output columns a thread owns
+MAX_BOX = 256  # a TMA box's extent: the input row of Wt + 4 columns
+CTAS_PER_SM = 2  # thread blocks an SM holds at once (the kernel's __launch_bounds__)
+
+
+@functools.lru_cache(maxsize=256)
+def refiner_plan(B: int, H: int, W: int, C: int, sms: int) -> tuple:
+    """(Wt, Hb): the strip width and band height of a launch.
+
+    Strips are the kernel's widest: ``MAXI`` columns per taking-part thread,
+    an input row of Wt + 4 columns inside a TMA box, no wider than the
+    image. Bands are as many as one wave of thread blocks (``sms *
+    CTAS_PER_SM``) holds over the B images' strips, at least one: each band
+    recomputes a 4-row halo, so more than a wave buys nothing."""
+    Wt = min(MAXI * (THREADS // C), MAX_BOX - 4, W)
+    strips = -(-W // Wt)
+    bands = min(H, max(1, sms * CTAS_PER_SM // (B * strips)))
+    return Wt, -(-H // bands)
 
 
 def refiner_dw_stack_reference(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -33,8 +58,8 @@ def refiner_dw_stack_reference(x, w1, b1, w2, b2) -> torch.Tensor:
 
 
 def refiner_dw_stack(x, w1, b1, w2, b2) -> torch.Tensor:
-    """N fused (dw5x5 -> ReLU -> 1x1) blocks. On CUDA the kernel takes f32,
-    contiguous tensors, 1 <= C <= 64, and raises otherwise."""
+    """N (dw5x5 -> ReLU -> 1x1) blocks, one launch each. On CUDA the kernel
+    takes f32, contiguous tensors, 1 <= C <= 64, and raises otherwise."""
     if not x.is_cuda:
         return refiner_dw_stack_reference(x, w1, b1, w2, b2)
     B, H, W, C = x.shape
@@ -49,6 +74,8 @@ def refiner_dw_stack(x, w1, b1, w2, b2) -> torch.Tensor:
     _lib.check_cuda("b1", b1, torch.float32, (N, C), dev, align=4)
     _lib.check_cuda("w2", w2, torch.float32, (N, 1, 1, C, C), dev, align=4)
     _lib.check_cuda("b2", b2, torch.float32, (N, C), dev, align=4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    Wt, Hb = refiner_plan(B, H, W, C, sms)
     bufs = [torch.empty_like(x) for _ in range(min(N, 2))]
     src = x
     for k in range(N):
@@ -56,7 +83,7 @@ def refiner_dw_stack(x, w1, b1, w2, b2) -> torch.Tensor:
         _lib.launch(
             "refiner", "dim_refiner_block", dev.index, src.data_ptr(), w1[k].data_ptr(),
             b1[k].data_ptr(), w2[k].data_ptr(), b2[k].data_ptr(), dst.data_ptr(),
-            B, H, W, C, _lib.stream_of(x),
+            B, H, W, C, Wt, Hb, _lib.stream_of(x),
         )
         src = dst
     return src

@@ -365,23 +365,87 @@ def test_lse_rows_kernel_matches_plain(cuda):
     assert bool(((got - ref).abs() <= 1e-5 * ref.abs().clamp(min=1.0)).all())
 
 
-@pytest.mark.parametrize("C", [6, 24])
-def test_refiner_kernel_matches_plain(cuda, C):
-    """Ragged H and W against the 8 x 32 tiles; C = 6 takes the 4-byte
-    staging loads, C = 24 (RoMa's scale 1) the 16-byte ones."""
+# (B, H, W, C, N): C = 5, 6 and 13 take the plain-load instantiation (a TMA
+# box needs C % 4 == 0; 5 and 13 pad K of the 1x1 to 8 and 16), 24 (RoMa's
+# scale 1) its own TMA one and 64 the run-time-C TMA one; N = 1, 3, 9 and 10;
+# H and W ragged against the strips and bands, or below the 4-pixel halo;
+# RoMa's coarse pass
+REFINER_CASES = {
+    "c6_n3_ragged": (2, 21, 45, 6, 3),
+    "c5_n3_ragged": (2, 21, 45, 5, 3),
+    "c13_n9_ragged": (2, 19, 77, 13, 9),
+    "c24_n3_ragged": (2, 21, 45, 24, 3),
+    "c24_n10_ragged": (2, 37, 101, 24, 10),
+    "c64_n9_ragged": (2, 29, 33, 64, 9),
+    "c24_n1": (1, 17, 50, 24, 1),
+    "c6_n10_below_halo": (2, 3, 70, 6, 10),
+    "c24_n9_below_halo": (2, 40, 5, 24, 9),
+    "c64_n3_tiny": (1, 2, 3, 64, 3),
+    "roma_560_n9": (2, 560, 560, 24, 9),
+}
+
+FILL_SHARED = r"""
+extern "C" __global__ void fill_shared(unsigned word, int words) {
+  extern __shared__ unsigned s[];
+  for (int i = threadIdx.x; i < words; i += blockDim.x) s[i] = word;
+}
+extern "C" int fill_all_shared(unsigned word) {
+  int dev = 0, sms = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncSetAttribute(fill_shared, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  fill_shared<<<4 * sms, 1024, bytes>>>(word, bytes / 4);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def nan_shared(tmp_path_factory):
+    """A function that fills every SM's shared memory with 0xFFFFFFFF (a
+    NaN), so that a kernel reading shared memory it never wrote sees NaN
+    rather than whatever a passing test left there."""
+    import ctypes
+    import subprocess
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d = tmp_path_factory.mktemp("fill_shared")
+    (d / "fill.cu").write_text(FILL_SHARED)
+    subprocess.run([_lib._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", str(d / "fill.so"), str(d / "fill.cu")],
+                   check=True, capture_output=True)
+    fill = ctypes.CDLL(str(d / "fill.so")).fill_all_shared
+    fill.argtypes, fill.restype = [ctypes.c_uint], ctypes.c_int
+
+    def run():
+        torch.cuda.synchronize()
+        assert fill(0xFFFFFFFF) == 0
+
+    return run
+
+
+@pytest.mark.parametrize("case", list(REFINER_CASES), ids=list(REFINER_CASES))
+def test_refiner_kernel_matches_plain(cuda, nan_shared, case):
+    B, H, W, C, N = REFINER_CASES[case]
     gen = torch.Generator().manual_seed(13)
-    B, H, W, N = 2, 21, 45, 3
     x = torch.randn(B, H, W, C, generator=gen).to(cuda)
     w1 = (0.3 * torch.randn(N, 5, 5, 1, C, generator=gen)).to(cuda)
     b1 = (0.1 * torch.randn(N, C, generator=gen)).to(cuda)
     w2 = (C ** -0.5 * torch.randn(N, 1, 1, C, C, generator=gen)).to(cuda)
     b2 = (0.1 * torch.randn(N, C, generator=gen)).to(cuda)
+    nan_shared()
     before = _lib.LAUNCHES["refiner"]
     got = trefiner.refiner_dw_stack(x, w1, b1, w2, b2)
     assert _lib.LAUNCHES["refiner"] == before + N  # one launch per block
     ref = trefiner.refiner_dw_stack_reference(x, w1, b1, w2, b2)
-    # f32 sums of 25 taps and C products in another order, over N blocks
+    # f32 sums of 25 taps and C split-TF32 products in another order, over N
+    # blocks
     assert float((got - ref).abs().max()) <= 1e-5 * max(float(ref.abs().max()), 1.0)
+
+
+def test_refiner_kernel_refuses_65_channels(cuda):
     with pytest.raises(ValueError, match="channels"):
         trefiner.refiner_dw_stack(torch.zeros(1, 4, 4, 65, device=cuda),
                                   torch.zeros(1, 5, 5, 1, 65, device=cuda),
