@@ -8,8 +8,8 @@ Phases, each printing its own lines:
    compiled for sm_90a (one nvcc per source, all started together), with
    ptxas' register and spill report, and the count of HGMMA instructions in
    the SASS of the two attention kernels, the FFN, the assignment and the
-   QKV prologue, and of HMMA (``mma.sync``) in the refiner's
-   (``cuobjdump -sass``; none fails);
+   QKV prologue (each of the four in its bf16 and its float32 form), and of
+   HMMA (``mma.sync``) in the refiner's (``cuobjdump -sass``; none fails);
 3. each kernel against its plain PyTorch version on the card, at the
    main-path shapes (partial masks, degenerate hypotheses, integer
    descriptors with ties), with its tolerance and both times (CUDA events
@@ -26,14 +26,20 @@ Phases, each printing its own lines:
    row logsumexp, RoMa's refiner stack (both passes' shapes), LightGlue's
    bidirectional cross attention (LightGlue's and ALIKED's lengths) and its
    fused QKV + rotary prologue (both modes, beside the path's own unfused
-   prologue on the same inputs);
+   prologue on the same inputs); then the float32 forms (split TF32) of
+   attention (LightGlue's and SuperGlue's shapes), the FFN (both modes),
+   the bidirectional attention (2048 and 4096) and the QKV prologue (both
+   modes), each against its plain version in f32 with its tolerance relative
+   to the output's largest magnitude, its registers and spills;
 4. LightGlue and SuperGlue at full width on small batches with planted
    matches: the kernels on the card against the plain versions on the CPU,
    LightGlue also with ``attn_impl: bidir`` and the fused prologue; ALIKED at
    480 x 640 on one demo image, card against CPU in f32; RoMa (DINOv2 at 2
    blocks, 224 / 320 px) on the card against the CPU, its sampler with the
    CPU's draws, and RoMa with DINOv2 at its published depth (24 blocks) on
-   one pair at the default 560 / 864 px;
+   one pair at the default 560 / 864 px; LightGlue (also with both opt-ins)
+   and SuperGlue again in float32, card against CPU: matches equal but for
+   near-ties, scores within 1e-4, the float32 kernels' launches counted;
 5. the main paths through the port's CLI entry ``run_matching`` (random
    weights, --skip_reconstruction), each with the launch counts set to 0
    just before it and read just after:
@@ -58,7 +64,11 @@ Phases, each printing its own lines:
      views (``bruteforce``, match threshold 0, ``tpu.attn_impl: bidir``),
      then the 5 demo images with the default ``matching_lowres``, whose probe
      runs ALIKED and counts mutual nearest neighbours (no SuperPoint or
-     LightGlue checkpoint).
+     LightGlue checkpoint);
+   - with ``general.tpu.dtype: float32``: superpoint+lightglue on the 16
+     synthetic views, superpoint+superglue and aliked+lightglue (bidir, fused
+     prologue) on 6 of them, each checking that the float32 kernels of its
+     path launched.
    Each run checks features.h5, raw_matches.h5 and database.db and prints
    the wall time per stage; each path checks that its kernels launched.
 
@@ -110,6 +120,16 @@ KERNELS = {
                         "src/deep_image_matching_tpu/ops/pallas_bidir_attention.py:151"),
     "qkv": ("src/deep_image_matching_tpu_torch/csrc/qkv.cu",
             "src/deep_image_matching_tpu/ops/pallas_qkv.py:115"),
+    # the float32 forms (split TF32) of kernels 1, 2, 6 and 10: the JAX
+    # package runs its Pallas kernels in the dtype they are given
+    "attention_f32": ("src/deep_image_matching_tpu_torch/csrc/attention.cu",
+                      "src/deep_image_matching_tpu/ops/attention.py:96"),
+    "ffn_f32": ("src/deep_image_matching_tpu_torch/csrc/ffn.cu",
+                "src/deep_image_matching_tpu/ops/pallas_ffn.py:89"),
+    "bidir_attention_f32": ("src/deep_image_matching_tpu_torch/csrc/bidir_attention.cu",
+                            "src/deep_image_matching_tpu/ops/pallas_bidir_attention.py:151"),
+    "qkv_f32": ("src/deep_image_matching_tpu_torch/csrc/qkv.cu",
+                "src/deep_image_matching_tpu/ops/pallas_qkv.py:115"),
 }
 
 # NVIDIA H100 SXM data sheet: HBM bytes/s, dense peak operations/s by type
@@ -254,7 +274,10 @@ def phase_build() -> None:
 MMA_KERNELS = {"attention": ("attention_sm90", "HGMMA"),
                "bidir_attention": ("bidir_attention_sm90", "HGMMA"),
                "ffn": ("ffn_sm90", "HGMMA"), "assignment": ("assignment_sm90", "HGMMA"),
-               "qkv": ("qkv_sm90", "HGMMA"), "refiner": ("refiner_block_kernel", "HMMA")}
+               "qkv": ("qkv_sm90", "HGMMA"), "refiner": ("refiner_block_kernel", "HMMA"),
+               "attention_f32": ("attention_f32_sm90", "HGMMA"),
+               "bidir_attention_f32": ("bidir_attention_f32_sm90", "HGMMA"),
+               "ffn_f32": ("ffn_f32_sm90", "HGMMA"), "qkv_f32": ("qkv_f32_sm90", "HGMMA")}
 
 
 def _ptxas(name: str) -> dict:
@@ -906,6 +929,196 @@ def check_qkv(torch, dev, card):
     return max(a["err"], c["err"]), max(a["tol"], c["tol"]), what, extra
 
 
+# ---------------------------------------------------------------------------
+# the float32 forms of kernels 1, 2, 6 and 10: split TF32 on the tensor cores,
+# each held to its plain version in f32 (TF32 off in cuBLAS and cuDNN) with
+# the tolerance its CPU model states (tests/test_torch_attention_tiles.py,
+# tests/test_torch_f32_tiles.py), relative to the output's largest magnitude
+
+# the attention kernels: f32 scores of |s| up to ~16 at these scales carry
+# ~1e-6 relative rounding in both versions, which exp() turns into output
+# errors of a few 1e-6 to 1e-5 of max|out| over 2048-4096 keys
+F32_ATTENTION_TOL = 5e-5
+# the FFN and the QKV prologue: split-TF32 products over K = 512 / 256
+F32_PRODUCT_TOL = 1e-5
+
+
+def _rel_err(got, ref, rows=None):
+    """max |got - ref| / max |ref|, over ``rows`` (a bool mask) if given."""
+    d, r = (got - ref).abs(), ref.abs()
+    if rows is not None:
+        d, r = d[rows], r[rows]
+    return (d.max() / r.max()).item()
+
+
+def check_attention_f32(torch, dev, card):
+    from deep_image_matching_tpu_torch.ops.attention import (
+        attention_reference, fused_attention)
+
+    gen = torch.Generator().manual_seed(21)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, H, d = 16, 4, 64
+    res = {}
+    # LightGlue's (16, 4, 2048, 64) and SuperGlue's (16, 4, 4096, 64), whose
+    # heads are interleaved across the channels, as in check_attention
+    for T in (2048, 4096):
+        if T == 2048:
+            q, k, v = (torch.randn(B, H, T, d, generator=gen).mul(s).to(dev)
+                       for s in (2.0, 2.0, 1.0))
+        else:
+            q, k, v = (torch.randn(B, T, H * d, generator=gen).mul(s).reshape(B, T, d, H)
+                       .permute(0, 3, 1, 2).contiguous().to(dev) for s in (2.0, 2.0, 1.0))
+        qm, km = _masks(torch, gen, B, T, dev), _masks(torch, gen, B, T, dev)
+        scale = d ** -0.5
+        got = fused_attention(q, k, v, qm, km, scale)
+        ref = attention_reference(q, k, v, km, scale)
+        torch.cuda.synchronize()
+        err = _rel_err(got, ref, qm[:, None, :, None].expand_as(got))
+        del got, ref
+        pairs = float((qm.sum(1).double() * km.sum(1).double()).sum())
+        mask = km[:, None, None, :]
+        res[T] = {"err": err, **_bound(_nbytes(q, k, v, q) + qm.numel() + km.numel(),
+                                       3 * 4.0 * H * d * pairs, "tf32"),
+                  "ms": _time_ms(lambda: fused_attention(q, k, v, qm, km, scale)),
+                  "plain_ms": _time_ms(lambda: attention_reference(q, k, v, km, scale)),
+                  "library_ms": _time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale))}
+        del q, k, v
+        torch.cuda.empty_cache()
+    a, b = res[2048], res[4096]
+    what = (f"|err| / max|out| over valid rows; (16, 4, 2048, 64) reported; SuperGlue's "
+            f"(16, 4, 4096, 64): err {b['err']:.3e}, kernel {b['ms']:.3f} ms, plain "
+            f"{b['plain_ms']:.3f} ms, sdpa {b['library_ms']:.3f} ms, bound "
+            f"{b['bound_ms']:.3f} ms")
+    extra = {k: v for k, v in a.items() if k != "err"}
+    extra.update({"library_note": "scaled_dot_product_attention in f32 with the same key mask",
+                  "bound_note": "three TF32 products of the valid pairs at 495 TFLOP/s, or the "
+                                "f32 bytes",
+                  "ptxas": _ptxas("18attention_f32_sm90"), "superglue_shape": [B, H, 4096, d],
+                  "superglue_max_abs_err": b["err"],
+                  **{f"superglue_{k}": v for k, v in b.items() if k != "err"}})
+    return max(a["err"], b["err"]), F32_ATTENTION_TOL, what, extra
+
+
+def check_bidir_attention_f32(torch, dev, card):
+    from deep_image_matching_tpu_torch.ops.bidir_attention import (
+        bidir_cross_attention, bidir_cross_attention_reference)
+
+    gen = torch.Generator().manual_seed(22)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, H, d = 16, 4, 64
+    res = {}
+    for N in (2048, 4096):
+        qk0, qk1 = (torch.randn(B, H, N, d, generator=gen).mul(2.0).to(dev) for _ in range(2))
+        v0, v1 = (torch.randn(B, H, N, d, generator=gen).to(dev) for _ in range(2))
+        m0, m1 = _masks(torch, gen, B, N, dev), _masks(torch, gen, B, N, dev)
+        args = (qk0, qk1, v0, v1, m0, m1)
+        got = bidir_cross_attention(*args)
+        ref = bidir_cross_attention_reference(*args)
+        torch.cuda.synchronize()
+        err = max(_rel_err(g, r, m[:, None, :, None].expand_as(g))
+                  for g, r, m in zip(got, ref, (m0, m1)))
+        pairs = float((m0.sum(1).double() * m1.sum(1).double()).sum())
+        res[N] = {"err": err, **_bound(_nbytes(*args, *got), 3 * 6.0 * H * d * pairs, "tf32"),
+                  "ms": _time_ms(lambda: bidir_cross_attention(*args)),
+                  "plain_ms": _time_ms(lambda: bidir_cross_attention_reference(*args)),
+                  "library_ms": _time_ms(lambda: (
+                      sdpa(qk0, qk1, v1, attn_mask=m1[:, None, None, :]),
+                      sdpa(qk1, qk0, v0, attn_mask=m0[:, None, None, :])))}
+        del qk0, qk1, v0, v1, got, ref, args
+        torch.cuda.empty_cache()
+    a, b = res[2048], res[4096]
+    what = (f"|err| / max|out| over valid rows; (16, 4, 2048, 64) reported; ALIKED's (16, 4, "
+            f"4096, 64): err {b['err']:.3e}, kernel {b['ms']:.3f} ms, plain {b['plain_ms']:.3f} "
+            f"ms, two sdpa {b['library_ms']:.3f} ms, bound {b['bound_ms']:.3f} ms")
+    extra = {k: v for k, v in a.items() if k != "err"}
+    extra.update({"library_note": "two masked scaled_dot_product_attention calls in f32",
+                  "ptxas": _ptxas("bidir_attention_f32_sm90"), "aliked_shape": [B, H, 4096, d],
+                  "aliked_max_abs_err": b["err"],
+                  **{f"aliked_{k}": v for k, v in b.items() if k != "err"}})
+    return max(a["err"], b["err"]), F32_ATTENTION_TOL, what, extra
+
+
+def check_ffn_f32(torch, dev, card):
+    from deep_image_matching_tpu_torch.ops.ffn import ffn_fused, ffn_reference, ffn_weights_tf32
+
+    gen = torch.Generator().manual_seed(23)
+    D = 256
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(dev)
+
+    w1, w2 = rnd(2 * D, 2 * D, s=(2 * D) ** -0.5), rnd(D, 2 * D, s=(2 * D) ** -0.5)
+    b1, beta, b2 = rnd(2 * D, s=0.1), rnd(2 * D, s=0.1), rnd(D, s=0.1)
+    g = (1.0 + 0.1 * torch.randn(2 * D, generator=gen)).to(dev)
+    split = ffn_weights_tf32(w1, w2)  # once, as the models make them
+    res = {}
+    for mode, K in (("ln_gelu", 2048), ("relu", 4096)):
+        args = (rnd(16, K, D), rnd(16, K, D), w1, b1, g, beta, w2, b2)
+        got = ffn_fused(*args, mode=mode, split=split)
+        ref = ffn_reference(*args, mode=mode)
+        torch.cuda.synchronize()
+        res[mode] = {"err": _rel_err(got, ref),
+                     **_bound(_nbytes(*args, args[0]),
+                              3 * 2.0 * 16 * K * (4 * D * D + 2 * D * D), "tf32"),
+                     "ms": _time_ms(lambda: ffn_fused(*args, mode=mode, split=split)),
+                     "plain_ms": _time_ms(lambda: ffn_reference(*args, mode=mode))}
+        del args, got, ref
+    a, b = res["ln_gelu"], res["relu"]
+    what = (f"|err| / max|out|; ln_gelu (16, 2048, 256) reported; relu (16, 4096, 256): err "
+            f"{b['err']:.3e}, kernel {b['ms']:.3f} ms, plain {b['plain_ms']:.3f} ms, bound "
+            f"{b['bound_ms']:.3f} ms")
+    extra = {k: v for k, v in a.items() if k != "err"}
+    extra.update({"library_ms": None,
+                  "library_note": "none: LayerNorm, GELU (or ReLU) and two products; no single "
+                                  "PyTorch call does all of them",
+                  "ptxas": _ptxas("ffn_f32_sm90"), "relu_shape": [16, 4096, D],
+                  "relu_max_abs_err": b["err"],
+                  **{f"relu_{k}": v for k, v in b.items() if k != "err"}})
+    return max(a["err"], b["err"]), F32_PRODUCT_TOL, what, extra
+
+
+def check_qkv_f32(torch, dev, card):
+    from deep_image_matching_tpu_torch.ops.qkv import (
+        proj_rotary_fused, proj_rotary_reference, weights_tf32)
+
+    gen = torch.Generator().manual_seed(24)
+    B, N, D, H = 16, 4096, 256, 4
+    x = torch.randn(B, N, D, generator=gen).to(dev)
+    ang = torch.rand(B, N, 32, generator=gen) * 6.3
+    cos = torch.repeat_interleave(torch.cos(ang), 2, -1).to(dev)
+    sin = torch.repeat_interleave(torch.sin(ang), 2, -1).to(dev)
+    res = {}
+    for sections, rot in ((3, (0, 1)), (2, ())):
+        w = (torch.randn(sections * D, D, generator=gen) / 16).to(dev)
+        b = (0.1 * torch.randn(sections * D, generator=gen)).to(dev)
+        split = weights_tf32(w)  # once, as models/lightglue.py makes it
+        args = (x, w, b, cos, sin, H, sections, rot)
+        got = proj_rotary_fused(*args, split=split)
+        ref = proj_rotary_reference(*args)
+        torch.cuda.synchronize()
+        ins = (x, w, b, cos, sin) if rot else (x, w, b)
+        res[sections] = {"err": max(_rel_err(g, r) for g, r in zip(got, ref)),
+                         **_bound(_nbytes(*ins, *got), 3 * 2.0 * B * N * D * sections * D,
+                                  "tf32"),
+                         "ms": _time_ms(lambda: proj_rotary_fused(*args, split=split)),
+                         "plain_ms": _time_ms(lambda: proj_rotary_reference(*args)),
+                         "library_ms": _time_ms(lambda: torch.nn.functional.linear(x, w, b))}
+        del got, ref
+        torch.cuda.empty_cache()
+    a, c = res[3], res[2]
+    what = (f"|err| / max|out|; self mode (3 sections, rotary) at (65536, 256) reported; cross "
+            f"mode (2 sections): err {c['err']:.3e}, kernel {c['ms']:.3f} ms, plain "
+            f"{c['plain_ms']:.3f} ms, F.linear {c['library_ms']:.3f} ms, bound "
+            f"{c['bound_ms']:.3f} ms")
+    extra = {k: v for k, v in a.items() if k != "err"}
+    extra.update({"library_note": "F.linear(x, W, b) in f32 alone: without the head relayout "
+                                  "and the rotary embedding",
+                  "shape": [B * N, D], "ptxas": _ptxas("qkv_f32_sm90"),
+                  "cross_max_abs_err": c["err"],
+                  **{f"cross_{k}": v for k, v in c.items() if k != "err"}})
+    return max(a["err"], c["err"]), F32_PRODUCT_TOL, what, extra
+
+
 def phase_kernels(card: str) -> dict:
     import torch
 
@@ -916,7 +1129,9 @@ def phase_kernels(card: str) -> dict:
               "assignment": check_assignment, "nullspace": check_nullspace,
               "nn": check_nn, "sinkhorn": check_sinkhorn, "lse_rows": check_lse_rows,
               "refiner": check_refiner, "bidir_attention": check_bidir_attention,
-              "qkv": check_qkv}
+              "qkv": check_qkv, "attention_f32": check_attention_f32,
+              "ffn_f32": check_ffn_f32, "bidir_attention_f32": check_bidir_attention_f32,
+              "qkv_f32": check_qkv_f32}
     report = {}
     ok = True
     for name, fn in checks.items():
@@ -1176,26 +1391,51 @@ def _check_shifted(out_dir: Path, names: list) -> str:
 
 
 def phase_reference(card: str) -> None:
+    import torch
+
     _reference_lightglue(card)
     _reference_lightglue(card, optins=True)
     _reference_aliked(card)
     _reference_superglue(card)
+    # the float32 forms of kernels 1, 2, 6 and 10
+    _reference_lightglue(card, dtype=torch.float32)
+    _reference_lightglue(card, optins=True, dtype=torch.float32)
+    _reference_superglue(card, dtype=torch.float32)
     _reference_roma(card)
     _full_depth_roma(card)
 
 
-def _reference_lightglue(card: str, optins: bool = False) -> None:
+def _agreement(cpu: dict, gpu: dict) -> tuple:
+    """Card against CPU: the rows whose match or validity differ
+    (near-ties of the argmax or of the score threshold, from sums in another
+    order) and the largest score difference on the rows valid in both."""
+    import torch
+
+    g = {k: v.cpu() for k, v in gpu.items() if torch.is_tensor(v)}
+    differ = int(((cpu["matches0"] != g["matches0"]) | (cpu["valid0"] != g["valid0"])).sum())
+    both = cpu["valid0"] & g["valid0"]
+    score = (cpu["matching_scores0"] - g["matching_scores0"]).abs()[both]
+    return differ, (score.max().item() if score.numel() else 0.0)
+
+
+def _reference_lightglue(card: str, optins: bool = False, dtype=None) -> None:
     """LightGlue at full width (9 layers, D = 256, adaptive depth and width
     pruning) on a small batch: the kernels on the card against the plain
-    versions on the CPU, both in bf16. Image 1 holds image 0's keypoints
-    permuted and shifted with the same descriptors, so matches exist. With
-    ``optins`` the cross attention runs on kernel 6 (``attn_impl="bidir"``)
-    and the prologue on kernel 10 (``DIM_TPU_FUSED_PROLOGUE=1``, set for this
-    check only), on both devices."""
+    versions on the CPU, both in ``dtype`` (bf16 by default). Image 1 holds
+    image 0's keypoints permuted and shifted with the same descriptors, so
+    matches exist. With ``optins`` the cross attention runs on kernel 6
+    (``attn_impl="bidir"``) and the prologue on kernel 10
+    (``DIM_TPU_FUSED_PROLOGUE=1``, set for this check only), on both
+    devices. In float32 the matches must be equal but for near-ties (at most
+    one row in 1000) and the scores within 1e-4 (the CPU tests' tolerance)."""
     import torch
 
     from deep_image_matching_tpu_torch.models.lightglue import LightGlue, forward
     from deep_image_matching_tpu_torch.ops import _lib
+    from deep_image_matching_tpu_torch.utils.device import full_f32
+
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
 
     gen = torch.Generator().manual_seed(7)
     B, K = 2, 512
@@ -1209,10 +1449,10 @@ def _reference_lightglue(card: str, optins: bool = False) -> None:
     mask[1, 400:] = False
     size = torch.tensor([[640.0, 480.0]]).expand(B, 2)
     kw = dict(filter_threshold=0.0, depth_confidence=0.95, width_confidence=0.99,
-              pruning_min_kpts=128, compute_dtype=torch.bfloat16,
+              pruning_min_kpts=128, compute_dtype=dtype,
               attn_impl="bidir" if optins else "flash")
     args = (kpts0, kpts1, desc0, desc1, mask, torch.gather(mask, 1, perm), size, size)
-    with _env({"DIM_TPU_FUSED_PROLOGUE": "1" if optins else "0"}):
+    with _env({"DIM_TPU_FUSED_PROLOGUE": "1" if optins else "0"}), full_f32():
         cpu = forward(model, *args, **kw)
         dev = torch.device("cuda", 0)
         _lib.reset_launch_counts()
@@ -1224,20 +1464,25 @@ def _reference_lightglue(card: str, optins: bool = False) -> None:
     agree = (cpu["matches0"] == gpu["matches0"].cpu())[both].float().mean().item()
     inv = torch.argsort(perm, dim=1)
     truth = (gpu["matches0"].cpu() == inv) & gpu["valid0"].cpu()
-    name = "LightGlue bidir + fused prologue" if optins else "LightGlue"
+    name = ("LightGlue bidir + fused prologue" if optins else "LightGlue") + f" ({dtype})"
+    differ, score_err = _agreement(cpu, gpu)
     print(f"[ref] {name} B={B} K={K}: layers_run cpu {cpu['layers_run']} gpu "
           f"{gpu['layers_run']}; mutual matches cpu {int(cpu['valid0'].sum())} gpu "
-          f"{int(gpu['valid0'].sum())}; agreement on rows matched by both {agree:.4f}; "
-          f"gpu matches at the planted correspondence {int(truth.sum())}; launches {launched} "
-          f"[{card}]", flush=True)
+          f"{int(gpu['valid0'].sum())}; agreement on rows matched by both {agree:.4f}; rows "
+          f"that differ {differ}; max score difference {score_err:.3e}; gpu matches at the "
+          f"planted correspondence {int(truth.sum())}; launches {launched} [{card}]", flush=True)
     # bf16 on both sides, sums in another order: rare flips of near-ties
-    # only, and the exit layer must agree
+    # only, and the exit layer must agree; in f32 near-ties only
     planted_cpu = int(((cpu["matches0"] == inv) & cpu["valid0"]).sum())
     if cpu["layers_run"] != gpu["layers_run"] or agree < 0.99 or truth.sum() < 0.95 * planted_cpu:
         _fail(f"{name} on the card disagrees with the plain versions on the CPU")
+    if f32 and (differ > B * K // 1000 or score_err > 1e-4):
+        _fail(f"{name}: {differ} rows differ, scores by {score_err:.3e}")
     n = gpu["layers_run"]
-    want = ({"bidir_attention": n, "qkv": 4 * n, "attention": 2 * n} if optins
-            else {"attention": 4 * n})
+    sfx = "_f32" if f32 else ""
+    want = ({f"bidir_attention{sfx}": n, f"qkv{sfx}": 4 * n, f"attention{sfx}": 2 * n} if optins
+            else {f"attention{sfx}": 4 * n})
+    want[f"ffn{sfx}"] = 4 * n
     if any(launched.get(k) != v for k, v in want.items()):
         _fail(f"{name}: launches {launched}, expected {want}")
 
@@ -1345,15 +1590,22 @@ def _reference_aliked(card: str) -> None:
         _fail("ALIKED on the card disagrees with the CPU")
 
 
-def _reference_superglue(card: str) -> None:
+def _reference_superglue(card: str, dtype=None) -> None:
     """SuperGlue at full width (9 blocks, D = 256, 4 heads, 100 Sinkhorn
     iterations) on a small batch: the kernels on the card (attention, the
     FFN's relu mode, Sinkhorn) against the plain versions on the CPU, both in
-    bf16. Image 1 holds image 0's keypoints permuted, with the same
-    descriptors and scores, so every valid keypoint has a planted match."""
+    ``dtype`` (bf16 by default; in float32 the matches equal but for
+    near-ties, the scores within 1e-3 after the 100 iterations). Image 1 holds
+    image 0's keypoints permuted, with the same descriptors and scores, so
+    every valid keypoint has a planted match."""
     import torch
 
     from deep_image_matching_tpu_torch.models.superglue import SuperGlue, forward
+    from deep_image_matching_tpu_torch.ops import _lib
+    from deep_image_matching_tpu_torch.utils.device import full_f32
+
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
 
     gen = torch.Generator().manual_seed(9)
     B, K = 2, 1024
@@ -1369,23 +1621,37 @@ def _reference_superglue(card: str) -> None:
     size = torch.tensor([[640.0, 480.0]]).expand(B, 2)
     args = (kpts0, kpts1, sc0, torch.gather(sc0, 1, perm), desc0, desc1, mask,
             torch.gather(mask, 1, perm), size, size)
-    kw = dict(sinkhorn_iterations=100, match_threshold=0.0, compute_dtype=torch.bfloat16)
-    cpu = forward(model, *args, **kw)
-    dev = torch.device("cuda", 0)
-    gpu = forward(model.to(dev), *(a.to(dev) for a in args), **kw)
+    kw = dict(sinkhorn_iterations=100, match_threshold=0.0, compute_dtype=dtype)
+    with full_f32():
+        cpu = forward(model, *args, **kw)
+        dev = torch.device("cuda", 0)
+        _lib.reset_launch_counts()
+        gpu = forward(model.to(dev), *(a.to(dev) for a in args), **kw)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _lib.LAUNCHES.items() if v}
     model.cpu()
     both = cpu["valid0"] & gpu["valid0"].cpu()
     agree = (cpu["matches0"] == gpu["matches0"].cpu())[both].float().mean().item()
     inv = torch.argsort(perm, dim=1)
     truth = (gpu["matches0"].cpu() == inv) & gpu["valid0"].cpu()
     planted_cpu = int(((cpu["matches0"] == inv) & cpu["valid0"]).sum())
-    print(f"[ref] SuperGlue B={B} K={K}: mutual matches cpu {int(cpu['valid0'].sum())} gpu "
-          f"{int(gpu['valid0'].sum())}; agreement on rows matched by both {agree:.4f}; "
-          f"planted matches found cpu {planted_cpu} gpu {int(truth.sum())} of "
-          f"{int(mask.sum())} [{card}]", flush=True)
+    differ, score_err = _agreement(cpu, gpu)
+    print(f"[ref] SuperGlue ({dtype}) B={B} K={K}: mutual matches cpu "
+          f"{int(cpu['valid0'].sum())} gpu {int(gpu['valid0'].sum())}; agreement on rows "
+          f"matched by both {agree:.4f}; rows that differ {differ}; max score difference "
+          f"{score_err:.3e}; planted matches found cpu {planted_cpu} gpu {int(truth.sum())} of "
+          f"{int(mask.sum())}; launches {launched} [{card}]", flush=True)
     # bf16 on both sides, sums in another order: the LightGlue phase's bar
     if agree < 0.99 or truth.sum() < 0.95 * planted_cpu:
         _fail("SuperGlue on the card disagrees with the plain versions on the CPU")
+    # in f32: near-ties only, and the scores within 1e-3, the bound
+    # check_sinkhorn holds u and v to after the same 100 iterations
+    if f32 and (differ > B * K // 1000 or score_err > 1e-3):
+        _fail(f"SuperGlue ({dtype}): {differ} rows differ, scores by {score_err:.3e}")
+    sfx = "_f32" if f32 else ""
+    if not (launched.get(f"attention{sfx}") and launched.get(f"ffn{sfx}")
+            and launched.get("sinkhorn")):
+        _fail(f"SuperGlue ({dtype}): launches {launched}")
 
 
 def _demo_pair(torch, sizes, dev):
@@ -1567,6 +1833,24 @@ PATHS = {
 }
 
 
+# the float32 runs (``general.tpu.dtype: float32``) through the kernels'
+# float32 forms: the main path at full width on the 16 synthetic views, the
+# other two on the first 6 (the last two shifted copies) to keep the script's
+# time; label -> (pipeline, kernels that must launch, runs)
+F32_PATHS = {
+    "superpoint+lightglue (float32)": ("superpoint+lightglue", (
+        "attention_f32", "ffn_f32", "assignment", "nullspace"), (
+        ("synthetic16", "bruteforce", "f32_threshold0", 256, False),)),
+    "superpoint+superglue (float32)": ("superpoint+superglue", (
+        "attention_f32", "ffn_f32", "sinkhorn", "nullspace"), (
+        ("synthetic6", "bruteforce", "f32_superglue0", 256, False),)),
+    "aliked+lightglue (float32)": ("aliked+lightglue", (
+        "attention_f32", "ffn_f32", "assignment", "nullspace", "bidir_attention_f32",
+        "qkv_f32"), (
+        ("synthetic6", "bruteforce", "f32_aliked_bidir", 128, False),)),
+}
+
+
 def _path_env(pipeline: str) -> dict:
     """Environment set for one path's runs only: the aliked path's seeded
     ALIKED checkpoint (and no SuperPoint or LightGlue one) and the fused
@@ -1609,9 +1893,10 @@ def _run(pipeline: str, proj: Path, strategy: str, cfg: Path, outs: Path):
     return feature_path.parent
 
 
-def _run_path(pipeline, needed, runs, projects, configs, timers, card):
+def _run_path(pipeline, needed, runs, projects, configs, timers, card, label=None):
     """One path's runs with the launch counts set to 0 before them; returns
-    the counts read after them and the runs to repeat on the CPU."""
+    the counts read after them and the runs to repeat on the CPU. ``label``
+    names the path in the report (the pipeline by default)."""
     import torch
 
     from deep_image_matching_tpu_torch.ops import _lib
@@ -1621,7 +1906,7 @@ def _run_path(pipeline, needed, runs, projects, configs, timers, card):
     for proj_name, strategy, cfg, dim, compare_cpu in runs:
         proj = projects[proj_name]
         names = sorted(p.name for p in (proj / "images").iterdir())
-        outs = WORK / "out" / f"{pipeline}_{proj_name}"
+        outs = WORK / "out" / f"{pipeline}_{proj_name}_{cfg}"
         t0 = time.perf_counter()
         out_dir = _run(pipeline, proj, strategy, configs[cfg], outs)
         torch.cuda.synchronize()
@@ -1640,15 +1925,15 @@ def _run_path(pipeline, needed, runs, projects, configs, timers, card):
         if pipeline == "sift+kornia_matcher" and n_verified == 0:
             _fail("sift+kornia_matcher verified no pair of the demo images")
         stages = timers.lines[-1].split("] ", 2)[-1] if timers.lines else "no timer line"
-        print(f"[main] {pipeline} on {proj_name} ({strategy}): {summary}; run_matching "
+        print(f"[main] {label or pipeline} on {proj_name} ({strategy}): {summary}; run_matching "
               f"{wall:.2f} s; stages {stages} [{card}]", flush=True)
         if compare_cpu:
             cpu_checks.append((proj, strategy, out_dir, outs))
     launches = dict(_lib.LAUNCHES)
-    print(f"[main] {pipeline}: kernel launches {launches}", flush=True)
+    print(f"[main] {label or pipeline}: kernel launches {launches}", flush=True)
     missing = [k for k in needed if launches[k] == 0]
     if missing:
-        _fail(f"{pipeline}: kernels {missing} of its path were never launched")
+        _fail(f"{label or pipeline}: kernels {missing} of its path were never launched")
     return launches, cpu_checks
 
 
@@ -1657,7 +1942,8 @@ def phase_main_path(card: str) -> dict:
     WORK.mkdir(parents=True)
     base = "general:\n  allow_random_weights: true\n  tpu:\n    device: {}\n"
     configs = {name: WORK / f"{name}.yaml"
-               for name in ("default", "threshold0", "superglue0", "cpu", "aliked_bidir")}
+               for name in ("default", "threshold0", "superglue0", "cpu", "aliked_bidir",
+                            "f32_threshold0", "f32_superglue0", "f32_aliked_bidir")}
     configs["default"].write_text(base.format("cuda"))
     configs["aliked_bidir"].write_text(base.format("cuda") + "    attn_impl: bidir\n"
                                        "matcher:\n  filter_threshold: 0.0\n")
@@ -1666,7 +1952,14 @@ def phase_main_path(card: str) -> dict:
     configs["threshold0"].write_text(base.format("cuda") + "matcher:\n  filter_threshold: 0.0\n")
     configs["superglue0"].write_text(base.format("cuda") + "matcher:\n  match_threshold: 0.0\n")
     configs["cpu"].write_text(base.format("cpu"))
-    projects = {"synthetic16": _synthetic_project(WORK / "synthetic16"), "demo5": WORK / "demo5"}
+    # the same in float32: the kernels' float32 forms
+    for name in ("threshold0", "superglue0", "aliked_bidir"):
+        text = configs[name].read_text().replace("    device: cuda\n",
+                                                 "    device: cuda\n    dtype: float32\n")
+        configs[f"f32_{name}"].write_text(text)
+    projects = {"synthetic16": _synthetic_project(WORK / "synthetic16"),
+                "synthetic6": _synthetic_project(WORK / "synthetic6", n=6),
+                "demo5": WORK / "demo5"}
     shutil.copytree(ROOT / "notebooks" / "demo_project" / "images", projects["demo5"] / "images")
     timers = _TimerLog()
 
@@ -1689,6 +1982,10 @@ def phase_main_path(card: str) -> dict:
             counts = sorted(len(v) for v in gpu_sets.values())
             print(f"[main] {pipeline}: raw matches equal on the card and the CPU for all "
                   f"{len(gpu_sets)} pairs ({counts[0]}-{counts[-1]} per pair) [{card}]", flush=True)
+    for label, (pipeline, needed, runs) in F32_PATHS.items():
+        with _env(_path_env(pipeline)):
+            launches[label], _ = _run_path(pipeline, needed, runs, projects, configs, timers,
+                                           card, label)
     return launches
 
 

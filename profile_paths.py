@@ -1,6 +1,7 @@
 """Device profile of warm ``run_matching`` runs of the port on one GPU.
 
     python3 profile_paths.py [--paths superpoint+superglue orb+kornia_matcher] [--warm 3]
+                             [--dtype float32]
 
 For each ported path: ``--warm`` untraced runs of ``run_matching`` (their
 wall times; the first also builds the kernels and loads the libraries), then
@@ -18,9 +19,11 @@ Projects are ``chip_smoke.py``'s: 16 synthetic 1024x1024 views with
 ``DIM_TPU_FUSED_PROLOGUE=1``, set for that path only), the 5 demo images with
 ``bruteforce`` pairs (10) for SIFT, ORB and RoMa (default settings: 560 /
 864 px, 5000 samples per pair, DINOv2 at 2 blocks). Weights are random, and the
-learned matchers run with match threshold 0 as in ``chip_smoke.py``. The card's
+learned matchers run with match threshold 0 as in ``chip_smoke.py``, in
+``general.tpu.dtype`` ``--dtype`` (bfloat16 by default; float32 runs the
+float32 forms of kernels 1, 2, 6 and 10). The card's
 name and power limit are printed first; the summary is also written to
-``build/profile/profile.json``. Exits non-zero without a CUDA device.
+``build/profile/profile_<dtype>.json``. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -60,6 +63,10 @@ OUR_KERNELS = {
     "sinkhorn_iter_kernel": "sinkhorn", "sinkhorn_cols_kernel": "sinkhorn",
     "lse_rows_kernel": "lse_rows",
     "refiner_block_kernel": "refiner", "bidir_attention_sm90": "bidir_attention", "qkv_sm90": "qkv",
+    "attention_f32_sm90": "attention_f32", "ffn_f32_sm90": "ffn_f32",
+    "bidir_attention_f32_sm90": "bidir_attention_f32", "qkv_f32_sm90": "qkv_f32",
+    # the float32 attention kernels' per-call split of their operands
+    "split_rows_kernel": "f32_split", "split_vt_kernel": "f32_split",
 }
 
 
@@ -118,7 +125,10 @@ def main() -> None:
     parser.add_argument("--paths", nargs="+", choices=list(PATHS), default=list(PATHS))
     parser.add_argument("--warm", type=int, default=3, help="untraced runs before the traced one")
     parser.add_argument("--top", type=int, default=14, help="device events to list per path")
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                        help="general.tpu.dtype of the learned matchers")
     opts = parser.parse_args()
+    base = BASE + (f"    dtype: {opts.dtype}\n" if opts.dtype != "bfloat16" else "")
 
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -148,11 +158,12 @@ def main() -> None:
     for pipeline in opts.paths:
         project, extra = PATHS[pipeline]
         config = WORK / f"{pipeline}.yaml"
-        config.write_text(BASE + extra)
+        config.write_text(base + extra)
         with chip_smoke._env(chip_smoke._path_env(pipeline)):
             r = profile_path(pipeline, projects[project], config, opts.warm, opts.top)
         results.append(r)
-        print(f"== {pipeline} on {project}: warm walls "
+        r["dtype"] = opts.dtype
+        print(f"== {pipeline} ({opts.dtype}) on {project}: warm walls "
               f"{', '.join(f'{w:.3f}' for w in r['warm_walls_s'])} s; profiled wall "
               f"{r['profiled_wall_ms']:.1f} ms; device busy {r['device_busy_ms']:.1f} ms; idle "
               f"{100 * r['idle_share']:.1f} %; peak {r['peak_gib']:.2f} GiB [{card}]", flush=True)
@@ -162,7 +173,8 @@ def main() -> None:
         for e in r["top"]:
             print(f"   {e['ms']:9.2f} ms {100 * e['share']:5.1f} % n={e['count']:5d} "
                   f"{e['name'][:110]}", flush=True)
-    (WORK / "profile.json").write_text(json.dumps({"card": card, "paths": results}, indent=1))
+    (WORK / f"profile_{opts.dtype}.json").write_text(
+        json.dumps({"card": card, "dtype": opts.dtype, "paths": results}, indent=1))
 
 
 if __name__ == "__main__":

@@ -35,7 +35,12 @@
 // sides against every column comes out zero) and written in bf16. Ragged M
 // and N are masked in the kernel: columns past the end contribute nothing.
 // Row tiles whose rows are all masked are written as zeros.
+//
+// The float32 form (dim_bidir_attention_f32) computes the same function with
+// every product in split TF32 and P in f32, on the core of
+// attention_f32_sm90.cuh, in the same recompute form.
 
+#include "attention_f32_sm90.cuh"
 #include "attention_sm90.cuh"
 
 namespace {
@@ -88,6 +93,61 @@ bidir_attention_sm90(const __grid_constant__ CUtensorMap map_q0,  // qk0 in BQ-r
   attention_block<true>(job);
 }
 
+// the float32 form: the split operands of attention_f32_sm90.cuh; a side's
+// split rows serve as queries (its row tiles) and as keys (the other side's)
+__global__ void __launch_bounds__(attn_f32::THREADS, 1)
+bidir_attention_f32_sm90(const __grid_constant__ CUtensorMap q0hi,
+                         const __grid_constant__ CUtensorMap q0lo,
+                         const __grid_constant__ CUtensorMap q1hi,
+                         const __grid_constant__ CUtensorMap q1lo,
+                         const __grid_constant__ CUtensorMap v0hi,
+                         const __grid_constant__ CUtensorMap v0lo,
+                         const __grid_constant__ CUtensorMap v1hi,
+                         const __grid_constant__ CUtensorMap v1lo,
+                         const uint8_t* __restrict__ mask0, const uint8_t* __restrict__ mask1,
+                         float* __restrict__ o0, float* __restrict__ o1, int H, int M, int N,
+                         float scale_log2) {
+  using attn_f32::BQ;
+  const int tiles0 = (M + BQ - 1) / BQ, tiles = tiles0 + (N + BQ - 1) / BQ;
+  int bh, x;
+  attn_f32::block_tile(blockIdx.x, gridDim.x / tiles, tiles, bh, x);
+  const int b = bh / H;
+  const bool side0 = x < tiles0;
+  const uint8_t* m0 = mask0 + static_cast<size_t>(b) * M;
+  const uint8_t* m1 = mask1 + static_cast<size_t>(b) * N;
+  attn_f32::Job job;
+  if (side0) {
+    job.qhi = &q0hi;
+    job.qlo = &q0lo;
+    job.khi = &q1hi;
+    job.klo = &q1lo;
+    job.vhi = &v1hi;
+    job.vlo = &v1lo;
+    job.qmask = m0;
+    job.kmask = m1;
+    job.out = o0 + static_cast<size_t>(bh) * M * attn_f32::D;
+    job.q0 = x * BQ;
+    job.Nq = M;
+    job.Nk = N;
+  } else {
+    job.qhi = &q1hi;
+    job.qlo = &q1lo;
+    job.khi = &q0hi;
+    job.klo = &q0lo;
+    job.vhi = &v0hi;
+    job.vlo = &v0lo;
+    job.qmask = m1;
+    job.kmask = m0;
+    job.out = o1 + static_cast<size_t>(bh) * N * attn_f32::D;
+    job.q0 = (x - tiles0) * BQ;
+    job.Nq = N;
+    job.Nk = M;
+  }
+  job.bh = bh;
+  job.scale_log2 = scale_log2;
+  attn_f32::attention_block<true>(job);
+}
+
 }  // namespace
 
 // qk0, v0, o0 (B, H, M, 64) and qk1, v1, o1 (B, H, N, 64) bf16, contiguous,
@@ -123,5 +183,58 @@ extern "C" int dim_bidir_attention_bf16(int device, const void* qk0, const void*
       mq0, mq1, mk0, mk1, mv0, mv1, static_cast<const uint8_t*>(mask0),
       static_cast<const uint8_t*>(mask1), static_cast<uint16_t*>(o0),
       static_cast<uint16_t*>(o1), H, M, N, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 form: qk0, v0, o0 (B, H, M, 64) and qk1, v1, o1 (B, H, N, 64)
+// f32, contiguous, 16-byte aligned; masks as for dim_bidir_attention_bf16.
+// Scratch, f32: split0 (2, B, H, M, 64) and split1 (2, B, H, N, 64) for the
+// TF32 halves of qk0 and qk1, vt0 (2, B H, 64, Mp) and vt1 (2, B H, 64, Np)
+// for the transposed halves of v0 and v1 (Mp, Np: M, N rounded up to 8).
+extern "C" int dim_bidir_attention_f32(int device, const void* qk0, const void* qk1,
+                                       const void* v0, const void* v1, const void* mask0,
+                                       const void* mask1, void* o0, void* o1, void* split0,
+                                       void* split1, void* vt0, void* vt1, int B, int H, int M,
+                                       int N, float scale, void* stream) {
+  namespace af = attn_f32;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B <= 0 || H <= 0 || M < 0 || N < 0 || M + N == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int BH = B * H;
+  if (M == 0 || N == 0) {
+    // no keys on one side: l = 0, so the other side's rows come out zero
+    void* o = M == 0 ? o1 : o0;
+    const size_t rows = M == 0 ? N : M;
+    return static_cast<int>(
+        cudaMemsetAsync(o, 0, static_cast<size_t>(BH) * rows * af::D * 4, st));
+  }
+  float* s0 = static_cast<float*>(split0);
+  float* s1 = static_cast<float*>(split1);
+  float* t0 = static_cast<float*>(vt0);
+  float* t1 = static_cast<float*>(vt1);
+  const int64_t n0 = static_cast<int64_t>(BH) * M * af::D;
+  const int64_t n1 = static_cast<int64_t>(BH) * N * af::D;
+  int e;
+  if ((e = af::split_rows(static_cast<const float*>(qk0), s0, n0, st)) ||
+      (e = af::split_rows(static_cast<const float*>(qk1), s1, n1, st)) ||
+      (e = af::split_vt(static_cast<const float*>(v0), t0, BH, M, st)) ||
+      (e = af::split_vt(static_cast<const float*>(v1), t1, BH, N, st)))
+    return e;
+  CUtensorMap m0h, m0l, m1h, m1l, v0h, v0l, v1h, v1l;
+  if ((e = af::make_row_maps(&m0h, &m0l, s0, M, BH)) ||
+      (e = af::make_row_maps(&m1h, &m1l, s1, N, BH)) ||
+      (e = af::make_vt_maps(&v0h, &v0l, t0, M, BH)) ||
+      (e = af::make_vt_maps(&v1h, &v1l, t1, N, BH)))
+    return e;
+  err = cudaFuncSetAttribute(bidir_attention_f32_sm90,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, af::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = BH * ((M + af::BQ - 1) / af::BQ + (N + af::BQ - 1) / af::BQ);
+  bidir_attention_f32_sm90<<<grid, af::THREADS, af::SMEM_BYTES, st>>>(
+      m0h, m0l, m1h, m1l, v0h, v0l, v1h, v1l, static_cast<const uint8_t*>(mask0),
+      static_cast<const uint8_t*>(mask1), static_cast<float*>(o0), static_cast<float*>(o1), H,
+      M, N, scale * af::LOG2E);
   return static_cast<int>(cudaGetLastError());
 }

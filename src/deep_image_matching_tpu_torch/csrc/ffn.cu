@@ -320,6 +320,337 @@ ffn_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUten
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 form (dim_ffn_f32), both modes: the same function with every
+// product in split TF32 on the tensor cores (lo.hi + hi.lo + hi.hi, hi =
+// rna_tf32(x), lo = rna_tf32(x - hi)) and the activation kept in f32 into
+// the second product. The weights come split once per model (hi then lo,
+// (2, 512, 512) and (2, 256, 512)). An f32 [x | msg] tile of 64 rows in hi
+// and lo (256 KB) does not fit a block, so the design streams it:
+//
+// - The producer streams 32-wide k-chunks (one 128-byte swizzle row of f32)
+//   of [x | msg] (8 KB, unsplit) through a ring of two slots, and W1's chunks
+//   (512 rows, hi, then lo: 64 KB each) through a ring of two stages; then
+//   W2's chunks (256 rows, hi, then lo: 32 KB) through a ring of its own.
+// - The consumers read the A fragments of each 8-deep step from the chunk
+//   (conflict-free in the swizzle), split them in registers and run
+//   wgmma m64n256k8 with A in registers (A lo.W1 hi and A hi.W1 hi on the hi
+//   stage, A hi.W1 lo on the lo stage), h in 128 f32 registers a thread, two
+//   fragment sets in flight.
+// - LayerNorm and the GELU (or the relu) as in the bf16 form; the f32
+//   activation (64 x 512, 128 KB) is written over the W1 ring in the same
+//   swizzled chunks, and the second product reads its A fragments from it
+//   (m64n128k8, A in registers, each warpgroup 128 output columns).
+// - The epilogue adds b2 and the f32 residual x in f32.
+namespace ffn32 {
+
+constexpr int D = 256, D2 = 512, BM = 64;
+constexpr int KC = 32;                       // k per chunk: one 128-byte swizzle row of f32
+constexpr int NCH = D2 / KC;                 // 16 chunks of each product
+constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128;
+constexpr int A_BYTES = BM * KC * 4;         // 8 KB: a chunk of [x | msg], or of the activation
+constexpr int W1_BYTES = D2 * KC * 4;        // 64 KB: a chunk of W1 (hi or lo)
+constexpr int W2_BYTES = D * KC * 4;         // 32 KB: a chunk of W2 (hi or lo)
+
+// shared memory from a 1024-byte aligned base
+constexpr int OFF_W1 = 0;                    // the W1 ring, then the activation (128 KB)
+constexpr int OFF_A = OFF_W1 + 2 * W1_BYTES;
+constexpr int OFF_W2 = OFF_A + 2 * A_BYTES;
+constexpr int OFF_B1 = OFF_W2 + 2 * W2_BYTES;  // f32 [512]
+constexpr int OFF_G = OFF_B1 + D2 * 4;         // f32 [512]
+constexpr int OFF_BETA = OFF_G + D2 * 4;       // f32 [512]
+constexpr int OFF_B2 = OFF_BETA + D2 * 4;      // f32 [256]
+constexpr int OFF_RED = OFF_B2 + D * 4;        // f32 [2 stats][2 wg][64 rows]
+constexpr int OFF_BAR = OFF_RED + 2 * 2 * BM * 4;  // u64 full / empty of the three rings
+constexpr int SMEM_BYTES = OFF_BAR + 8 * 12 + 1024;
+
+// byte offset of element (row, k) of a 64-row chunk of 32 f32 columns in the
+// 128-byte swizzle: 16-byte units XOR-ed with the row's low 3 bits
+__device__ __forceinline__ int swz(int row, int k) {
+  return row * 128 + ((((k >> 2) ^ row) & 7) << 4) + (k & 3) * 4;
+}
+
+// the split A fragment of the 8-deep step at column k0 of a chunk at `chunk`
+// (generic pointer): rows r and r + 8, columns k0 + q and k0 + q + 4
+__device__ __forceinline__ void a_frag(const uint8_t* chunk, int r, int k0, int q,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float x[4] = {*reinterpret_cast<const float*>(chunk + swz(r, k0 + q)),
+                      *reinterpret_cast<const float*>(chunk + swz(r + 8, k0 + q)),
+                      *reinterpret_cast<const float*>(chunk + swz(r, k0 + q + 4)),
+                      *reinterpret_cast<const float*>(chunk + swz(r + 8, k0 + q + 4))};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap mmap,
+             const __grid_constant__ CUtensorMap w1map, const __grid_constant__ CUtensorMap w2map,
+             const float* __restrict__ x, const float* __restrict__ b1,
+             const float* __restrict__ gam, const float* __restrict__ beta,
+             const float* __restrict__ b2, float* __restrict__ out, int R) {
+  extern __shared__ __align__(1024) uint8_t dyn_smem[];
+  const int tid = threadIdx.x;
+  uint32_t base = smem_u32(dyn_smem);
+  const uint32_t pad = (1024u - (base & 1023u)) & 1023u;
+  uint8_t* sm = dyn_smem + pad;
+  base += pad;
+  // full[2], empty[2] of the A ring, the W1 ring and the W2 ring
+  const uint32_t a_full = base + OFF_BAR, a_empty = a_full + 16;
+  const uint32_t w_full = a_full + 32, w_empty = w_full + 16;
+  const uint32_t v_full = a_full + 64, v_empty = v_full + 16;
+  const int row0 = blockIdx.x * BM;
+
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(a_full + 8 * s, 1);
+      mbar_init(a_empty + 8 * s, CONSUMERS);
+      mbar_init(w_full + 8 * s, 1);
+      mbar_init(w_empty + 8 * s, CONSUMERS);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(v_empty + 8 * s, CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---------------- producer warpgroup: one thread issues ---------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == CONSUMERS) {
+      int as = 0, ws = 0;
+      uint32_t aph = 0, wph = 0;
+      for (int c = 0; c < NCH; ++c) {
+        mbar_wait(a_empty + 8 * as, aph ^ 1);
+        mbar_arrive_tx(a_full + 8 * as, A_BYTES);
+        tma_load_2d(base + OFF_A + as * A_BYTES, c < NCH / 2 ? &xmap : &mmap, a_full + 8 * as,
+                    (c % (NCH / 2)) * KC, row0);
+        if (++as == 2) {
+          as = 0;
+          aph ^= 1;
+        }
+        for (int part = 0; part < 2; ++part) {  // W1 hi, then lo (rows 512 on)
+          mbar_wait(w_empty + 8 * ws, wph ^ 1);
+          const uint32_t full = w_full + 8 * ws, dst = base + OFF_W1 + ws * W1_BYTES;
+          mbar_arrive_tx(full, W1_BYTES);
+          tma_load_2d(dst, &w1map, full, c * KC, part * D2);
+          tma_load_2d(dst + W1_BYTES / 2, &w1map, full, c * KC, part * D2 + D);
+          if (++ws == 2) {
+            ws = 0;
+            wph ^= 1;
+          }
+        }
+      }
+      int vs = 0;
+      uint32_t vph = 0;
+      for (int t = 0; t < 2 * NCH; ++t) {  // W2 chunk t / 2, hi then lo (rows 256 on)
+        mbar_wait(v_empty + 8 * vs, vph ^ 1);
+        mbar_arrive_tx(v_full + 8 * vs, W2_BYTES);
+        tma_load_2d(base + OFF_W2 + vs * W2_BYTES, &w2map, v_full + 8 * vs, (t / 2) * KC,
+                    (t % 2) * D);
+        if (++vs == 2) {
+          vs = 0;
+          vph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumer warpgroups ------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int c = (lane % 4) * 2, q = lane % 4;
+  const int rl = warp * 16 + lane / 4;  // this thread's rows rl, rl + 8 of the tile
+  float* sb1 = reinterpret_cast<float*>(sm + OFF_B1);
+  float* sg = reinterpret_cast<float*>(sm + OFF_G);
+  float* sbeta = reinterpret_cast<float*>(sm + OFF_BETA);
+  float* sb2 = reinterpret_cast<float*>(sm + OFF_B2);
+  float* red = reinterpret_cast<float*>(sm + OFF_RED);
+  for (int i = tid; i < D2; i += CONSUMERS) {
+    sb1[i] = b1[i];
+    if (MODE == 0) {
+      sg[i] = gam[i];
+      sbeta[i] = beta[i];
+    }
+    if (i < D) sb2[i] = b2[i];
+  }
+  consumers_sync();
+
+  // h = [x | msg] W1^T for columns [256 wg, 256 wg + 256), chunk by chunk;
+  // each step's fragments in one of two register sets, the step before's
+  // products done before its set is rewritten
+  float h[128];
+  uint32_t fh[2][4], fl[2][4];
+  int as = 0, ws = 0;
+  uint32_t aph = 0, wph = 0;
+#pragma unroll 1
+  for (int ch = 0; ch < NCH; ++ch) {
+    mbar_wait(a_full + 8 * as, aph);
+    const uint8_t* achunk = sm + OFF_A + as * A_BYTES;
+#pragma unroll 1
+    for (int part = 0; part < 2; ++part) {
+      mbar_wait(w_full + 8 * ws, wph);
+      const uint64_t db = sw128_desc(base + OFF_W1 + ws * W1_BYTES + wg * (W1_BYTES / 2), 1);
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        a_frag(achunk, rl, 8 * kk, q, fh[kk & 1], fl[kk & 1]);
+        wg_fence();
+        if (part == 0) {
+          wgmma_tf32_n256_rs(h, fl[kk & 1], db + 2 * kk, ch | kk);
+          wgmma_tf32_n256_rs(h, fh[kk & 1], db + 2 * kk, 1);
+        } else {
+          wgmma_tf32_n256_rs(h, fh[kk & 1], db + 2 * kk, 1);
+        }
+        wg_commit();
+        wg_wait<1>();
+        fence_regs(fh[(kk + 1) & 1]);
+        fence_regs(fl[(kk + 1) & 1]);
+      }
+      wg_wait<0>();
+      fence_regs(h);
+      fence_regs(fh[1]);
+      fence_regs(fl[1]);
+      mbar_arrive(w_empty + 8 * ws);
+      if (++ws == 2) {
+        ws = 0;
+        wph ^= 1;
+      }
+    }
+    mbar_arrive(a_empty + 8 * as);
+    if (++as == 2) {
+      as = 0;
+      aph ^= 1;
+    }
+  }
+
+  // + b1, then the activation
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = wg * D + 8 * j + c;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[4 * j + e] += sb1[col + (e & 1)];
+  }
+  if (MODE == 0) {
+    float mu[2], rstd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sum += h[4 * j + 2 * r] + h[4 * j + 2 * r + 1];
+      sum = quad_sum(sum);
+      if (c == 0) red[wg * BM + rl + 8 * r] = sum;
+    }
+    consumers_sync();  // also: both warpgroups are done with the W1 ring
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mu[r] = (red[rl + 8 * r] + red[BM + rl + 8 * r]) / D2;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float var = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float d0 = h[4 * j + 2 * r] - mu[r], d1 = h[4 * j + 2 * r + 1] - mu[r];
+        var += d0 * d0 + d1 * d1;
+      }
+      var = quad_sum(var);
+      if (c == 0) red[2 * BM + wg * BM + rl + 8 * r] = var;
+    }
+    consumers_sync();
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      rstd[r] = rsqrtf((red[2 * BM + rl + 8 * r] + red[3 * BM + rl + 8 * r]) / D2 + 1e-5f);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = wg * D + 8 * j + c;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float hn = (h[4 * j + e] - mu[r]) * rstd[r] * sg[col + (e & 1)] + sbeta[col + (e & 1)];
+        h[4 * j + e] = 0.5f * hn * (1.f + erff(hn * 0.7071067811865476f));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) h[i] = fmaxf(h[i], 0.f);
+    consumers_sync();  // both warpgroups are done with the W1 ring
+  }
+
+  // the f32 activation over the W1 ring: column k in chunk k / 32
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = wg * D + 8 * j + c;
+    uint8_t* chunk = sm + OFF_W1 + (col / KC) * A_BYTES;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(chunk + swz(rl + 8 * r, col % KC)) =
+          make_float2(h[4 * j + 2 * r], h[4 * j + 2 * r + 1]);
+  }
+  consumers_sync();
+
+  // out = act W2^T for columns [128 wg, 128 wg + 128)
+  float o[64];
+  int vs = 0;
+  uint32_t vph = 0;
+#pragma unroll 1
+  for (int t = 0; t < 2 * NCH; ++t) {
+    const int ch = t / 2, part = t % 2;
+    mbar_wait(v_full + 8 * vs, vph);
+    const uint8_t* achunk = sm + OFF_W1 + ch * A_BYTES;
+    const uint64_t db = sw128_desc(base + OFF_W2 + vs * W2_BYTES + wg * (W2_BYTES / 2), 1);
+#pragma unroll
+    for (int kk = 0; kk < KC / 8; ++kk) {
+      a_frag(achunk, rl, 8 * kk, q, fh[kk & 1], fl[kk & 1]);
+      wg_fence();
+      if (part == 0) {
+        wgmma_tf32_n128_rs(o, fl[kk & 1], db + 2 * kk, ch | kk);
+        wgmma_tf32_n128_rs(o, fh[kk & 1], db + 2 * kk, 1);
+      } else {
+        wgmma_tf32_n128_rs(o, fh[kk & 1], db + 2 * kk, 1);
+      }
+      wg_commit();
+      wg_wait<1>();
+      fence_regs(fh[(kk + 1) & 1]);
+      fence_regs(fl[(kk + 1) & 1]);
+    }
+    wg_wait<0>();
+    fence_regs(o);
+    fence_regs(fh[1]);
+    fence_regs(fl[1]);
+    mbar_arrive(v_empty + 8 * vs);
+    if (++vs == 2) {
+      vs = 0;
+      vph ^= 1;
+    }
+  }
+
+  // out = x + (o + b2), rows past the end not stored
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + rl + 8 * r;
+    if (row < R) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = wg * (D / 2) + 8 * j + c;
+        const float2 xv = *reinterpret_cast<const float2*>(x + static_cast<size_t>(row) * D + col);
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * D + col) =
+            make_float2(xv.x + (o[4 * j + 2 * r] + sb2[col]),
+                        xv.y + (o[4 * j + 2 * r + 1] + sb2[col + 1]));
+      }
+    }
+  }
+}
+
+// a 2-D f32 tensor map (inner, outer) with (32, box_outer) boxes in the
+// 128-byte swizzle; rows past the end read as zeros. 0 on success.
+int make_map(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer,
+             uint32_t box_outer) {
+  const uint64_t dims[2] = {inner, outer};
+  const uint32_t box[2] = {static_cast<uint32_t>(KC), box_outer};
+  return encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, 2, dims, box);
+}
+
+}  // namespace ffn32
+
 // a 2-D bf16 tensor map (inner, outer) with (64, box_outer) boxes in the
 // 128-byte swizzle; rows past the end read as zeros. 0 on success.
 int make_map(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer,
@@ -356,5 +687,34 @@ extern "C" int dim_ffn_bf16(int device, const void* x, const void* msg,
       xm, mm, w1m, w2m, static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(b1),
       static_cast<const uint16_t*>(g), static_cast<const uint16_t*>(beta),
       static_cast<const uint16_t*>(b2), static_cast<uint16_t*>(out), R);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 form: x, msg, out (R, 256) f32, x and msg 16-byte aligned; w1
+// (2, 512, 512) and w2 (2, 256, 512) f32, the TF32 hi and lo halves of the
+// nn.Linear (out, in) weights (ops/ffn.py::ffn_weights_tf32), 16-byte
+// aligned; b1, g, beta (512,), b2 (256,) f32. Modes as for dim_ffn_bf16.
+extern "C" int dim_ffn_f32(int device, const void* x, const void* msg, const void* w1,
+                           const void* b1, const void* g, const void* beta, const void* w2,
+                           const void* b2, void* out, int R, int mode, void* stream) {
+  namespace f = ffn32;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (mode != 0 && mode != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (R <= 0) return 0;
+  CUtensorMap xm, mm, w1m, w2m;
+  int rc = f::make_map(&xm, x, f::D, R, f::BM);
+  if (rc == 0) rc = f::make_map(&mm, msg, f::D, R, f::BM);
+  if (rc == 0) rc = f::make_map(&w1m, w1, f::D2, 2 * f::D2, f::D);
+  if (rc == 0) rc = f::make_map(&w2m, w2, f::D2, 2 * f::D, f::D);
+  if (rc != 0) return rc;
+  auto kernel = mode == 0 ? f::ffn_f32_sm90<0> : f::ffn_f32_sm90<1>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(R + f::BM - 1) / f::BM, f::THREADS, f::SMEM_BYTES,
+           static_cast<cudaStream_t>(stream)>>>(
+      xm, mm, w1m, w2m, static_cast<const float*>(x), static_cast<const float*>(b1),
+      static_cast<const float*>(g), static_cast<const float*>(beta),
+      static_cast<const float*>(b2), static_cast<float*>(out), R);
   return static_cast<int>(cudaGetLastError());
 }

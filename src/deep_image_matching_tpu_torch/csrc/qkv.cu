@@ -262,6 +262,186 @@ qkv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUten
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 form (dim_qkv_rotary_f32): the projection in split TF32 on the
+// tensor cores (lo.hi + hi.lo + hi.hi, hi = rna_tf32(x), lo = rna_tf32(x -
+// hi)), the bias and the rotary in f32 with f32 cos and sin. The weight comes
+// split once per model (hi then lo, (2, S 256, 256)).
+//
+// - One block takes 128 rows; the producer loads the f32 x tile once by TMA
+//   as eight 32-wide k-chunks in the 128-byte swizzle (128 KB, unsplit), then
+//   streams the weight through a ring of four 16 KB stages: a 32-wide chunk
+//   of 128 output rows, hi, then lo.
+// - Two consumer warpgroups, 64 rows each, read the A fragments of each
+//   8-deep step from the x tile, split them in registers and run wgmma
+//   m64n128k8 with A in registers (x lo.W hi and x hi.W hi on the hi stage,
+//   x hi.W lo on the lo stage) into 64 f32 registers a thread, two fragment
+//   sets in flight: one pass per 128 output columns.
+// - The epilogue adds the bias, applies the rotary (each product and the sum
+//   rounded once, as the plain version's f32 arithmetic) and stores each
+//   thread's column pairs straight into the (B, H, N, 64) f32 outputs, cos
+//   and sin read from global memory: 8-byte stores that fill whole 32-byte
+//   sectors, with no staging tile (the x tile and the ring take the shared
+//   memory).
+namespace qkv32 {
+
+constexpr int D = 256, HD = 64, HALF = 128, BM = 128;
+constexpr int KC = 32;                 // k per chunk: one 128-byte swizzle row of f32
+constexpr int NCH = D / KC;            // 8 chunks per pass
+constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128;
+constexpr int X_BYTES = BM * KC * 4;   // 16 KB: a chunk of the x tile
+constexpr int W_BYTES = HALF * KC * 4; // 16 KB: a chunk of 128 weight rows (hi or lo)
+constexpr int STAGES = 4;
+
+constexpr int OFF_X = 0;
+constexpr int OFF_W = OFF_X + NCH * X_BYTES;
+constexpr int OFF_BAR = OFF_W + STAGES * W_BYTES;  // u64: x, full[STAGES], empty[STAGES]
+constexpr int SMEM_BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
+
+// byte offset of element (row, k) of a chunk of 32 f32 columns in the
+// 128-byte swizzle
+__device__ __forceinline__ int swz(int row, int k) {
+  return row * 128 + ((((k >> 2) ^ row) & 7) << 4) + (k & 3) * 4;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+qkv_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+             const float* __restrict__ bias, const float* __restrict__ cosv,
+             const float* __restrict__ sinv, float* __restrict__ out0, float* __restrict__ out1,
+             float* __restrict__ out2, int R, int N, int sections, int rot_mask) {
+  extern __shared__ __align__(1024) uint8_t dyn_smem[];
+  const int tid = threadIdx.x;
+  uint32_t base = smem_u32(dyn_smem);
+  const uint32_t pad = (1024u - (base & 1023u)) & 1023u;
+  uint8_t* sm = dyn_smem + pad;
+  base += pad;
+  const uint32_t bar_x = base + OFF_BAR;
+  const uint32_t bar_full = bar_x + 8;                // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * STAGES;   // + 8 * stage
+  const int row0 = blockIdx.x * BM;
+  const int passes = sections * (D / HALF);
+
+  if (tid == 0) {
+    mbar_init(bar_x, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---------------- producer warpgroup: one thread issues ---------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == CONSUMERS) {
+      mbar_arrive_tx(bar_x, NCH * X_BYTES);
+      for (int ch = 0; ch < NCH; ++ch)
+        tma_load_2d(base + OFF_X + ch * X_BYTES, &xmap, bar_x, ch * KC, row0);
+      int stage = 0;
+      uint32_t phase = 0;
+      // stage t: chunk (t / 2) % 8 of pass t / 16's 128 rows, hi (t even) or
+      // lo (the rows sections * 256 on)
+      for (int t = 0; t < passes * NCH * 2; ++t) {
+        mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+        const uint32_t full = bar_full + 8 * stage;
+        mbar_arrive_tx(full, W_BYTES);
+        tma_load_2d(base + OFF_W + stage * W_BYTES, &wmap, full, ((t / 2) % NCH) * KC,
+                    (t % 2) * sections * D + (t / (2 * NCH)) * HALF);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumer warpgroups ------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int c = (lane % 4) * 2, q = lane % 4;
+  const int rl = warp * 16 + lane / 4;  // this thread's rows rl, rl + 8 of the 64
+  const int rt = wg * 64 + rl;          // the same rows of the tile
+
+  int stage = 0;
+  uint32_t phase = 0;
+  uint32_t fh[2][4], fl[2][4];
+  mbar_wait(bar_x, 0);
+#pragma unroll 1
+  for (int pass = 0; pass < passes; ++pass) {
+    const int sec = pass / (D / HALF), col0 = (pass % (D / HALF)) * HALF;
+    float acc[64];
+#pragma unroll 1
+    for (int t = 0; t < 2 * NCH; ++t) {
+      const int ch = t / 2, part = t % 2;
+      mbar_wait(bar_full + 8 * stage, phase);
+      const uint8_t* xc = sm + OFF_X + ch * X_BYTES;
+      const uint64_t db = sw128_desc(base + OFF_W + stage * W_BYTES, 1);
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        const int k0 = 8 * kk + q;
+        const float xv[4] = {*reinterpret_cast<const float*>(xc + swz(rt, k0)),
+                             *reinterpret_cast<const float*>(xc + swz(rt + 8, k0)),
+                             *reinterpret_cast<const float*>(xc + swz(rt, k0 + 4)),
+                             *reinterpret_cast<const float*>(xc + swz(rt + 8, k0 + 4))};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(xv[i], fh[kk & 1][i], fl[kk & 1][i]);
+        wg_fence();
+        if (part == 0) {
+          wgmma_tf32_n128_rs(acc, fl[kk & 1], db + 2 * kk, ch | kk);
+          wgmma_tf32_n128_rs(acc, fh[kk & 1], db + 2 * kk, 1);
+        } else {
+          wgmma_tf32_n128_rs(acc, fh[kk & 1], db + 2 * kk, 1);
+        }
+        wg_commit();
+        wg_wait<1>();
+        fence_regs(fh[(kk + 1) & 1]);
+        fence_regs(fl[(kk + 1) & 1]);
+      }
+      wg_wait<0>();
+      fence_regs(acc);
+      fence_regs(fh[1]);
+      fence_regs(fl[1]);
+      mbar_arrive(bar_empty + 8 * stage);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // + bias, the rotary, stored into the (B, H, N, 64) layout
+    const bool rot = (rot_mask >> sec) & 1;
+    float* o = sec == 0 ? out0 : sec == 1 ? out1 : out2;
+    const float* bp = bias + sec * D + col0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int grow = row0 + rt + 8 * r;
+      if (grow >= R) continue;
+      const int bb = grow / N, n = grow % N;
+#pragma unroll
+      for (int j = 0; j < HALF / 8; ++j) {
+        const int col = 8 * j + c, d = col % HD;
+        const float y0 = acc[4 * j + 2 * r] + bp[col];
+        const float y1 = acc[4 * j + 2 * r + 1] + bp[col + 1];
+        float2 v = make_float2(y0, y1);
+        if (rot) {
+          const size_t at = static_cast<size_t>(grow) * HD + d;
+          const float2 cs = *reinterpret_cast<const float2*>(cosv + at);
+          const float2 sn = *reinterpret_cast<const float2*>(sinv + at);
+          v.x = __fadd_rn(__fmul_rn(y0, cs.x), __fmul_rn(-y1, sn.x));
+          v.y = __fadd_rn(__fmul_rn(y1, cs.y), __fmul_rn(y0, sn.y));
+        }
+        const int head = (col0 + col) / HD;
+        *reinterpret_cast<float2*>(
+            o + ((static_cast<size_t>(bb) * (D / HD) + head) * N + n) * HD + d) = v;
+      }
+    }
+  }
+}
+
+}  // namespace qkv32
+
 }  // namespace
 
 // x (B N, 256) bf16; w (S 256, 256) bf16, rows section-contiguous, nn.Linear
@@ -295,5 +475,39 @@ extern "C" int dim_qkv_rotary_bf16(int device, const void* x, const void* w,
   qkv_sm90<<<(R + BM - 1) / BM, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       xm, wm, cos_map, sin_map, static_cast<const uint16_t*>(bias), static_cast<uint16_t*>(out0),
       static_cast<uint16_t*>(out1), static_cast<uint16_t*>(out2), R, N, sections, rot_mask);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 form: x (B N, 256) f32; w (2, S 256, 256) f32, the TF32 hi and
+// lo halves of the section-contiguous nn.Linear weight
+// (ops/qkv.py::weights_tf32); bias (S 256,) f32; cos, sin (B N, 64) f32 (may
+// be null when rot_mask is 0); x and w 16-byte aligned, cos and sin 8-byte
+// aligned; out0..out{S-1} (B, 4, N, 64) f32 (unused ones null). sections and
+// rot_mask as for dim_qkv_rotary_bf16.
+extern "C" int dim_qkv_rotary_f32(int device, const void* x, const void* w, const void* bias,
+                                  const void* cosv, const void* sinv, void* out0, void* out1,
+                                  void* out2, int R, int N, int sections, int rot_mask,
+                                  void* stream) {
+  namespace k = qkv32;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (sections < 1 || sections > 3 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (R <= 0) return 0;
+  CUtensorMap xm, wm;
+  const uint64_t xdims[2] = {k::D, static_cast<uint64_t>(R)};
+  const uint32_t xbox[2] = {k::KC, k::BM};
+  const uint64_t wdims[2] = {k::D, 2 * static_cast<uint64_t>(sections) * k::D};
+  const uint32_t wbox[2] = {k::KC, k::HALF};
+  int rc = encode_sw128(&xm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, 2, xdims, xbox);
+  if (rc == 0) rc = encode_sw128(&wm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, w, 2, wdims, wbox);
+  if (rc != 0) return rc;
+  err = cudaFuncSetAttribute(k::qkv_f32_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             k::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k::qkv_f32_sm90<<<(R + k::BM - 1) / k::BM, k::THREADS, k::SMEM_BYTES,
+                    static_cast<cudaStream_t>(stream)>>>(
+      xm, wm, static_cast<const float*>(bias), static_cast<const float*>(cosv),
+      static_cast<const float*>(sinv), static_cast<float*>(out0), static_cast<float*>(out1),
+      static_cast<float*>(out2), R, N, sections, rot_mask);
   return static_cast<int>(cudaGetLastError());
 }

@@ -103,12 +103,6 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ float tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
 // d (16 x 8, f32) += A (16 x 8, TF32, row) B (8 x 8, TF32, col)
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const float (&a)[4], float b0, float b1) {
   asm volatile(
@@ -158,8 +152,9 @@ refiner_block_kernel(const __grid_constant__ CUtensorMap map, const float* __res
     const int k = 8 * kt + (ln & 3), n = 8 * nt + (ln >> 2);
     const float wa = (k < C && n < C) ? w2[k * C + n] : 0.f;
     const float wb = (k + 4 < C && n < C) ? w2[(k + 4) * C + n] : 0.f;
-    const float ha = tf32(wa), hb = tf32(wb);
-    reinterpret_cast<float4*>(bfs)[i] = make_float4(ha, hb, tf32(wa - ha), tf32(wb - hb));
+    const float ha = sm90::rna_tf32(wa), hb = sm90::rna_tf32(wb);
+    reinterpret_cast<float4*>(bfs)[i] =
+        make_float4(ha, hb, sm90::rna_tf32(wa - ha), sm90::rna_tf32(wb - hb));
   }
   for (int n = tid; n < C8; n += THREADS) smem[L.b2 + n] = n < C ? b2[n] : 0.f;
   // the activations' K padding (channels C .. C8 - 1), which the depthwise
@@ -261,9 +256,9 @@ refiner_block_kernel(const __grid_constant__ CUtensorMap map, const float* __res
           a[3] = t;
           if (s >= 4) {
             const float h = fmaxf(out + bias, 0.f);
-            const float hi = tf32(h);
+            const float hi = sm90::rna_tf32(h);
             hh[it * Q * HS] = hi;
-            hh[it * Q * HS + 2 * L.hrow] = tf32(h - hi);
+            hh[it * Q * HS + 2 * L.hrow] = sm90::rna_tf32(h - hi);
           }
         }
       }

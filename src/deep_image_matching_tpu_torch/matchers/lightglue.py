@@ -3,8 +3,10 @@
 The config surface is the reference's (n_layers, depth_confidence,
 width_confidence, filter_threshold; ``mp`` and ``flash`` are accepted and
 ignored). Each pair batch runs one ``models/lightglue.py::forward`` on the
-device in ``tpu.dtype`` (bf16 by default; on CUDA the kernels take bf16
-only, so another dtype fails at start). With the default 0.95 / 0.99 the
+device in ``tpu.dtype`` (bf16 by default, or f32; on CUDA the kernels take
+those two, so another dtype fails at start; f32 runs under ``full_f32``,
+so no global TF32 setting lowers its plain products). With the default
+0.95 / 0.99 the
 adaptive path runs: the batch exits once every pair is token-confident, and
 confident-but-unmatchable points are masked out of later layers.
 
@@ -22,13 +24,14 @@ attention prologue (``models/lightglue.py``).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import torch
 
 from ..models.lightglue import (check_assignment_impl, check_attn_impl, forward,
                                 load_default_model, resolve_ffn_impl)
-from ..utils.device import check_matcher_dtype
+from ..utils.device import check_matcher_dtype, full_f32
 from .matcher_base import BatchedMatcher
 
 
@@ -62,18 +65,19 @@ class LightGlueMatcher(BatchedMatcher):
     def _match_batch_arrays(
         self, batch0: Dict[str, torch.Tensor], batch1: Dict[str, torch.Tensor]
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        out = forward(
-            self.model,
-            batch0["keypoints"], batch1["keypoints"],
-            batch0["descriptors"], batch1["descriptors"],
-            batch0["mask"], batch1["mask"],
-            batch0["image_size"].float(), batch1["image_size"].float(),
-            filter_threshold=self.filter_threshold,
-            depth_confidence=self.depth_confidence,
-            width_confidence=self.width_confidence,
-            compute_dtype=self.compute_dtype,
-            attn_impl=self.attn_impl,
-            ffn_impl=self.ffn_impl,
-            assignment_impl=self.assignment_impl,
-        )
+        with full_f32() if self.compute_dtype == torch.float32 else contextlib.nullcontext():
+            out = forward(
+                self.model,
+                batch0["keypoints"], batch1["keypoints"],
+                batch0["descriptors"], batch1["descriptors"],
+                batch0["mask"], batch1["mask"],
+                batch0["image_size"].float(), batch1["image_size"].float(),
+                filter_threshold=self.filter_threshold,
+                depth_confidence=self.depth_confidence,
+                width_confidence=self.width_confidence,
+                compute_dtype=self.compute_dtype,
+                attn_impl=self.attn_impl,
+                ffn_impl=self.ffn_impl,
+                assignment_impl=self.assignment_impl,
+            )
         return out["matches0"], out["valid0"]

@@ -4,18 +4,21 @@ The reference's config surface: ``weights`` (indoor / outdoor, read from
 ``superglue_{weights}.pth``), ``match_threshold`` and
 ``sinkhorn_iterations``. Each pair batch runs one
 ``models/superglue.py::forward`` on the device in ``tpu.dtype`` (bf16 by
-default; on CUDA the attention and FFN kernels take bf16 only, so another
-dtype fails at start), with the folded parameters made once at start.
+default, or f32; on CUDA the attention and FFN kernels take those two, so
+another dtype fails at start; f32 runs under ``full_f32``, so no global TF32
+setting lowers its plain products), with the folded parameters (and in f32
+the FFN weights' TF32 halves) made once at start.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import torch
 
 from ..models.superglue import forward, load_default_model
-from ..utils.device import check_matcher_dtype
+from ..utils.device import check_matcher_dtype, full_f32
 from .matcher_base import BatchedMatcher
 
 
@@ -39,16 +42,17 @@ class SuperGlueMatcher(BatchedMatcher):
     def _match_batch_arrays(
         self, batch0: Dict[str, torch.Tensor], batch1: Dict[str, torch.Tensor]
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        out = forward(
-            self.model,
-            batch0["keypoints"], batch1["keypoints"],
-            batch0["scores"], batch1["scores"],
-            batch0["descriptors"], batch1["descriptors"],
-            batch0["mask"], batch1["mask"],
-            batch0["image_size"].float(), batch1["image_size"].float(),
-            sinkhorn_iterations=self.sinkhorn_iterations,
-            match_threshold=self.match_threshold,
-            compute_dtype=self.compute_dtype,
-            params=self.params,
-        )
+        with full_f32() if self.compute_dtype == torch.float32 else contextlib.nullcontext():
+            out = forward(
+                self.model,
+                batch0["keypoints"], batch1["keypoints"],
+                batch0["scores"], batch1["scores"],
+                batch0["descriptors"], batch1["descriptors"],
+                batch0["mask"], batch1["mask"],
+                batch0["image_size"].float(), batch1["image_size"].float(),
+                sinkhorn_iterations=self.sinkhorn_iterations,
+                match_threshold=self.match_threshold,
+                compute_dtype=self.compute_dtype,
+                params=self.params,
+            )
         return out["matches0"], out["valid0"]

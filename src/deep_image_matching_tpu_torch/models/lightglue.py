@@ -30,6 +30,11 @@ layers. The JAX package's two opt-ins are honoured:
   the width is a multiple of 128 and so is the number of rows; the cross
   block fuses only when both sides have one shape. Its weights are permuted
   once per model, dtype and device.
+
+In float32 on CUDA the kernels run their float32 forms (split TF32 on the
+tensor cores); the FFN's and the fused prologue's weights are split into
+TF32 halves once per model and device (``LightGlue.tf32_weights``), and cos
+and sin stay f32.
 """
 
 from __future__ import annotations
@@ -48,8 +53,9 @@ import torch.nn.functional as F
 from ..ops.assignment import filter_matches_fused, log_assignment_dense
 from ..ops.attention import fused_attention
 from ..ops.bidir_attention import bidir_cross_attention
-from ..ops.ffn import ffn_fused, ffn_xla
-from ..ops.qkv import qk_v_fused, qk_v_weights, qkv_rotary_fused, qkv_weights, rotate_half
+from ..ops.ffn import ffn_fused, ffn_weights_tf32, ffn_xla
+from ..ops.qkv import (qk_v_fused, qk_v_weights, qkv_rotary_fused, qkv_weights, rotate_half,
+                       weights_tf32)
 
 logger = logging.getLogger("dim_tpu_torch")
 
@@ -169,7 +175,8 @@ class LightGlue(nn.Module):
         self.token_confidence = nn.ModuleList(
             [_Token(dim) for _ in range(n_layers - 1)]
         )
-        # the fused prologue's permuted weights by (dtype, device)
+        # the fused prologue's permuted weights by (dtype, device), and the
+        # f32 kernels' TF32 halves by ("tf32", dtype, device)
         self._prologue: Dict[tuple, list] = {}
 
     def load_state_dict(self, *args, **kwargs):
@@ -193,6 +200,27 @@ class LightGlue(nn.Module):
                     "cross": qk_v_weights(p[f"{c}.to_qk.weight"], p[f"{c}.to_qk.bias"],
                                           p[f"{c}.to_v.weight"], p[f"{c}.to_v.bias"]),
                 })
+            self._prologue[key] = out
+        return self._prologue[key]
+
+    def tf32_weights(self, p: Dict[str, torch.Tensor]) -> list:
+        """Per layer, the TF32 halves that the float32 kernels read: each
+        block's FFN weights (``ffn_weights_tf32``) and the fused prologue's
+        permuted weights (``weights_tf32``), built from ``p`` (the parameters
+        in f32) once per device."""
+        w = p["transformers.0.self_attn.Wqkv.weight"]
+        key = ("tf32", w.dtype, w.device)
+        if key not in self._prologue:
+            pro = self.prologue_weights(p)
+            out = []
+            for i in range(self.n_layers):
+                t = f"transformers.{i}"
+                layer = {blk: ffn_weights_tf32(p[f"{t}.{blk}.ffn.0.weight"],
+                                               p[f"{t}.{blk}.ffn.3.weight"])
+                         for blk in ("self_attn", "cross_attn")}
+                layer["self"] = weights_tf32(pro[i]["self"][0])
+                layer["cross"] = weights_tf32(pro[i]["cross"][0])
+                out.append(layer)
             self._prologue[key] = out
         return self._prologue[key]
 
@@ -251,13 +279,14 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, N, H * hd)
 
 
-def _ffn(x, msg, p, prefix, impl="fused"):
+def _ffn(x, msg, p, prefix, impl="fused", split=None):
     """The FFN of block ``prefix``: kernel 2 for "fused" (any row count; on
-    CUDA it takes D = 256 and raises otherwise), ``ffn_xla`` for "xla"."""
-    fn = ffn_fused if impl == "fused" else ffn_xla
-    return fn(x, msg, p[f"{prefix}.ffn.0.weight"], p[f"{prefix}.ffn.0.bias"],
-              p[f"{prefix}.ffn.1.weight"], p[f"{prefix}.ffn.1.bias"],
-              p[f"{prefix}.ffn.3.weight"], p[f"{prefix}.ffn.3.bias"])
+    CUDA it takes D = 256 and raises otherwise; ``split``: its weights' TF32
+    halves for the f32 form), ``ffn_xla`` for "xla"."""
+    args = (x, msg, p[f"{prefix}.ffn.0.weight"], p[f"{prefix}.ffn.0.bias"],
+            p[f"{prefix}.ffn.1.weight"], p[f"{prefix}.ffn.1.bias"],
+            p[f"{prefix}.ffn.3.weight"], p[f"{prefix}.ffn.3.bias"])
+    return ffn_fused(*args, split=split) if impl == "fused" else ffn_xla(*args)
 
 
 def _lin(x, p, prefix):
@@ -295,25 +324,29 @@ def cross_prologue(x, p, c, num_heads):
             _heads(_lin(x, p, f"{c}.to_v"), num_heads))
 
 
-def _self_block(x, enc, mask, p, t, num_heads, fused=None, ffn_impl="fused"):
+def _self_block(x, enc, mask, p, t, num_heads, fused=None, ffn_impl="fused", split=None):
     """``fused``: the layer's prologue weights (``LightGlue.prologue_weights``),
-    used when the fused prologue runs."""
+    used when the fused prologue runs; ``split``: the layer's TF32 halves
+    (``LightGlue.tf32_weights``) in float32, else None."""
     cos, sin = enc
     if fused is not None and _prologue_fused_ok(x, ffn_impl):
-        q, k, v = qkv_rotary_fused(x, *fused["self"], cos, sin, num_heads)
+        q, k, v = qkv_rotary_fused(x, *fused["self"], cos, sin, num_heads,
+                                   split=None if split is None else split["self"])
     else:
         q, k, v = self_prologue(x, p, t, cos, sin, num_heads)
     ctx = fused_attention(q, k, v, mask, mask, q.shape[-1] ** -0.5)
     msg = _lin(_merge(ctx), p, f"{t}.self_attn.out_proj")
-    return _ffn(x, msg, p, f"{t}.self_attn", ffn_impl)
+    return _ffn(x, msg, p, f"{t}.self_attn", ffn_impl,
+                None if split is None else split["self_attn"])
 
 
 def _cross_block(x0, x1, mask0, mask1, p, t, num_heads, attn_impl="flash", fused=None,
-                 ffn_impl="fused"):
+                 ffn_impl="fused", split=None):
     c = f"{t}.cross_attn"
     if fused is not None and _prologue_fused_ok(x0, ffn_impl) and x0.shape == x1.shape:
-        qk0, v0 = qk_v_fused(x0, *fused["cross"], num_heads)
-        qk1, v1 = qk_v_fused(x1, *fused["cross"], num_heads)
+        wsplit = None if split is None else split["cross"]
+        qk0, v0 = qk_v_fused(x0, *fused["cross"], num_heads, split=wsplit)
+        qk1, v1 = qk_v_fused(x1, *fused["cross"], num_heads, split=wsplit)
     else:
         qk0, v0 = cross_prologue(x0, p, c, num_heads)
         qk1, v1 = cross_prologue(x1, p, c, num_heads)
@@ -328,7 +361,8 @@ def _cross_block(x0, x1, mask0, mask1, p, t, num_heads, attn_impl="flash", fused
         m1 = fused_attention(qk1, qk0, v0, mask1, mask0, scale)
     m0 = _lin(_merge(m0), p, f"{c}.to_out")
     m1 = _lin(_merge(m1), p, f"{c}.to_out")
-    return _ffn(x0, m0, p, c, ffn_impl), _ffn(x1, m1, p, c, ffn_impl)
+    fsplit = None if split is None else split["cross_attn"]
+    return _ffn(x0, m0, p, c, ffn_impl, fsplit), _ffn(x1, m1, p, c, ffn_impl, fsplit)
 
 
 def _assign_inputs(desc0, desc1, p, i):
@@ -403,8 +437,9 @@ def forward(
     layer's head. ``width_confidence > 0`` masks confident-but-unmatchable
     points out of later layers and the assignment, per pair while it holds
     more than ``pruning_min_kpts`` points. ``compute_dtype`` bf16 runs the
-    transformer in bf16 (f32 accumulation and softmax); assignment scores
-    stay f32. ``attn_impl`` "bidir" runs the cross attention on kernel 6
+    transformer in bf16 (f32 accumulation and softmax); f32 runs it in f32,
+    through the kernels' float32 forms on CUDA; assignment scores stay
+    f32. ``attn_impl`` "bidir" runs the cross attention on kernel 6
     (``ATTN_IMPLS``); ``ffn_impl`` and ``assignment_impl`` pick the FFN and
     assignment routes (``FFN_IMPLS``, ``ASSIGNMENT_IMPLS``). Returns
     matches0 (B, M) int32, matching_scores0, valid0 and layers_run (int)."""
@@ -424,8 +459,11 @@ def forward(
 
     fused = (model.prologue_weights(p)
              if os.environ.get("DIM_TPU_FUSED_PROLOGUE", "0") == "1" else None)
+    # the float32 kernels' TF32 halves of the weights, made once per model
+    splits = model.tf32_weights(p) if compute_dtype == torch.float32 else None
     wr = p["posenc.Wr.weight"].T
-    # every rotary use rounds cos and sin to the compute dtype: round them once
+    # every rotary use rounds cos and sin to the compute dtype: round them
+    # once (in f32 they stay as they are)
     enc0 = tuple(e.to(compute_dtype)
                  for e in rotary_encoding(normalize_keypoints(kpts0, size0), wr))
     enc1 = tuple(e.to(compute_dtype)
@@ -444,10 +482,11 @@ def forward(
     for i in range(n_layers):
         t = f"transformers.{i}"
         fl = None if fused is None else fused[i]
-        desc0 = _self_block(desc0, enc0, mask0, p, t, num_heads, fl, ffn_impl)
-        desc1 = _self_block(desc1, enc1, mask1, p, t, num_heads, fl, ffn_impl)
+        sl = None if splits is None else splits[i]
+        desc0 = _self_block(desc0, enc0, mask0, p, t, num_heads, fl, ffn_impl, sl)
+        desc1 = _self_block(desc1, enc1, mask1, p, t, num_heads, fl, ffn_impl, sl)
         desc0, desc1 = _cross_block(desc0, desc1, mask0, mask1, p, t, num_heads, attn_impl, fl,
-                                    ffn_impl)
+                                    ffn_impl, sl)
         if not (do_stop or do_prune):
             continue
         last = i == n_layers - 1

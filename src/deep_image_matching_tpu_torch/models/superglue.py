@@ -37,7 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import fused_attention
-from ..ops.ffn import ffn_fused
+from ..ops.ffn import ffn_fused, ffn_weights_tf32
 from ..ops.sinkhorn import sinkhorn_fused
 
 logger = logging.getLogger("dim_tpu_torch")
@@ -115,7 +115,10 @@ class SuperGlue(nn.Module):
 
     def folded_params(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
         """Every 1x1 conv as an ``nn.Linear`` (out, in) weight and bias in
-        ``dtype``, each BatchNorm folded into the conv before it in f32."""
+        ``dtype``, each BatchNorm folded into the conv before it in f32; in
+        float32 also each propagation MLP's weights split into TF32 halves
+        (``{g}.mlp.0.weight_tf32``, ``{g}.mlp.3.weight_tf32``), which the
+        FFN kernel's float32 form reads."""
         sd = self.state_dict()
         out: Dict[str, torch.Tensor] = {}
 
@@ -141,6 +144,12 @@ class SuperGlue(nn.Module):
             conv(f"{g}.mlp.3")
         conv("final_proj")
         out["bin_score"] = sd["bin_score"].float()
+        if dtype == torch.float32:
+            # the TF32 halves the FFN kernel's float32 form reads, made once
+            for i in range(len(self.gnn.layers)):
+                g = f"gnn.layers.{i}.mlp"
+                out[f"{g}.0.weight_tf32"], out[f"{g}.3.weight_tf32"] = ffn_weights_tf32(
+                    out[f"{g}.0.weight"], out[f"{g}.3.weight"])
         return out
 
 
@@ -190,8 +199,11 @@ def _mha(x, source, q_mask, kv_mask, p, g, num_heads):
 def _prop(x, source, q_mask, kv_mask, p, g, num_heads):
     """x + MLP([x | message]) through the FFN kernel's relu mode."""
     msg = _mha(x, source, q_mask, kv_mask, p, g, num_heads)
+    split = None
+    if f"{g}.mlp.0.weight_tf32" in p:  # float32: the weights' TF32 halves
+        split = (p[f"{g}.mlp.0.weight_tf32"], p[f"{g}.mlp.3.weight_tf32"])
     return ffn_fused(x, msg, p[f"{g}.mlp.0.weight"], p[f"{g}.mlp.0.bias"], None, None,
-                     p[f"{g}.mlp.3.weight"], p[f"{g}.mlp.3.bias"], mode="relu")
+                     p[f"{g}.mlp.3.weight"], p[f"{g}.mlp.3.bias"], mode="relu", split=split)
 
 
 def masked_log_optimal_transport(scores, mask0, mask1, alpha, iters: int) -> torch.Tensor:

@@ -31,18 +31,20 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("attention.cu", "ffn.cu", "assignment.cu", "nullspace.cu", "nn.cu",
            "sinkhorn.cu", "refiner.cu", "bidir_attention.cu", "qkv.cu")
-# attention_sm90.cuh is included by attention.cu and bidir_attention.cu;
-# sm90_common.cuh (mbarriers, TMA, wgmma helpers) by it, sinkhorn.cu, ffn.cu,
-# assignment.cu, qkv.cu and refiner.cu
-HEADERS = ("attention_sm90.cuh", "sm90_common.cuh")
+# attention_sm90.cuh and attention_f32_sm90.cuh are included by attention.cu
+# and bidir_attention.cu; sm90_common.cuh (mbarriers, TMA, wgmma helpers) by
+# both, sinkhorn.cu, ffn.cu, assignment.cu, qkv.cu and refiner.cu
+HEADERS = ("attention_sm90.cuh", "attention_f32_sm90.cuh", "sm90_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# the float32 forms of kernels 1, 2, 6 and 10 count apart from the bf16 ones
 LAUNCHES: Dict[str, int] = {
     "attention": 0, "ffn": 0, "assignment": 0, "nullspace": 0, "nn": 0,
     "sinkhorn": 0, "lse_rows": 0, "refiner": 0, "bidir_attention": 0, "qkv": 0,
+    "attention_f32": 0, "ffn_f32": 0, "bidir_attention_f32": 0, "qkv_f32": 0,
 }
 
 _P = ctypes.c_void_p
@@ -60,7 +62,15 @@ _SIGNATURES = {
     "dim_refiner_block": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dim_bidir_attention_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "dim_qkv_rotary_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dim_attention_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "dim_ffn_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "dim_bidir_attention_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _F, _P],
+    "dim_qkv_rotary_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
+
+# the dtypes of the kernels with a bf16 and a float32 form
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 _lib = None
 _lock = threading.Lock()
@@ -157,3 +167,29 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
         raise ValueError(f"{name}: must be contiguous")
     if t.data_ptr() % align:
         raise ValueError(f"{name}: data pointer must be {align}-byte aligned")
+
+
+def kernel_dtype(name: str, *tensors: torch.Tensor) -> torch.dtype:
+    """The one dtype of ``tensors`` if it is bf16 or f32 (kernels 1, 2, 6
+    and 10 have a form for each); raise on any other dtype or on a mix,
+    naming the two the kernel takes."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in KERNEL_DTYPES:
+        raise ValueError(
+            f"{name}: dtypes {sorted(str(d) for d in dtypes)}; the kernel takes all operands "
+            "in one dtype, torch.bfloat16 or torch.float32")
+    return dtypes.pop()
+
+
+def tf32_split(t: torch.Tensor) -> torch.Tensor:
+    """(2, *t.shape) f32: hi = rna_tf32(t) and lo = rna_tf32(t - hi), the
+    TF32 halves of the split-TF32 products (``cvt.rna.tf32.f32``: 10 mantissa
+    bits, ties away from zero, i.e. the low 13 bits cleared after adding
+    0x1000 to the word), computed with integer operations on any device."""
+
+    def rna(x):
+        bits = x.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(t)
+    return torch.stack([hi, rna(t.float() - hi)])

@@ -1,7 +1,8 @@
 """Masked multi-head attention for the matching transformer (kernel 1).
 
 ``fused_attention`` launches the CUDA kernel of ``csrc/attention.cu`` for
-CUDA tensors and runs ``attention_reference`` for CPU tensors. Layouts are
+CUDA tensors (its bf16 form, or its float32 form in split TF32) and runs
+``attention_reference`` for CPU tensors. Layouts are
 the JAX package's: (B, H, T, hd) heads, (B, T) bool padding masks.
 """
 
@@ -44,7 +45,8 @@ def fused_attention(
 
     Rows of masked queries are undefined (the JAX package's flash route and
     its dense route disagree there too): compare valid rows only. On CUDA the
-    kernel takes bf16, hd = 64, contiguous tensors and raises otherwise.
+    kernel takes q, k and v all in bf16 or all in f32 (its split-TF32 form),
+    hd = 64, contiguous tensors and raises otherwise.
     """
     if not q.is_cuda:
         return attention_reference(q, k, v, kv_mask, sm_scale)
@@ -52,18 +54,31 @@ def fused_attention(
     Tk = k.shape[2]
     if hd != 64:
         raise ValueError(f"attention kernel takes head dim 64, got {hd}")
+    dt = _lib.kernel_dtype("attention", q, k, v)
     for name, t, shape in (("q", q, (B, H, Tq, hd)), ("k", k, (B, H, Tk, hd)),
                            ("v", v, (B, H, Tk, hd))):
-        _lib.check_cuda(name, t, torch.bfloat16, shape, q.device)
+        _lib.check_cuda(name, t, dt, shape, q.device)
     for name, m, n in (("q_mask", q_mask, Tq), ("kv_mask", kv_mask, Tk)):
         if m is not None:
             _lib.check_cuda(name, m, torch.bool, (B, n), q.device, align=1)
     out = torch.empty_like(q)
+    masks = (None if q_mask is None else q_mask.data_ptr(),
+             None if kv_mask is None else kv_mask.data_ptr())
+    if dt == torch.bfloat16:
+        _lib.launch(
+            "attention", "dim_attention_bf16", q.device.index, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), *masks,
+            out.data_ptr(), B, H, Tq, Tk, float(sm_scale), _lib.stream_of(q),
+        )
+        return out
+    # the split pass's scratch: Q's and K's TF32 halves, V's transposed
+    # halves with the keys rounded up to 8
+    qs = torch.empty((2,) + q.shape, dtype=dt, device=q.device)
+    ks = torch.empty((2,) + k.shape, dtype=dt, device=q.device)
+    vs = torch.empty(2, B * H, hd, -(-Tk // 8) * 8, dtype=dt, device=q.device)
     _lib.launch(
-        "attention", "dim_attention_bf16", q.device.index, q.data_ptr(),
-        k.data_ptr(), v.data_ptr(),
-        None if q_mask is None else q_mask.data_ptr(),
-        None if kv_mask is None else kv_mask.data_ptr(),
-        out.data_ptr(), B, H, Tq, Tk, float(sm_scale), _lib.stream_of(q),
+        "attention_f32", "dim_attention_f32", q.device.index, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), *masks, out.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), B, H, Tq, Tk, float(sm_scale), _lib.stream_of(q),
     )
     return out

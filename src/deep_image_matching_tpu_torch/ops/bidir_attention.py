@@ -3,7 +3,8 @@
 ``S = qk0 . qk1^T / sqrt(d)``, ``m0 = softmax_rows(S) . v1``,
 ``m1 = softmax_rows(S^T) . v0``, with padding masks entering as -1e30
 biases on both sides of S. ``bidir_cross_attention`` launches the CUDA
-kernel of ``csrc/bidir_attention.cu`` for CUDA tensors and runs
+kernel of ``csrc/bidir_attention.cu`` for CUDA tensors (its bf16 form, or
+its float32 form in split TF32) and runs
 ``bidir_cross_attention_reference`` for CPU tensors. Layouts are the JAX
 package's: (B, H, M, d) and (B, H, N, d) heads, (B, M) / (B, N) bool masks.
 """
@@ -39,9 +40,9 @@ def bidir_cross_attention(qk0, qk1, v0, v1, mask0, mask1):
 
     Rows of masked tokens are undefined (the kernel averages the other
     side's valid tokens there, the dense reference all of them): compare
-    valid rows only. On CUDA the kernel takes bf16, d = 64, contiguous
-    tensors and raises otherwise; any M and N work (the kernel masks the
-    ragged tiles).
+    valid rows only. On CUDA the kernel takes qk0, qk1, v0 and v1 all in
+    bf16 or all in f32 (its split-TF32 form), d = 64, contiguous tensors and
+    raises otherwise; any M and N work (the kernel masks the ragged tiles).
     """
     if not qk0.is_cuda:
         return bidir_cross_attention_reference(qk0, qk1, v0, v1, mask0, mask1)
@@ -50,17 +51,28 @@ def bidir_cross_attention(qk0, qk1, v0, v1, mask0, mask1):
     if d != 64:
         raise ValueError(f"bidir attention kernel takes head dim 64, got {d}")
     dev = qk0.device
+    dt = _lib.kernel_dtype("bidir attention", qk0, qk1, v0, v1)
     for name, t, shape in (("qk0", qk0, (B, H, M, d)), ("qk1", qk1, (B, H, N, d)),
                            ("v0", v0, (B, H, M, d)), ("v1", v1, (B, H, N, d))):
-        _lib.check_cuda(name, t, torch.bfloat16, shape, dev)
+        _lib.check_cuda(name, t, dt, shape, dev)
     _lib.check_cuda("mask0", mask0, torch.bool, (B, M), dev, align=1)
     _lib.check_cuda("mask1", mask1, torch.bool, (B, N), dev, align=1)
     o0, o1 = torch.empty_like(qk0), torch.empty_like(qk1)
     if B * H == 0 or M + N == 0:
         return o0, o1
-    _lib.launch(
-        "bidir_attention", "dim_bidir_attention_bf16", dev.index, qk0.data_ptr(),
-        qk1.data_ptr(), v0.data_ptr(), v1.data_ptr(), mask0.data_ptr(), mask1.data_ptr(),
-        o0.data_ptr(), o1.data_ptr(), B, H, M, N, float(d ** -0.5), _lib.stream_of(qk0),
-    )
+    args = (qk0.data_ptr(), qk1.data_ptr(), v0.data_ptr(), v1.data_ptr(), mask0.data_ptr(),
+            mask1.data_ptr(), o0.data_ptr(), o1.data_ptr())
+    if dt == torch.bfloat16:
+        _lib.launch("bidir_attention", "dim_bidir_attention_bf16", dev.index, *args,
+                    B, H, M, N, float(d ** -0.5), _lib.stream_of(qk0))
+        return o0, o1
+    # the split pass's scratch: each side's TF32 halves and its values'
+    # transposed halves, the keys rounded up to 8
+    s0 = torch.empty((2,) + qk0.shape, dtype=dt, device=dev)
+    s1 = torch.empty((2,) + qk1.shape, dtype=dt, device=dev)
+    t0 = torch.empty(2, B * H, d, -(-M // 8) * 8, dtype=dt, device=dev)
+    t1 = torch.empty(2, B * H, d, -(-N // 8) * 8, dtype=dt, device=dev)
+    _lib.launch("bidir_attention_f32", "dim_bidir_attention_f32", dev.index, *args,
+                s0.data_ptr(), s1.data_ptr(), t0.data_ptr(), t1.data_ptr(),
+                B, H, M, N, float(d ** -0.5), _lib.stream_of(qk0))
     return o0, o1

@@ -4,7 +4,9 @@
 is ``GELU(LN(h) * g + beta)`` in mode "ln_gelu" (LightGlue) and ``relu(h)``
 in mode "relu" (SuperGlue's propagation MLP, BatchNorm folded into W1; g and
 beta are ignored). ``ffn_fused`` launches the CUDA kernel of ``csrc/ffn.cu``
-for CUDA tensors and runs ``ffn_reference`` for CPU tensors. Weights are in
+for CUDA tensors (its bf16 form, or its float32 form in split TF32, whose
+weights come split into TF32 halves once per model: ``ffn_weights_tf32``)
+and runs ``ffn_reference`` for CPU tensors. Weights are in
 ``nn.Linear`` (out, in) layout: ``w1`` (2D, 2D), ``w2`` (D, 2D).
 """
 
@@ -58,10 +60,20 @@ def ffn_xla(x, msg, w1, b1, g, beta, w2, b2) -> torch.Tensor:
     return x + y
 
 
-def ffn_fused(x, msg, w1, b1, g, beta, w2, b2, mode: str = "ln_gelu") -> torch.Tensor:
-    """Fused FFN; on CUDA the kernel takes bf16 everywhere and D = 256 and
-    raises otherwise. Any row count works: the kernel masks the last tile.
-    In mode "relu", ``g`` and ``beta`` are not read and may be None."""
+def ffn_weights_tf32(w1, w2):
+    """The TF32 halves (hi, then lo) of both weights, (2, 2D, 2D) and
+    (2, D, 2D), as the float32 kernel takes them: made once per model and
+    dtype by the callers (``models/lightglue.py``, ``models/superglue.py``)."""
+    return _lib.tf32_split(w1), _lib.tf32_split(w2)
+
+
+def ffn_fused(x, msg, w1, b1, g, beta, w2, b2, mode: str = "ln_gelu",
+              split=None) -> torch.Tensor:
+    """Fused FFN; on CUDA the kernel takes every tensor in bf16, or every one
+    in f32 (its split-TF32 form), D = 256, and raises otherwise. Any row
+    count works: the kernel masks the last tile. In mode "relu", ``g`` and
+    ``beta`` are not read and may be None. ``split``: ``ffn_weights_tf32(w1,
+    w2)``, which the f32 kernel reads; made here when not given."""
     if mode not in _MODES:
         raise ValueError(f"FFN mode {mode!r}; expected one of {sorted(_MODES)}")
     if not x.is_cuda:
@@ -70,16 +82,21 @@ def ffn_fused(x, msg, w1, b1, g, beta, w2, b2, mode: str = "ln_gelu") -> torch.T
     if D != 256:
         raise ValueError(f"FFN kernel takes width 256, got {D}")
     dev = x.device
-    bf16 = torch.bfloat16
     checks = [("x", x, (B, K, D)), ("msg", msg, (B, K, D)), ("w1", w1, (2 * D, 2 * D)),
               ("b1", b1, (2 * D,)), ("w2", w2, (D, 2 * D)), ("b2", b2, (D,))]
     if mode == "ln_gelu":
         checks += [("g", g, (2 * D,)), ("beta", beta, (2 * D,))]
+    dt = _lib.kernel_dtype("FFN", *(t for _, t, _ in checks))
+    if dt == torch.float32:
+        w1, w2 = ffn_weights_tf32(w1, w2) if split is None else split
+        checks[2] = ("w1 halves", w1, (2, 2 * D, 2 * D))
+        checks[4] = ("w2 halves", w2, (2, D, 2 * D))
     for name, t, shape in checks:
-        _lib.check_cuda(name, t, bf16, shape, dev)
+        _lib.check_cuda(name, t, dt, shape, dev)
     out = torch.empty_like(x)
+    kernel, entry = ("ffn", "dim_ffn_bf16") if dt == torch.bfloat16 else ("ffn_f32", "dim_ffn_f32")
     _lib.launch(
-        "ffn", "dim_ffn_bf16", dev.index, x.data_ptr(), msg.data_ptr(),
+        kernel, entry, dev.index, x.data_ptr(), msg.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), None if mode == "relu" else g.data_ptr(),
         None if mode == "relu" else beta.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         out.data_ptr(), B * K, _MODES[mode], _lib.stream_of(x),

@@ -4,8 +4,11 @@
 bias added in f32), splits y into ``n_sections`` D-wide sections, unpacks
 each into (B, H, N, hd) heads and applies the rotary embedding to the
 sections in ``rot``: ``t * cos + rotate_half(y) * sin`` in the compute
-dtype, with t, cos, sin and rotate_half(y) rounded to it. It launches the CUDA kernel of ``csrc/qkv.cu`` for
-CUDA tensors and runs ``proj_rotary_reference`` for CPU tensors.
+dtype, with t, cos, sin and rotate_half(y) rounded to it. It launches the
+CUDA kernel of ``csrc/qkv.cu`` for CUDA tensors (its bf16 form, or its
+float32 form in split TF32, whose weight comes split into TF32 halves once
+per model: ``weights_tf32``) and runs ``proj_rotary_reference`` for CPU
+tensors.
 
 The weight is in ``nn.Linear`` (out, in) layout with section-contiguous
 output rows. ``qkv_weights`` permutes the self block's fused ``Wqkv`` (output
@@ -49,6 +52,13 @@ def qk_v_weights(w_qk, b_qk, w_v, b_v):
     return torch.cat([w_qk, w_v]).contiguous(), torch.cat([b_qk, b_v]).contiguous()
 
 
+def weights_tf32(w: torch.Tensor) -> torch.Tensor:
+    """The TF32 halves (hi, then lo) of a section-contiguous weight, (2,
+    n_sections*D, D), as the float32 kernel takes them; callers make them once
+    per model and dtype (``models/lightglue.py``)."""
+    return _lib.tf32_split(w)
+
+
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
     """out[2i] = -x[2i+1], out[2i+1] = x[2i] along the last axis."""
     x = x.unflatten(-1, (-1, 2))
@@ -82,13 +92,15 @@ def proj_rotary_reference(x, w, b, cos, sin, num_heads: int, n_sections: int = 3
 
 
 def proj_rotary_fused(x, w, b, cos, sin, num_heads: int, n_sections: int = 3,
-                      rot: Sequence[int] = (0, 1)) -> Tuple[torch.Tensor, ...]:
+                      rot: Sequence[int] = (0, 1), split=None) -> Tuple[torch.Tensor, ...]:
     """x (B, N, D); w (n_sections*D, D) section-contiguous rows; b
     (n_sections*D,); cos, sin (B, N, hd), f32 or already rounded to
     ``x.dtype`` as the rotary rounds them (ignored, and may be None, when
     ``rot`` is empty). Returns ``n_sections`` (B, H, N, hd) tensors in
-    ``x.dtype``. On CUDA the kernel takes bf16, D = 256, hd = 64 and raises
-    otherwise; any row count works."""
+    ``x.dtype``. On CUDA the kernel takes x, w and b all in bf16 or all in
+    f32 (its split-TF32 form, with f32 cos and sin), D = 256, hd = 64 and
+    raises otherwise; any row count works. ``split``: ``weights_tf32(w)``,
+    which the f32 kernel reads; made here when not given."""
     rot = tuple(rot)
     if not x.is_cuda:
         return proj_rotary_reference(x, w, b, cos, sin, num_heads, n_sections, rot)
@@ -98,34 +110,42 @@ def proj_rotary_fused(x, w, b, cos, sin, num_heads: int, n_sections: int = 3,
     if n_sections not in (2, 3) or any(s not in range(n_sections) for s in rot):
         raise ValueError(f"qkv kernel: {n_sections} sections with rotary on {rot}")
     dev = x.device
-    bf16 = torch.bfloat16
-    _lib.check_cuda("x", x, bf16, (B, N, D), dev)
-    _lib.check_cuda("w", w, bf16, (n_sections * D, D), dev)
-    _lib.check_cuda("b", b, bf16, (n_sections * D,), dev)
+    dt = _lib.kernel_dtype("qkv", x, w, b)
+    _lib.check_cuda("x", x, dt, (B, N, D), dev)
+    _lib.check_cuda("w", w, dt, (n_sections * D, D), dev)
+    _lib.check_cuda("b", b, dt, (n_sections * D,), dev)
+    if dt == torch.float32:
+        w = weights_tf32(w) if split is None else split
+        _lib.check_cuda("w halves", w, dt, (2, n_sections * D, D), dev)
     if rot:
-        # the kernel reads them in bf16, which the rotary rounds them to
-        cos, sin = cos.to(bf16), sin.to(bf16)
-        _lib.check_cuda("cos", cos, bf16, (B, N, 64), dev)
-        _lib.check_cuda("sin", sin, bf16, (B, N, 64), dev)
-    outs = [torch.empty(B, num_heads, N, 64, dtype=bf16, device=dev) for _ in range(n_sections)]
+        # the bf16 kernel reads them in bf16, which the rotary rounds them
+        # to; the f32 kernel reads them as they are
+        cos, sin = cos.to(dt), sin.to(dt)
+        _lib.check_cuda("cos", cos, dt, (B, N, 64), dev)
+        _lib.check_cuda("sin", sin, dt, (B, N, 64), dev)
+    outs = [torch.empty(B, num_heads, N, 64, dtype=dt, device=dev) for _ in range(n_sections)]
     if B * N == 0:
         return tuple(outs)
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - n_sections)
+    kernel, entry = (("qkv", "dim_qkv_rotary_bf16") if dt == torch.bfloat16
+                     else ("qkv_f32", "dim_qkv_rotary_f32"))
     _lib.launch(
-        "qkv", "dim_qkv_rotary_bf16", dev.index, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        kernel, entry, dev.index, x.data_ptr(), w.data_ptr(), b.data_ptr(),
         cos.data_ptr() if rot else None, sin.data_ptr() if rot else None, *ptrs,
         B * N, N, n_sections, sum(1 << s for s in rot), _lib.stream_of(x),
     )
     return tuple(outs)
 
 
-def qkv_rotary_fused(x, w, b, cos, sin, num_heads: int):
+def qkv_rotary_fused(x, w, b, cos, sin, num_heads: int, split=None):
     """Self-block prologue: (q, k, v), each (B, H, N, hd), rotary on q and
-    k; ``w``, ``b`` from ``qkv_weights``."""
-    return proj_rotary_fused(x, w, b, cos, sin, num_heads, n_sections=3, rot=(0, 1))
+    k; ``w``, ``b`` from ``qkv_weights``, ``split`` from ``weights_tf32``."""
+    return proj_rotary_fused(x, w, b, cos, sin, num_heads, n_sections=3, rot=(0, 1),
+                             split=split)
 
 
-def qk_v_fused(x, w, b, num_heads: int):
+def qk_v_fused(x, w, b, num_heads: int, split=None):
     """Cross-block prologue: (qk, v), each (B, H, N, hd), no rotary; ``w``,
-    ``b`` from ``qk_v_weights``."""
-    return proj_rotary_fused(x, w, b, None, None, num_heads, n_sections=2, rot=())
+    ``b`` from ``qk_v_weights``, ``split`` from ``weights_tf32``."""
+    return proj_rotary_fused(x, w, b, None, None, num_heads, n_sections=2, rot=(),
+                             split=split)

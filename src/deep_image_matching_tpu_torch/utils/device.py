@@ -26,15 +26,16 @@ def resolve_device(spec=None) -> torch.device:
 
 
 def check_matcher_dtype(device: torch.device, dtype: torch.dtype) -> torch.dtype:
-    """``tpu.dtype`` of a transformer matcher. On CUDA the attention, FFN
-    and bidirectional attention kernels (kernels 1, 2 and 6) take bfloat16
-    only, and a CUDA tensor never falls back to a plain version, so any other
-    dtype raises there at start; the CPU runs every dtype."""
-    if device.type == "cuda" and dtype != torch.bfloat16:
+    """``tpu.dtype`` of a transformer matcher. On CUDA the attention, FFN,
+    bidirectional attention and QKV prologue kernels (kernels 1, 2, 6 and 10)
+    have a bfloat16 and a float32 form, and a CUDA tensor never falls back to
+    a plain version, so any other dtype raises there at start; the CPU runs
+    every dtype."""
+    if device.type == "cuda" and dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(
-            f"tpu.dtype {dtype} on CUDA: the attention and FFN kernels take bfloat16 "
-            "only; use tpu.dtype: bfloat16, or run in float32 on the CPU with "
-            "`general.tpu.device: cpu`")
+            f"tpu.dtype {dtype} on CUDA: the attention and FFN kernels take bfloat16 or "
+            "float32; use tpu.dtype: bfloat16 or float32, or run in another dtype on the "
+            "CPU with `general.tpu.device: cpu`")
     return dtype
 
 

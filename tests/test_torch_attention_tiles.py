@@ -10,6 +10,14 @@ the PV product, a key tile skipped when all its keys are masked and its
 batch element has a valid key, all-masked query tiles written as zeros, and
 kernel 6 as two recomputed directions. ``tiled_attention`` below follows the
 kernel step by step in f32, one key tile at a time.
+
+The float32 form (csrc/attention_f32_sm90.cuh) runs the same algorithm on
+128-row query tiles and 64-key tiles with both products in split TF32: each
+operand split into TF32 halves by bit rounding (hi = rna_tf32(x), lo =
+rna_tf32(x - hi)), each product lo.hi + hi.lo + hi.hi in f32, and P kept in
+f32. ``tiled_attention(..., form="f32")`` models it; its P fragments meet V
+in a permuted key order, which ``test_p_fragments_meet_the_permuted_values``
+models lane by lane.
 """
 
 import math
@@ -25,14 +33,41 @@ from deep_image_matching_tpu.ops import pallas_bidir_attention as jbidir
 
 BQ, BK = 192, 128
 NEG = -1e30
+# the float32 form: its tiles, and its tolerance relative to max|out| over
+# valid rows (f32 scores of |s| up to ~16 carry ~1e-6 relative rounding in
+# both versions, which exp() turns into output errors of a few 1e-6)
+BQ32, BK32 = 128, 64
+F32_TOL = 5e-5
 
 
-def tiled_attention(q, k, v, q_mask, k_mask, scale, row_bias=False, skip=True):
+def rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: f32 rounded to 10 mantissa bits, ties away from
+    zero (the low 13 bits of the word cleared)."""
+    bits = x.float().contiguous().numpy().view(np.uint32)
+    return torch.from_numpy(((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def split_mm(eq: str, a: torch.Tensor, b: torch.Tensor, terms: str = "split") -> torch.Tensor:
+    """einsum ``eq`` of a and b as the kernel's tensor-core products: "split"
+    (lo.hi + hi.lo + hi.hi of the TF32 halves, f32 sums) or "tf32" (one
+    product of the hi halves)."""
+    ah, bh = rna_tf32(a), rna_tf32(b)
+    if terms == "tf32":
+        return torch.einsum(eq, ah, bh)
+    al, bl = rna_tf32(a - ah), rna_tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + torch.einsum(eq, ah, bh)
+
+
+def tiled_attention(q, k, v, q_mask, k_mask, scale, row_bias=False, skip=True, form="bf16"):
     """The kernel's arithmetic: (B, H, Nq, d) x (B, H, Nk, d) f32 tensors,
     (B, Nq) / (B, Nk) bool masks (None: all valid). ``row_bias`` selects
     kernel 6 (rows of masked queries get -1e30, maxima start at -1e30, the
     output is over max(l, 1e-30)); else kernel 1 (maxima from -inf, output
-    times 1/l). ``skip``: leave out all-masked key tiles as the kernel does."""
+    times 1/l). ``skip``: leave out all-masked key tiles as the kernel does.
+    ``form``: "bf16" (192 x 128 tiles, f32 scores, P rounded to bf16), "f32"
+    (128 x 64 tiles, both products in split TF32, P in f32) or "tf32" (the
+    f32 form's tiles with one TF32 product each)."""
+    bq, bk = (BQ, BK) if form == "bf16" else (BQ32, BK32)
     B, H, Nq, d = q.shape
     Nk = k.shape[2]
     C = scale * math.log2(math.e)
@@ -44,26 +79,32 @@ def tiled_attention(q, k, v, q_mask, k_mask, scale, row_bias=False, skip=True):
     m = torch.full((B, H, Nq, 1), NEG if row_bias else -math.inf)
     l = torch.zeros(B, H, Nq, 1)
     o = torch.zeros(B, H, Nq, d)
-    for k0 in range(0, Nk, BK):
-        keys = slice(k0, min(k0 + BK, Nk))
+    for k0 in range(0, Nk, bk):
+        keys = slice(k0, min(k0 + bk, Nk))
         # per batch element: the tile is processed unless all its keys are
         # masked while some key of the element is valid
         live = ~(skip & ~km[:, keys].any(1) & any_k)
-        s = torch.einsum("bhid,bhjd->bhij", q, k[:, :, keys]) * C
+        if form == "bf16":
+            s = torch.einsum("bhid,bhjd->bhij", q, k[:, :, keys]) * C
+        else:
+            s = split_mm("bhid,bhjd->bhij", q, k[:, :, keys], form) * C
         s = s + kbias[:, None, None, keys] + qbias
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         corr = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
         l_new = l * corr + p.sum(-1, keepdim=True)
-        pv = torch.einsum("bhij,bhjd->bhid", p.to(torch.bfloat16).float(), v[:, :, keys])
+        if form == "bf16":
+            pv = torch.einsum("bhij,bhjd->bhid", p.to(torch.bfloat16).float(), v[:, :, keys])
+        else:
+            pv = split_mm("bhij,bhjd->bhid", p, v[:, :, keys], form)
         o_new = o * corr + pv
         sel = live[:, None, None, None]
         m, l, o = torch.where(sel, m_new, m), torch.where(sel, l_new, l), torch.where(sel, o_new, o)
     out = o / l.clamp(min=1e-30) if row_bias else o * (1.0 / l)
     # query tiles whose rows are all masked: zeros
-    for q0 in range(0, Nq, BQ):
-        dead = ~qm[:, q0:q0 + BQ].any(1)
-        out[dead, :, q0:q0 + BQ] = 0.0
+    for q0 in range(0, Nq, bq):
+        dead = ~qm[:, q0:q0 + bq].any(1)
+        out[dead, :, q0:q0 + bq] = 0.0
     return out
 
 
@@ -170,3 +211,108 @@ def test_tiled_bidir_matches_dense_reference(case):
     assert _within_two_ulps(got0, ref0, m0)
     assert _within_two_ulps(got1, ref1, m1)
     assert bool(torch.isfinite(got0).all()) and bool(torch.isfinite(got1).all())
+
+
+# ---------------------------------------------------------------------------
+# the float32 form
+# ---------------------------------------------------------------------------
+
+def _f32(rng, *shape):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+
+def _rel_err(got, ref, rows):
+    """max |got - ref| / max |ref| over valid rows."""
+    rows = rows[:, None, :, None].expand_as(got)
+    return ((got - ref).abs()[rows].max() / ref.abs()[rows].max()).item()
+
+
+@pytest.mark.parametrize("case", list(ATTENTION_CASES))
+def test_tiled_attention_f32_matches_xla_attention(case):
+    """Kernel 1's float32 form against the JAX package's dense attention in
+    f32: within 5e-5 of max|out| on valid rows (the bound chip_smoke.py holds
+    the kernel to on the card); all-masked query tiles of 128 rows give
+    zeros."""
+    Nq, Nk, qkind, kkind = ATTENTION_CASES[case]
+    rng = np.random.default_rng(17)
+    B, H, d = 3, 2, 64
+    q, k, v = _f32(rng, B, H, Nq, d) * 2, _f32(rng, B, H, Nk, d) * 2, _f32(rng, B, H, Nk, d)
+    qm, km = _masks(rng, B, Nq, qkind), _masks(rng, B, Nk, kkind)
+    if km is not None:
+        km[1] = False  # every key masked: the uniform average of all keys
+    if qm is not None:
+        qm[2, :] = False  # every query masked: zeros
+    scale = d ** -0.5
+    got = tiled_attention(q, k, v, qm, km, scale, form="f32")
+    ref = torch.from_numpy(np.array(jattn.xla_attention(
+        jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
+        None if km is None else jnp.asarray(km.numpy()), scale)))
+    rows = torch.ones(B, Nq, dtype=torch.bool) if qm is None else qm
+    assert _rel_err(got, ref, rows) <= F32_TOL
+    if qm is not None:
+        assert bool((got[2] == 0).all())
+
+
+@pytest.mark.parametrize("case", list(BIDIR_CASES))
+def test_tiled_bidir_f32_matches_dense_reference(case):
+    """Kernel 6's float32 form (two recomputed directions, each with its row
+    bias, split-TF32 products) against the JAX package's dense reference in
+    f32, within 5e-5 of max|out| on valid rows; finite everywhere."""
+    M, N, kind = BIDIR_CASES[case]
+    rng = np.random.default_rng(19)
+    B, H, d = 3, 2, 64
+    qk0, v0 = _f32(rng, B, H, M, d) * 2, _f32(rng, B, H, M, d)
+    qk1, v1 = _f32(rng, B, H, N, d) * 2, _f32(rng, B, H, N, d)
+    m0, m1 = _masks(rng, B, M, kind), _masks(rng, B, N, kind)
+    m0[1, 5] = False
+    m1[2] = False  # every side-1 token of element 2 masked
+    scale = d ** -0.5
+    got0 = tiled_attention(qk0, qk1, v1, m0, m1, scale, row_bias=True, form="f32")
+    got1 = tiled_attention(qk1, qk0, v0, m1, m0, scale, row_bias=True, form="f32")
+    ref0, ref1 = (torch.from_numpy(np.array(r, dtype=np.float32)) for r in
+                  jbidir.bidir_cross_attention_reference(
+                      *(jnp.asarray(t.numpy()) for t in (qk0, qk1, v0, v1, m0, m1))))
+    assert _rel_err(got0, ref0, m0) <= F32_TOL
+    assert _rel_err(got1, ref1, m1) <= F32_TOL
+    assert bool(torch.isfinite(got0).all()) and bool(torch.isfinite(got1).all())
+
+
+@pytest.mark.parametrize("row_bias", [False, True], ids=["kernel1", "kernel6"])
+def test_one_tf32_product_leaves_the_attention_tolerance(row_bias):
+    """Why the float32 form takes three TF32 products: one product (hi.hi)
+    of each kind is far outside 5e-5 of max|out|, the split inside it."""
+    rng = np.random.default_rng(21)
+    B, H, N, d = 2, 2, 300, 64
+    q, k, v = _f32(rng, B, H, N, d) * 2, _f32(rng, B, H, N, d) * 2, _f32(rng, B, H, N, d)
+    m = _masks(rng, B, N, "prefix")
+    scale = d ** -0.5
+    if row_bias:
+        ref = torch.from_numpy(np.array(jbidir.bidir_cross_attention_reference(
+            *(jnp.asarray(t.numpy()) for t in (q, k, v, v, m, m)))[0], dtype=np.float32))
+    else:
+        ref = torch.from_numpy(np.array(jattn.xla_attention(
+            jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
+            jnp.asarray(m.numpy()), scale)))
+    split = tiled_attention(q, k, v, m, m, scale, row_bias=row_bias, form="f32")
+    one = tiled_attention(q, k, v, m, m, scale, row_bias=row_bias, form="tf32")
+    assert _rel_err(split, ref, m) <= F32_TOL
+    assert _rel_err(one, ref, m) > 4 * F32_TOL
+
+
+def test_p_fragments_meet_the_permuted_values():
+    """O += P V with P from the S accumulator: thread (g, c) of a warp holds
+    rows g, g + 8 and keys c, c + 1 (c = 2 (lane % 4)) of each group of 8;
+    the TF32 A fragment takes them as k = c / 2 and k + 4, and V^T holds
+    each group's keys in the order 0 2 4 6 1 3 5 7 (split_vt_kernel), so the
+    fragment product is P V."""
+    rng = np.random.default_rng(23)
+    P, V = _f32(rng, 16, 8), _f32(rng, 8, 64)
+    A = torch.zeros(16, 8)
+    for lane in range(32):
+        g, c = lane // 4, 2 * (lane % 4)
+        s = [P[g, c], P[g, c + 1], P[g + 8, c], P[g + 8, c + 1]]  # s[4 j + e]
+        a = [s[0], s[2], s[1], s[3]]  # the kernel's A registers
+        t = lane % 4
+        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a
+    order = [2 * p if p < 4 else 2 * (p - 4) + 1 for p in range(8)]
+    torch.testing.assert_close(A @ V[order], P @ V, rtol=1e-6, atol=1e-6)

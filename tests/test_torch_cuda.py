@@ -46,6 +46,24 @@ def _within_two_ulps(got, ref, mask):
     return bool(((got - ref).abs()[rows] <= 2.0 ** -6 * ref.abs()[rows].clamp(min=1.0)).all())
 
 
+# the float32 forms' bounds, relative to the output's largest magnitude (the
+# CPU models' tolerances, tests/test_torch_attention_tiles.py and
+# tests/test_torch_f32_tiles.py): attention's f32 scores carry ~1e-6 relative
+# rounding, which exp() turns into a few 1e-6 of the output; the FFN's and
+# the QKV prologue's split-TF32 products stay within 1e-5
+F32_ATTENTION_TOL = 5e-5
+F32_PRODUCT_TOL = 1e-5
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _within_f32(got, ref, tol, mask=None):
+    """|got - ref| <= tol max|ref| over the rows ``mask`` (B, T) keeps."""
+    if mask is not None:
+        rows = mask[:, None, :, None].expand_as(got)
+        got, ref = got[rows], ref[rows]
+    return float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
 def _middle_tile_masks(gen, B, N, cuda):
     """Random non-prefix masks; in element 0 the second 128-key tile is
     masked whole (the kernels skip it), element 1 keeps every key."""
@@ -67,11 +85,14 @@ ATTENTION_CASES = {
 
 
 @pytest.mark.parametrize("case", list(ATTENTION_CASES))
-def test_attention_kernel_matches_plain(cuda, case):
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_attention_kernel_matches_plain(cuda, nan_shared, dtype, case):
+    """Both forms; the float32 one with NaN left in shared memory before it,
+    so that padding it never writes would show."""
     B, H, N, M, masks = ATTENTION_CASES[case]
     gen = torch.Generator().manual_seed(1)
-    q, k, v = (torch.randn(B, H, n, 64, generator=gen).to(cuda, torch.bfloat16)
-               for n in (N, M, M))
+    dt = DTYPES[dtype]
+    q, k, v = (torch.randn(B, H, n, 64, generator=gen).to(cuda, dt) for n in (N, M, M))
     qm = km = None
     if masks == "prefix":
         qm = _prefix_masks(gen, B, N, 10).to(cuda)
@@ -81,15 +102,25 @@ def test_attention_kernel_matches_plain(cuda, case):
         qm = _prefix_masks(gen, B, N, 10).to(cuda)
         km = _middle_tile_masks(gen, B, M, cuda)
         qm[2, :] = False  # every query masked: the kernel writes zeros
-    before = _lib.LAUNCHES["attention"]
+    counter = "attention" if dtype == "bf16" else "attention_f32"
+    if dtype == "f32":
+        nan_shared()
+    before = _lib.LAUNCHES[counter]
     got = tattn.fused_attention(q, k, v, qm, km, 0.125)
-    assert _lib.LAUNCHES["attention"] == before + 1
+    assert _lib.LAUNCHES[counter] == before + 1
     ref = tattn.attention_reference(q, k, v, km, 0.125)
     rows = qm if qm is not None else torch.ones(B, N, dtype=torch.bool, device=cuda)
-    assert _within_two_ulps(got, ref, rows)
+    assert got.dtype == dt
+    if dtype == "bf16":
+        assert _within_two_ulps(got, ref, rows)
+    else:
+        assert _within_f32(got, ref, F32_ATTENTION_TOL, rows)
     if masks == "prefix":  # the all-masked element: every key weighted alike
         mean = v[1].float().mean(1, keepdim=True).expand(H, N, 64)
-        assert _within_two_ulps(got[1:2], mean[None].to(torch.bfloat16), rows[1:2])
+        if dtype == "bf16":
+            assert _within_two_ulps(got[1:2], mean[None].to(torch.bfloat16), rows[1:2])
+        else:
+            assert _within_f32(got[1:2], mean[None], F32_ATTENTION_TOL, rows[1:2])
     if masks == "middle":
         assert bool((got[2] == 0).all())
 
@@ -101,22 +132,31 @@ FFN_CASES = {"short": (1, 40), "ragged": (3, 77), "superglue": (16, 4096)}
 
 @pytest.mark.parametrize("case", list(FFN_CASES))
 @pytest.mark.parametrize("mode", ["ln_gelu", "relu"])
-def test_ffn_kernel_matches_plain(cuda, mode, case):
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ffn_kernel_matches_plain(cuda, nan_shared, dtype, mode, case):
     gen = torch.Generator().manual_seed(3)
     (B, K), D = FFN_CASES[case], 256
+    dt = DTYPES[dtype]
 
     def rnd(*shape, s=1.0, mean=0.0):
-        return (mean + s * torch.randn(*shape, generator=gen)).to(cuda, torch.bfloat16)
+        return (mean + s * torch.randn(*shape, generator=gen)).to(cuda, dt)
 
     args = (rnd(B, K, D), rnd(B, K, D), rnd(2 * D, 2 * D, s=(2 * D) ** -0.5),
             rnd(2 * D, s=0.1), rnd(2 * D, s=0.1, mean=1.0), rnd(2 * D, s=0.1),
             rnd(D, 2 * D, s=(2 * D) ** -0.5), rnd(D, s=0.1))
-    before = _lib.LAUNCHES["ffn"]
-    got = tffn.ffn_fused(*args, mode=mode).float()
-    assert _lib.LAUNCHES["ffn"] == before + 1
-    ref = tffn.ffn_reference(*args, mode=mode).float()
-    # one bf16 ulp of the output
-    assert bool(((got - ref).abs() <= 2.0 ** -7 * ref.abs().clamp(min=1.0) + 1e-6).all())
+    counter = "ffn" if dtype == "bf16" else "ffn_f32"
+    if dtype == "f32":
+        nan_shared()
+    before = _lib.LAUNCHES[counter]
+    got = tffn.ffn_fused(*args, mode=mode)
+    assert _lib.LAUNCHES[counter] == before + 1
+    assert got.dtype == dt
+    got, ref = got.float(), tffn.ffn_reference(*args, mode=mode).float()
+    if dtype == "f32":
+        assert _within_f32(got, ref, F32_PRODUCT_TOL)
+    else:
+        # one bf16 ulp of the output
+        assert bool(((got - ref).abs() <= 2.0 ** -7 * ref.abs().clamp(min=1.0) + 1e-6).all())
 
 
 # (B, M, N, masks): ragged against the 128 x 128 tiles with planted matches
@@ -466,13 +506,15 @@ BIDIR_CASES = {
 
 
 @pytest.mark.parametrize("case", list(BIDIR_CASES))
-def test_bidir_attention_kernel_matches_plain(cuda, case):
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_bidir_attention_kernel_matches_plain(cuda, nan_shared, dtype, case):
     """Partial masks, a fully masked row on one side and a fully masked
-    batch element on the other (its outputs stay finite)."""
+    batch element on the other (its outputs stay finite); both forms."""
     B, H, M, N, masks = BIDIR_CASES[case]
     gen = torch.Generator().manual_seed(15)
-    qk0, v0 = (torch.randn(B, H, M, 64, generator=gen).to(cuda, torch.bfloat16) for _ in range(2))
-    qk1, v1 = (torch.randn(B, H, N, 64, generator=gen).to(cuda, torch.bfloat16) for _ in range(2))
+    dt = DTYPES[dtype]
+    qk0, v0 = (torch.randn(B, H, M, 64, generator=gen).to(cuda, dt) for _ in range(2))
+    qk1, v1 = (torch.randn(B, H, N, 64, generator=gen).to(cuda, dt) for _ in range(2))
     if masks == "prefix":
         m0 = _prefix_masks(gen, B, M, 10).to(cuda)
         m1 = _prefix_masks(gen, B, N, 10).to(cuda)
@@ -481,12 +523,19 @@ def test_bidir_attention_kernel_matches_plain(cuda, case):
         m1 = _middle_tile_masks(gen, B, N, cuda)
     m0[1, 5] = False
     m1[2] = False  # every side-1 token of element 2 masked
-    before = _lib.LAUNCHES["bidir_attention"]
+    counter = "bidir_attention" if dtype == "bf16" else "bidir_attention_f32"
+    if dtype == "f32":
+        nan_shared()
+    before = _lib.LAUNCHES[counter]
     got = tbidir.bidir_cross_attention(qk0, qk1, v0, v1, m0, m1)
-    assert _lib.LAUNCHES["bidir_attention"] == before + 1
+    assert _lib.LAUNCHES[counter] == before + 1
     ref = tbidir.bidir_cross_attention_reference(qk0, qk1, v0, v1, m0, m1)
     for g, r, m in zip(got, ref, (m0, m1)):
-        assert _within_two_ulps(g, r, m)
+        assert g.dtype == dt
+        if dtype == "bf16":
+            assert _within_two_ulps(g, r, m)
+        else:
+            assert _within_f32(g, r, F32_ATTENTION_TOL, m)
         assert bool(torch.isfinite(g.float()).all())
 
 
@@ -497,22 +546,32 @@ QKV_CASES = {"short": (1, 40), "straddle": (2, 100), "ragged": (3, 300)}
 
 @pytest.mark.parametrize("case", list(QKV_CASES))
 @pytest.mark.parametrize("sections", [3, 2])
-def test_qkv_kernel_matches_plain(cuda, sections, case):
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_qkv_kernel_matches_plain(cuda, nan_shared, dtype, sections, case):
     """Self mode (3 sections, rotary on q and k) and cross mode (2 sections,
-    no rotary)."""
+    no rotary); both forms, the float32 one with f32 cos and sin."""
     gen = torch.Generator().manual_seed(16)
     (B, N), D, H = QKV_CASES[case], 256, 4
+    dt = DTYPES[dtype]
     rot = (0, 1) if sections == 3 else ()
-    x = torch.randn(B, N, D, generator=gen).to(cuda, torch.bfloat16)
-    w = (torch.randn(sections * D, D, generator=gen) / 16).to(cuda, torch.bfloat16)
-    b = (0.1 * torch.randn(sections * D, generator=gen)).to(cuda, torch.bfloat16)
+    x = torch.randn(B, N, D, generator=gen).to(cuda, dt)
+    w = (torch.randn(sections * D, D, generator=gen) / 16).to(cuda, dt)
+    b = (0.1 * torch.randn(sections * D, generator=gen)).to(cuda, dt)
     ang = torch.rand(B, N, 32, generator=gen) * 6.3
     cos = torch.repeat_interleave(torch.cos(ang), 2, -1).to(cuda)
     sin = torch.repeat_interleave(torch.sin(ang), 2, -1).to(cuda)
-    before = _lib.LAUNCHES["qkv"]
+    counter = "qkv" if dtype == "bf16" else "qkv_f32"
+    if dtype == "f32":
+        nan_shared()
+    before = _lib.LAUNCHES[counter]
     got = tqkv.proj_rotary_fused(x, w, b, cos, sin, H, sections, rot)
-    assert _lib.LAUNCHES["qkv"] == before + 1
+    assert _lib.LAUNCHES[counter] == before + 1
     ref = tqkv.proj_rotary_reference(x, w, b, cos, sin, H, sections, rot)
+    if dtype == "f32":
+        for g, r in zip(got, ref):
+            assert g.shape == (B, H, N, 64) and g.dtype == dt
+            assert _within_f32(g, r, F32_PRODUCT_TOL)
+        return
     y = tqkv.proj_rotary_reference(x.float(), w, b, None, None, H, sections, ())
     equal = 0.0
     for g, r, ys in zip(got, ref, y):
@@ -524,3 +583,35 @@ def test_qkv_kernel_matches_plain(cuda, sections, case):
         assert bool(((g - r).abs() <= bound).all())
         equal += float((g == r).float().mean()) / sections
     assert equal > 0.99
+
+
+def _wrapper_calls(cuda, dt, mixed):
+    """Each wrapper of a kernel with a bf16 and a float32 form, called on
+    CUDA tensors of ``dt`` (the first operand f32 if ``mixed``)."""
+    def t(*shape, first=False):
+        return torch.zeros(*shape, device=cuda, dtype=torch.float32 if first and mixed else dt)
+
+    m = torch.ones(1, 128, dtype=torch.bool, device=cuda)
+    D = 256
+    return {
+        "attention": lambda: tattn.fused_attention(t(1, 4, 128, 64, first=True), t(1, 4, 128, 64),
+                                                   t(1, 4, 128, 64), m, m, 0.125),
+        "bidir_attention": lambda: tbidir.bidir_cross_attention(
+            t(1, 4, 128, 64, first=True), t(1, 4, 128, 64), t(1, 4, 128, 64), t(1, 4, 128, 64),
+            m, m),
+        "ffn": lambda: tffn.ffn_fused(t(1, 128, D, first=True), t(1, 128, D), t(2 * D, 2 * D),
+                                      t(2 * D), t(2 * D), t(2 * D), t(D, 2 * D), t(D)),
+        "qkv": lambda: tqkv.proj_rotary_fused(t(1, 128, D, first=True), t(3 * D, D), t(3 * D),
+                                              t(1, 128, 64), t(1, 128, 64), 4),
+    }
+
+
+@pytest.mark.parametrize("wrapper", ["attention", "bidir_attention", "ffn", "qkv"])
+def test_kernel_wrappers_refuse_other_dtypes(cuda, wrapper):
+    """float16 operands, and bf16 operands beside an f32 one, raise on CUDA
+    and name the two dtypes the kernel takes: no cast, no plain version."""
+    before = dict(_lib.LAUNCHES)
+    for dt, mixed in ((torch.float16, False), (torch.bfloat16, True)):
+        with pytest.raises(ValueError, match="torch.bfloat16 or torch.float32"):
+            _wrapper_calls(cuda, dt, mixed)[wrapper]()
+    assert _lib.LAUNCHES == before

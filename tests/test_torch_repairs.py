@@ -2,7 +2,7 @@
 LightGlue checkpoint loaded at fewer layers, ``tpu.ffn_impl`` and
 ``tpu.assignment_impl`` read and resolved as the JAX package reads them, the
 JAX package's unfused ("xla") FFN arithmetic, ``tpu.device`` never falling
-back to the CPU, and f32 refused on CUDA."""
+back to the CPU, and f32 taken on CUDA (other dtypes refused there)."""
 
 import numpy as np
 import pytest
@@ -223,14 +223,22 @@ def test_device_auto_never_falls_back_to_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("matcher_cls", [tlgm.LightGlueMatcher, tsgm.SuperGlueMatcher])
-def test_float32_on_cuda_is_refused(monkeypatch, matcher_cls):
-    """A CUDA-device config with ``tpu.dtype: float32`` raises at start and
-    names the CPU as the place for f32 (the kernels take bf16 only, and a
-    CUDA tensor never falls back to a plain version)."""
+def test_float32_on_cuda_is_accepted(monkeypatch, matcher_cls):
+    """A CUDA-device config with ``tpu.dtype: float32`` starts (kernels 1, 2,
+    6 and 10 have float32 forms), float16 still raises there and names both
+    dtypes the kernels take, and the CPU takes every dtype. This torch has
+    no CUDA, so the model stays where it is."""
     monkeypatch.setattr(tbase, "resolve_device", lambda spec: torch.device("cuda", 0))
-    with pytest.raises(ValueError, match="bfloat16 only.*general.tpu.device: cpu"):
-        matcher_cls({"general": {"tpu": {"device": "cuda", "dtype": "float32"}},
-                     "matcher": {"n_layers": 1}})
-    with pytest.raises(ValueError, match="bfloat16 only"):
+    monkeypatch.setattr(torch.nn.Module, "to", lambda self, *args, **kwargs: self)
+    conf = {"general": {"tpu": {"device": "cuda", "dtype": "float32"}},
+            "matcher": {"n_layers": 1}}
+    matcher = matcher_cls(conf)
+    assert matcher.device == torch.device("cuda", 0)
+    assert matcher.compute_dtype == torch.float32
+    conf["general"]["tpu"]["dtype"] = "float16"
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        matcher_cls(conf)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         tdevice.check_matcher_dtype(torch.device("cuda", 0), torch.float16)
-    assert tdevice.check_matcher_dtype(torch.device("cpu"), torch.float32) == torch.float32
+    for dt in (torch.float16, torch.bfloat16, torch.float32, torch.float64):
+        assert tdevice.check_matcher_dtype(torch.device("cpu"), dt) == dt
