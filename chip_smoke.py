@@ -70,7 +70,24 @@ Phases, each printing its own lines:
      prologue) on 6 of them, each checking that the float32 kernels of its
      path launched.
    Each run checks features.h5, raw_matches.h5 and database.db and prints
-   the wall time per stage; each path checks that its kernels launched.
+   the wall time per stage; each path checks that its kernels launched;
+6. reconstruction, the main path's stage 5 (no exception caught):
+   - bundle adjustment alone at 64 poses, 8192 points and ~262k observations
+     (``ba_scene``: perturbed as ``tests/test_sfm.py`` perturbs its scene):
+     the mapper's default solve on the card down to under 1.5 x the injected
+     noise; ms a LM step between CUDA events, device time, launches and the
+     idle share a step under ``torch.profiler``, peak memory and the CPU's
+     time a step; card against CPU, the float64 cost traces within 1e-3;
+   - ``native_incremental_mapping`` on the card at the JAX package's mapper
+     profile size (``mapper_scene``: 60 images, 6000 points, window 40)
+     against the ground truth (at least 58/60 registered, focal within 1 %,
+     relative rotations within 0.5 deg), with its phase table and wall;
+   - ``run_matching`` without --skip_reconstruction on the 5 demo images,
+     on the card and on the CPU: sift+kornia_matcher (``bruteforce``; the
+     same registered images, and stage 5 on the card over the CPU run's
+     database within 2 % of the CPU's points; the model's files), and the
+     default superpoint+lightglue (``matching_lowres``), which must end on
+     the card as on the CPU; each with its kernels' launches counted.
 
 Exits non-zero without a CUDA device, without the package beside it, or on
 any failure. The last three lines are the card, the kernel report and the
@@ -217,13 +234,25 @@ def _device_ms(fn, names, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us, seen = 0.0, 0
+    ms = sum(ms for ms, _, key in _device_busy(prof)[2] if any(n in key for n in names))
+    return ms / reps if ms > 0 else None
+
+
+def _device_busy(prof) -> tuple:
+    """(device milliseconds, device events: kernels, copies and memsets, the
+    events by time as (ms, count, name)) of a ``torch.profiler`` run; (None,
+    None, []) where it recorded no device event."""
+    events = []
     for e in prof.key_averages():
-        if any(n in e.key for n in names):
-            us = getattr(e, "self_device_time_total", None)
-            total_us += us if us is not None else getattr(e, "self_cuda_time_total", 0)
-            seen += e.count
-    return total_us / 1e3 / reps if seen and total_us > 0 else None
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            events.append((us / 1e3, e.count, e.key))
+    events.sort(reverse=True)
+    if not events:
+        return None, None, []
+    return sum(e[0] for e in events), sum(e[1] for e in events), events
 
 
 def phase_environment() -> str:
@@ -1989,6 +2018,439 @@ def phase_main_path(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# reconstruction (main-path stage 5)
+# ---------------------------------------------------------------------------
+
+# the bundle-adjustment size that the JAX package's sfm/ba.py names: 64 poses,
+# 8192 points, about 262k observations; 0.4 px of noise
+BA_POSES, BA_POINTS, BA_OBS, BA_NOISE = 64, 8192, 262144, 0.4
+
+
+def ba_scene(seed: int = 0, n_poses: int = BA_POSES, n_points: int = BA_POINTS,
+             n_obs: int = BA_OBS, noise: float = BA_NOISE):
+    """A bundle-adjustment problem built with the port's ``sfm.geometry``:
+    ``n_points`` points in a box seen by a grid of ``n_poses`` cameras (a
+    SIMPLE_RADIAL camera as the mapper carries it, the OPENCV 8-vector: f =
+    800, k1 = -0.05, 1024 x 768), each visible observation kept with the
+    probability that leaves about ``n_obs``, with ``noise`` px of noise; then
+    perturbed as ``tests/test_sfm.py`` perturbs its scene: poses by 0.02,
+    points by 0.05, the focal by +5.5 %, k1 from 0, with the first pose and
+    one translation of the second held, as the mapper's gauge holds them.
+    Returns (``bundle_adjust``'s positional arguments, the observations'
+    (pose, point, uv) arrays)."""
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.sfm import geometry as G
+
+    rng = np.random.default_rng(seed)
+    W, H = 1024, 768
+    intr = np.array([800.0, 800.0, W / 2, H / 2, -0.05, 0.0, 0.0, 0.0])
+    X = rng.uniform([-4, -3, 8], [4, 3, 16], (n_points, 3))
+    side = int(np.ceil(np.sqrt(n_poses)))
+    poses = []
+    for i in range(n_poses):
+        rv = rng.normal(0, 0.05, 3)
+        c = np.array([(i % side - (side - 1) / 2) * 0.5, (i // side - (side - 1) / 2) * 0.4,
+                      rng.uniform(-1.0, 0.0)])
+        poses.append(np.concatenate([rv, -G.rotvec_to_matrix(rv) @ c]))
+    poses = np.stack(poses)
+    cols = [[], [], []]
+    for i, p in enumerate(poses):
+        uv, z = G.project_points(intr, G.rotvec_to_matrix(p[:3]), p[3:], X)
+        idx = np.nonzero((z > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < W)
+                         & (uv[:, 1] >= 0) & (uv[:, 1] < H))[0]
+        cols[0].append(np.full(len(idx), i))
+        cols[1].append(idx)
+        cols[2].append(uv[idx])
+    obs_pose, obs_pt, uv = (np.concatenate(c) for c in cols)
+    keep = rng.random(len(obs_pose)) < min(1.0, n_obs / len(obs_pose))
+    obs_pose, obs_pt = obs_pose[keep], obs_pt[keep]
+    uv = uv[keep] + rng.normal(0, noise, (int(keep.sum()), 2))
+    poses0 = poses + rng.normal(0, 0.02, poses.shape)
+    poses0[0] = poses[0]
+    X0 = X + rng.normal(0, 0.05, X.shape)
+    intr0 = intr.copy()
+    intr0[0:2] *= 1.055
+    intr0[4] = 0.0
+    pose_free = np.ones((n_poses, 6))
+    pose_free[0] = 0.0
+    pose_free[1, 3] = 0.0
+    intr_free = np.array([[1.0, 1.0, 0, 0, 1.0, 0, 0, 0]])
+    args = (poses0, intr0[None], X0, obs_pose, np.zeros_like(obs_pose), obs_pt, uv,
+            pose_free, intr_free)
+    return args, (obs_pose, obs_pt, uv)
+
+
+def reprojection_rms(poses, intr, points, obs) -> float:
+    """RMS of the observations' 2D reprojection errors (px)."""
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.sfm import geometry as G
+
+    obs_pose, obs_pt, uv = obs
+    sq = 0.0
+    for i in range(len(poses)):
+        sel = obs_pose == i
+        proj, _ = G.project_points(intr, G.rotvec_to_matrix(poses[i, :3]), poses[i, 3:],
+                                   points[obs_pt[sel]])
+        sq += float(((proj - uv[sel]) ** 2).sum())
+    return float(np.sqrt(sq / len(obs_pose)))
+
+
+def mapper_scene(root: Path, n_imgs: int = 60, n_pts: int = 6000, window: int = 40,
+                 seed: int = 0):
+    """The JAX package's ``scripts/profile_mapper.py::build_scene`` on the
+    port's modules: a ring of ``n_imgs`` cameras (SIMPLE_RADIAL, f = 1100,
+    1024 x 768) around ``n_pts`` points, verified pairs within ``window``
+    images of each other (70 % of their common points, pairs under 20
+    dropped), 0.4 px of noise, written as a COLMAP database. Returns (the
+    database, the camera's (f, cx, cy, k1), the ground-truth poses)."""
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.io.colmap_db import COLMAPDatabase
+    from deep_image_matching_tpu_torch.sfm import geometry as G
+
+    rng = np.random.default_rng(seed)
+    W, H, f = 1024, 768, 1100.0
+    intr = np.array([f, W / 2, H / 2, -0.03])
+    X = rng.uniform([-4, -3, 6], [4, 3, 14], (n_pts, 3))
+    poses = []
+    for i in range(n_imgs):
+        ang = 0.7 * np.sin(2 * np.pi * i / n_imgs)
+        R = G.rotvec_to_matrix(np.array([0.0, ang, 0.0]))
+        C = np.array([6.0 * np.sin(ang), 0.3 * np.sin(3 * ang), -2.0 + 0.5 * np.cos(ang)])
+        poses.append(np.concatenate([G.matrix_to_rotvec(R), -R @ C]))
+    poses = np.stack(poses)
+    kpts, vis_ids = [], []
+    for p in poses:
+        uv, z = G.project_points(intr, G.rotvec_to_matrix(p[:3]), p[3:], X)
+        ids = np.where((z > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < W)
+                       & (uv[:, 1] >= 0) & (uv[:, 1] < H))[0]
+        ids = ids[rng.permutation(len(ids))]
+        kpts.append(uv[ids] + rng.normal(0, 0.4, (len(ids), 2)))
+        vis_ids.append(ids)
+    root.mkdir(parents=True, exist_ok=True)
+    db_path = root / "database.db"
+    db_path.unlink(missing_ok=True)
+    db = COLMAPDatabase.connect(db_path)
+    db.create_tables()
+    cam_id = db.add_camera(2, W, H, intr)
+    img_ids = []
+    for i in range(n_imgs):
+        iid = db.add_image(f"img{i:03d}.jpg", cam_id)
+        db.add_keypoints(iid, kpts[i].astype(np.float32))
+        img_ids.append(iid)
+    for i in range(n_imgs):
+        for j in range(i + 1, min(i + 1 + window, n_imgs)):
+            _, ia, ib = np.intersect1d(vis_ids[i], vis_ids[j], return_indices=True)
+            m = np.stack([ia, ib], axis=1).astype(np.uint32)
+            m = m[rng.random(len(m)) < 0.7]
+            if len(m) < 20:
+                continue
+            db.add_matches(img_ids[i], img_ids[j], m)
+            db.add_two_view_geometry(img_ids[i], img_ids[j], m)
+    db.commit()
+    db.close()
+    return db_path, intr, poses
+
+
+def check_mapper_model(images, cameras, intr, poses, min_registered: int, focal_tol: float,
+                       rot_tol_deg: float) -> str:
+    """A mapper's model against the scene's ground truth: images registered,
+    focal error and the largest error of the pairwise relative rotations."""
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.io.colmap_read_write_model import qvec2rotmat
+    from deep_image_matching_tpu_torch.sfm import geometry as G
+
+    if len(images) < min_registered:
+        _fail(f"mapper registered {len(images)} images, fewer than {min_registered}")
+    f = next(iter(cameras.values())).params[0]
+    f_err = abs(f - intr[0]) / intr[0]
+    R = {int(im.name[3:6]): qvec2rotmat(im.qvec) for im in images.values()}
+    ids = sorted(R)
+    rot = max(
+        np.degrees(np.linalg.norm(G.matrix_to_rotvec(
+            (R[j] @ R[i].T) @ (G.rotvec_to_matrix(poses[j, :3])
+                               @ G.rotvec_to_matrix(poses[i, :3]).T).T)))
+        for a, i in enumerate(ids) for j in ids[a + 1:])
+    if f_err > focal_tol or rot > rot_tol_deg:
+        _fail(f"mapper model: focal off by {100 * f_err:.3f} %, relative rotations by up to "
+              f"{rot:.3f} deg (bounds {100 * focal_tol:.1f} %, {rot_tol_deg} deg)")
+    return (f"{len(images)}/{len(poses)} registered, focal off by {100 * f_err:.4f} %, "
+            f"relative rotations within {rot:.4f} deg")
+
+
+def _reconstruction_ba(card: str) -> None:
+    """BA alone at 64 poses / 8192 points / ~262k observations: the mapper's
+    default solve (25 LM steps of 30 CG steps, float32) on the card, its
+    error against the injected noise, ms a step between CUDA events, device
+    time and launches a step under ``torch.profiler``, peak memory and the
+    CPU's time for the same steps. Two solves on the card must agree bit for
+    bit (the segment sums add in a fixed order). Card against CPU: the cost traces in
+    float64 at 20 CG steps (CG amplifies rounding differences by about 1e6
+    every ten steps, so the float32 traces of two summation orders part by
+    up to a few 1e-3; their difference is printed, not held)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deep_image_matching_tpu_torch.sfm import ba
+    from deep_image_matching_tpu_torch.utils.device import full_f32
+
+    dev = torch.device("cuda", 0)
+    args, obs = ba_scene()
+    n_obs = len(obs[0])
+    rms0 = reprojection_rms(args[0], args[1][0], args[2], obs)
+    ba.bundle_adjust(*args, n_lm_iters=2, device=dev)  # warm-up: cuBLAS, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = ba.bundle_adjust(*args, device=dev)  # MapperOptions' 25 LM, 30 CG steps
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    again = ba.bundle_adjust(*args, device=dev)
+    if not all(np.array_equal(out[k], again[k]) for k in out):
+        _fail("BA on the card: two solves of one problem differ")
+    rms = reprojection_rms(out["poses"], out["intr"][0], out["points"], obs)
+    poses_n, pts_n, _, _ = ba.normalize_scene(args[0], args[2])
+    prob = ba.make_problem(poses_n, args[1], pts_n, *args[3:9], None, dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with full_f32():
+        start.record()
+        _, _, _, costs = ba.ba_solve(prob, 4.0, 25, 30)
+        end.record()
+        end.synchronize()
+        ms_step = start.elapsed_time(end) / len(costs)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, _, _, c3 = ba.ba_solve(prob, 4.0, 3, 30)
+            torch.cuda.synchronize()
+    busy, launches, events = _device_busy(prof)
+    if busy is None:
+        dev_line = "device time and launches not measured (the profiler recorded no device event)"
+    else:
+        busy_step, per_step = busy / len(c3), launches / len(c3)
+        dev_line = (f"device {busy_step:.3f} ms and {per_step:.0f} launches a step, idle "
+                    f"{100 * (1 - busy_step / ms_step):.1f} % of {ms_step:.3f} ms")
+    t0 = time.perf_counter()
+    cpu = ba.bundle_adjust(*args, n_lm_iters=3, device="cpu")
+    cpu_step = (time.perf_counter() - t0) / len(cpu["costs"])
+    n = min(len(cpu["costs"]), len(out["costs"]))
+    f32_rel = float(np.max(np.abs(out["costs"][:n] - cpu["costs"][:n]) / cpu["costs"][:n]))
+    kw = dict(n_lm_iters=4, n_cg_iters=20, dtype=np.float64)
+    g64, c64 = ba.bundle_adjust(*args, **kw, device=dev), ba.bundle_adjust(*args, **kw, device="cpu")
+    n64 = min(len(g64["costs"]), len(c64["costs"]))
+    rel64 = float(np.max(np.abs(g64["costs"][:n64] - c64["costs"][:n64]) / c64["costs"][:n64]))
+    print(f"[stage5] BA alone: {len(args[0])} poses, {len(args[2])} points, {n_obs} observations; "
+          f"{len(out['costs'])} LM steps, RMS {rms0:.3f} -> {rms:.4f} px (noise {BA_NOISE} px, "
+          f"bound {1.5 * BA_NOISE:.2f}); bundle_adjust {wall:.3f} s; the solve {ms_step:.3f} ms "
+          f"a step between CUDA events; {dev_line}; peak {peak:.3f} GiB; CPU "
+          f"{1e3 * cpu_step:.1f} ms a step (3 steps) [{card}]", flush=True)
+    for ms, count, name in events[:6]:
+        print(f"[stage5] BA step's device time: {ms / len(c3):8.3f} ms, {count / len(c3):5.0f} "
+              f"launches: {name[:100]}", flush=True)
+    print(f"[stage5] BA card vs CPU: float64 cost traces (4 LM steps of 20 CG) within "
+          f"{rel64:.2e} (rtol 1e-3); float32 (3 steps of 30 CG) within {f32_rel:.2e}; two "
+          f"solves on the card bitwise equal", flush=True)
+    if not np.isfinite(out["costs"]).all() or rms >= 1.5 * BA_NOISE:
+        _fail(f"BA on the card ended at RMS {rms:.4f} px")
+    if n64 < 2 or rel64 > 1e-3:
+        _fail(f"BA card vs CPU: float64 cost traces differ by {rel64:.2e}")
+
+
+class _LogLines:
+    """Collects the messages of the port's logger inside the block."""
+
+    def __init__(self):
+        import logging
+
+        self.lines = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda rec: self.lines.append(rec.getMessage())
+
+    def __enter__(self):
+        import logging
+
+        logging.getLogger("dim_tpu_torch").addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger("dim_tpu_torch").removeHandler(self.handler)
+
+
+def _reconstruction_mapper(card: str) -> None:
+    """``native_incremental_mapping`` on the card at the JAX package's mapper
+    profile size (``mapper_scene``: 60 images, 6000 points, window 40),
+    against the ground truth: at least 58/60 registered, focal within 1 %,
+    pairwise relative rotations within 0.5 deg; the phase table and the
+    wall."""
+    from deep_image_matching_tpu_torch.sfm.incremental import native_incremental_mapping
+
+    root = WORK / "stage5" / "mapper60"
+    db, intr, poses = mapper_scene(root)
+    with _LogLines() as log:
+        t0 = time.perf_counter()
+        res = native_incremental_mapping(db, None, root, device="cuda")  # no images: no colors
+        wall = time.perf_counter() - t0
+    if res is None:
+        _fail("the mapper gave no model on the 60-image scene")
+    cameras, images, points = res
+    summary = check_mapper_model(images, cameras, intr, poses, 58, 0.01, 0.5)
+    start = next((i for i, m in enumerate(log.lines) if m.startswith("Mapper phase times")), None)
+    table = [] if start is None else [log.lines[start]] + [
+        m for m in log.lines[start + 1:start + 12] if m.startswith("  ")]
+    for line in table:
+        print(f"[stage5] mapper: {line.rstrip()}", flush=True)
+    print(f"[stage5] mapper on {len(poses)} images: {summary}, {len(points)} points; wall "
+          f"{wall:.2f} s [{card}]", flush=True)
+
+
+def _run_stage5(pipeline: str, proj: Path, strategy: str, cfg: Path, outs: Path):
+    """``run_matching`` without --skip_reconstruction; returns (its output
+    directory, its model or None)."""
+    from deep_image_matching_tpu_torch.__main__ import run_matching
+
+    feature_path, _, model = run_matching({
+        "dir": str(proj), "outs": str(outs), "pipeline": pipeline, "strategy": strategy,
+        "force": True, "config_file": str(cfg),
+    })
+    return feature_path.parent, model
+
+
+def _model_summary(model) -> tuple:
+    """(registered image names or None without a model, point count)."""
+    if model is None:
+        return None, 0
+    return sorted(im.name for im in model[1].values()), len(model[2])
+
+
+def _verified(out_dir: Path) -> int:
+    import sqlite3
+
+    db = sqlite3.connect(str(out_dir / "database.db"))
+    try:
+        return int(db.execute("SELECT COALESCE(SUM(rows), 0) FROM two_view_geometries")
+                   .fetchone()[0])
+    finally:
+        db.close()
+
+
+def _same_model(a, b) -> bool:
+    """Whether two mapper models are equal bit for bit: images, poses,
+    cameras, point ids and coordinates."""
+    import numpy as np
+
+    (ca, ia, pa), (cb, ib, pb) = a, b
+    return (ca.keys() == cb.keys() and ia.keys() == ib.keys() and pa.keys() == pb.keys()
+            and all(np.array_equal(ca[k].params, cb[k].params) for k in ca)
+            and all(np.array_equal(ia[k].qvec, ib[k].qvec) and np.array_equal(ia[k].tvec, ib[k].tvec)
+                    for k in ia)
+            and all(np.array_equal(pa[k].xyz, pb[k].xyz) for k in pa))
+
+
+def _reconstruction_cli(card: str) -> dict:
+    """The CLI through stage 5 on the demo images, launch counts set to 0
+    before each card run and read after it:
+    - sift+kornia_matcher (bruteforce) on the card and on the CPU must
+      register the same images, the 5 demo images, and write the model's
+      files. Their databases differ (the card verifies matches with the
+      device RANSAC, kernel 4, the CPU with OpenCV's MAGSAC), so their point
+      counts are printed, not held. Over the card run's database, stage 5
+      again on the card must give the CLI's model bit for bit, and stage 5
+      on the CPU the same registered images with a point count within 2 %;
+    - superpoint+lightglue (the default matching_lowres; random weights, at
+      match threshold 0 as in the main-path phase) must end on the card as
+      on the CPU: the same registered images, or no model on both."""
+    import torch
+
+    from deep_image_matching_tpu_torch.io.colmap_read_write_model import read_model
+    from deep_image_matching_tpu_torch.ops import _lib
+    from deep_image_matching_tpu_torch.reconstruction import incremental_reconstruction
+
+    root = WORK / "stage5"
+    proj = root / "demo5"
+    shutil.copytree(ROOT / "notebooks" / "demo_project" / "images", proj / "images",
+                    dirs_exist_ok=True)
+    base = "general:\n  allow_random_weights: true\n  tpu:\n    device: {}\n"
+    launches = {}
+    for pipeline, strategy, extra, needed in (
+            ("sift+kornia_matcher", "bruteforce", "", ("nn", "nullspace")),
+            ("superpoint+lightglue", "matching_lowres", "matcher:\n  filter_threshold: 0.0\n",
+             ("attention", "ffn", "assignment", "nullspace"))):
+        label = f"{pipeline} (stage 5)"
+        cfg = {}
+        for d in ("cuda", "cpu"):
+            cfg[d] = root / f"{pipeline}_{d}.yaml"
+            cfg[d].write_text(base.format(d) + extra)
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        out_dir, model = _run_stage5(pipeline, proj, strategy, cfg["cuda"],
+                                     root / f"{pipeline}_cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = dict(_lib.LAUNCHES)
+        missing = [k for k in needed if launches[label][k] == 0]
+        if missing:
+            _fail(f"{label}: kernels {missing} of its path were never launched")
+        names, n_pts = _model_summary(model)
+        t0 = time.perf_counter()
+        cpu_dir, cpu_model = _run_stage5(pipeline, proj, strategy, cfg["cpu"],
+                                         root / f"{pipeline}_cpu")
+        cpu_wall = time.perf_counter() - t0
+        cpu_names, cpu_pts = _model_summary(cpu_model)
+        if names != cpu_names:
+            _fail(f"{label}: the card registered {names}, the CPU {cpu_names}")
+        line = "no model on either" if names is None else (
+            f"{len(names)}/5 registered, {n_pts} points from {_verified(out_dir)} verified "
+            f"matches (CPU: the same images, {cpu_pts} points from {_verified(cpu_dir)})")
+        if names is not None:
+            rec = out_dir / "reconstruction"
+            files = ("cameras.txt", "images.txt", "points3D.txt", "model.ply")
+            if not all((rec / f).is_file() for f in files):
+                _fail(f"{label}: reconstruction/ lacks one of {files}")
+            _, imgs, pts = read_model(rec, ".txt")
+            if len(imgs) != len(names) or len(pts) != n_pts:
+                _fail(f"{label}: the written model holds {len(imgs)} images, {len(pts)} points")
+            # stage 5 alone over the card run's database, on the card and on the CPU
+            db = out_dir / "database.db"
+            walls, again = {}, {}
+            for d in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                again[d] = incremental_reconstruction(db, proj / "images",
+                                                      root / f"{pipeline}_stage5_{d}", device=d)
+                walls[d] = time.perf_counter() - t0
+            if again["cuda"] is None or not _same_model(again["cuda"], model):
+                _fail(f"{label}: stage 5 again on the card over its database gave another model")
+            same_names, same_pts = _model_summary(again["cpu"])
+            if same_names != names or abs(same_pts - n_pts) > 0.02 * n_pts:
+                _fail(f"{label}: stage 5 over the card's database gave {same_names}, {same_pts} "
+                      f"points on the CPU; {names}, {n_pts} on the card")
+            line += (f"; stage 5 over the card's database: on the card the same model bit for "
+                     f"bit in {walls['cuda']:.2f} s, on the CPU {same_pts} points in "
+                     f"{walls['cpu']:.2f} s")
+        if pipeline == "sift+kornia_matcher" and (names is None or len(names) != 5):
+            _fail(f"{label}: registered {names}, expected the 5 demo images")
+        print(f"[stage5] {label} on demo5 ({strategy}): {line}; run_matching card {wall:.2f} s, "
+              f"CPU {cpu_wall:.2f} s; kernel launches "
+              f"{ {k: v for k, v in launches[label].items() if v} } [{card}]", flush=True)
+    return launches
+
+
+def phase_reconstruction(card: str) -> dict:
+    """Stage 5: BA alone, the mapper at profile size, the CLI through
+    reconstruction. Returns the CLI runs' launch counts."""
+    (WORK / "stage5").mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    _reconstruction_ba(card)
+    _reconstruction_mapper(card)
+    launches = _reconstruction_cli(card)
+    print(f"[stage5] phase wall {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return launches
+
+
 def main() -> None:
     if not PKG.is_dir():
         print("FAIL: the port package is missing next to chip_smoke.py", flush=True)
@@ -2002,6 +2464,7 @@ def main() -> None:
     report = phase_kernels(card)
     phase_reference(card)
     launches = phase_main_path(card)
+    launches.update(phase_reconstruction(card))
     kernels = [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

@@ -21,9 +21,16 @@ Projects are ``chip_smoke.py``'s: 16 synthetic 1024x1024 views with
 864 px, 5000 samples per pair, DINOv2 at 2 blocks). Weights are random, and the
 learned matchers run with match threshold 0 as in ``chip_smoke.py``, in
 ``general.tpu.dtype`` ``--dtype`` (bfloat16 by default; float32 runs the
-float32 forms of kernels 1, 2, 6 and 10). The card's
-name and power limit are printed first; the summary is also written to
-``build/profile/profile_<dtype>.json``. Exits non-zero without a CUDA device.
+float32 forms of kernels 1, 2, 6 and 10). Two reconstruction rows (stage 5):
+``sift+kornia_matcher+reconstruction``, the sift path on the demo images
+without ``--skip_reconstruction`` (the mapper's bundle adjustment on the
+card), and ``mapper60``, ``native_incremental_mapping`` alone on
+``chip_smoke.mapper_scene``'s 60 images (the JAX package's mapper profile
+size). ``--cpu`` also times ``--warm`` runs of each path with the CPU as its
+device (walls only), the baseline the card's walls are read against. The
+card's name and power limit are printed first; the summary is also written
+to ``build/profile/profile_<dtype>.json``. Exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -40,16 +47,57 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "profile"
 
-BASE = "general:\n  allow_random_weights: true\n  tpu:\n    device: cuda\n"
-# path -> (project, extra YAML)
+BASE = "general:\n  allow_random_weights: true\n  tpu:\n    device: {device}\n"
+
+
+def matching(project: str, extra: str = ""):
+    """A path of ``run_matching`` on ``project`` with ``extra`` YAML: a
+    factory (path, project directory, base YAML, device) -> one run (with
+    ``+reconstruction`` through stage 5, else with --skip_reconstruction)."""
+
+    def make(path: str, project_dir: Path, base: str, device: str):
+        from deep_image_matching_tpu_torch.__main__ import run_matching
+
+        config = WORK / f"{path}_{device}.yaml"
+        config.write_text(base.format(device=device) + extra)
+        pipeline = path.partition("+reconstruction")[0]
+        args = {"dir": str(project_dir), "outs": str(WORK / "out" / f"{path}_{device}"),
+                "pipeline": pipeline, "strategy": "bruteforce",
+                "skip_reconstruction": path == pipeline, "force": True,
+                "config_file": str(config)}
+        return lambda: run_matching(args)
+
+    return project, make, True
+
+
+def mapper(path: str, project_dir: Path, base: str, device: str):
+    """``native_incremental_mapping`` on ``device`` over
+    ``chip_smoke.mapper_scene``'s database, written under the work
+    directory once."""
+    import chip_smoke
+    from deep_image_matching_tpu_torch.sfm.incremental import native_incremental_mapping
+
+    root = WORK / path
+    db = root / "database.db"
+    if not db.exists():
+        chip_smoke.mapper_scene(root)
+    return lambda: native_incremental_mapping(db, None, root / device, device=device)
+
+
+# path -> (project, run factory, whether the profile also records the host's
+# events: the mapper's millions of small launches are traced on the device
+# side only)
 PATHS = {
-    "superpoint+lightglue": ("synthetic16", "matcher:\n  filter_threshold: 0.0\n"),
-    "superpoint+superglue": ("synthetic16", "matcher:\n  match_threshold: 0.0\n"),
-    "superpoint+kornia_matcher": ("synthetic16", ""),
-    "sift+kornia_matcher": ("demo5", ""),
-    "orb+kornia_matcher": ("demo5", ""),
-    "roma": ("demo5", ""),
-    "aliked+lightglue": ("synthetic16", "    attn_impl: bidir\nmatcher:\n  filter_threshold: 0.0\n"),
+    "superpoint+lightglue": matching("synthetic16", "matcher:\n  filter_threshold: 0.0\n"),
+    "superpoint+superglue": matching("synthetic16", "matcher:\n  match_threshold: 0.0\n"),
+    "superpoint+kornia_matcher": matching("synthetic16"),
+    "sift+kornia_matcher": matching("demo5"),
+    "orb+kornia_matcher": matching("demo5"),
+    "roma": matching("demo5"),
+    "aliked+lightglue": matching(
+        "synthetic16", "    attn_impl: bidir\nmatcher:\n  filter_threshold: 0.0\n"),
+    "sift+kornia_matcher+reconstruction": matching("demo5"),
+    "mapper60": ("60 synthetic views", mapper, False),
 }
 
 # the __global__ functions of csrc/*.cu -> the kernel they belong to; a name
@@ -70,40 +118,34 @@ OUR_KERNELS = {
 }
 
 
-def _device_ms(event) -> float:
-    us = getattr(event, "self_device_time_total", None)
-    if us is None:
-        us = getattr(event, "self_cuda_time_total", 0)
-    return us / 1e3
+def timed(run) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
-def profile_path(pipeline: str, project: Path, config: Path, warm: int, top: int) -> dict:
+def profile_path(pipeline: str, run, warm: int, top: int, host_events: bool) -> dict:
+    """``warm`` timed runs of ``run``, then one under ``torch.profiler``
+    (with the host's events too where ``host_events``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from deep_image_matching_tpu_torch.__main__ import run_matching
+    import chip_smoke
 
-    args = {"dir": str(project), "outs": str(WORK / "out" / pipeline), "pipeline": pipeline,
-            "strategy": "bruteforce", "skip_reconstruction": True, "force": True,
-            "config_file": str(config)}
-
-    def timed_run() -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_matching(args)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    walls = [timed_run() for _ in range(warm)]
+    walls = [timed(run) for _ in range(warm)]
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = timed_run()
+    activities = [ProfilerActivity.CPU] if host_events else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
+        wall = timed(run)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     # device-side events only: a host op's device time repeats its kernels'
-    events = [(_device_ms(e), e.count, e.key) for e in prof.key_averages()
-              if _device_ms(e) > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")]
-    events.sort(reverse=True)
-    busy = sum(ms for ms, _, _ in events)
+    busy, n_events, events = chip_smoke._device_busy(prof)
+    if busy is None:
+        raise RuntimeError(f"{pipeline}: the profiler recorded no device event")
     ours = {}
     for ms, n, key in events:
         for fn, kernel in OUR_KERNELS.items():
@@ -112,7 +154,8 @@ def profile_path(pipeline: str, project: Path, config: Path, warm: int, top: int
                 ours[kernel] = (ms0 + ms, n0 + n)
     return {
         "pipeline": pipeline, "warm_walls_s": walls, "profiled_wall_ms": wall * 1e3,
-        "device_busy_ms": busy, "idle_share": 1.0 - busy / (wall * 1e3),
+        "device_busy_ms": busy, "device_events": n_events,
+        "idle_share": 1.0 - busy / (wall * 1e3),
         "peak_gib": peak_gib,
         "kernels": {k: {"ms": ms, "share": ms / busy, "count": n} for k, (ms, n) in ours.items()},
         "top": [{"ms": ms, "share": ms / busy, "count": n, "name": key}
@@ -127,6 +170,8 @@ def main() -> None:
     parser.add_argument("--top", type=int, default=14, help="device events to list per path")
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                         help="general.tpu.dtype of the learned matchers")
+    parser.add_argument("--cpu", action="store_true",
+                        help="also time --warm runs of each path on the CPU (walls only)")
     opts = parser.parse_args()
     base = BASE + (f"    dtype: {opts.dtype}\n" if opts.dtype != "bfloat16" else "")
 
@@ -149,24 +194,30 @@ def main() -> None:
     for name in {PATHS[p][0] for p in opts.paths}:
         if name == "synthetic16":
             projects[name] = chip_smoke._synthetic_project(WORK / name)
-        else:
+        elif name == "demo5":
             projects[name] = WORK / name
             shutil.copytree(ROOT / "notebooks" / "demo_project" / "images",
                             projects[name] / "images")
 
     results = []
     for pipeline in opts.paths:
-        project, extra = PATHS[pipeline]
-        config = WORK / f"{pipeline}.yaml"
-        config.write_text(base + extra)
+        project, make, host_events = PATHS[pipeline]
         with chip_smoke._env(chip_smoke._path_env(pipeline)):
-            r = profile_path(pipeline, projects[project], config, opts.warm, opts.top)
+            r = profile_path(pipeline, make(pipeline, projects.get(project), base, "cuda"),
+                             opts.warm, opts.top, host_events)
+            if opts.cpu:
+                cpu_run = make(pipeline, projects.get(project), base, "cpu")
+                r["cpu_walls_s"] = [timed(cpu_run) for _ in range(max(1, opts.warm))]
         results.append(r)
         r["dtype"] = opts.dtype
         print(f"== {pipeline} ({opts.dtype}) on {project}: warm walls "
               f"{', '.join(f'{w:.3f}' for w in r['warm_walls_s'])} s; profiled wall "
-              f"{r['profiled_wall_ms']:.1f} ms; device busy {r['device_busy_ms']:.1f} ms; idle "
+              f"{r['profiled_wall_ms']:.1f} ms; device busy {r['device_busy_ms']:.1f} ms in "
+              f"{r['device_events']} device events; idle "
               f"{100 * r['idle_share']:.1f} %; peak {r['peak_gib']:.2f} GiB [{card}]", flush=True)
+        if opts.cpu:
+            print(f"   on the CPU: walls {', '.join(f'{w:.3f}' for w in r['cpu_walls_s'])} s",
+                  flush=True)
         for k, e in r["kernels"].items():
             print(f"   kernel {k}: {e['ms']:.2f} ms, {100 * e['share']:.1f} % of device time, "
                   f"n={e['count']}", flush=True)

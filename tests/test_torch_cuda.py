@@ -615,3 +615,113 @@ def test_kernel_wrappers_refuse_other_dtypes(cuda, wrapper):
         with pytest.raises(ValueError, match="torch.bfloat16 or torch.float32"):
             _wrapper_calls(cuda, dt, mixed)[wrapper]()
     assert _lib.LAUNCHES == before
+
+
+# -- reconstruction: bundle adjustment and the mapper on the card ------------
+
+
+def _ba_scene(seed, n_cams=6, n_pts=600, f=900.0, k1=-0.05):
+    """tests/test_sfm.py's scene on the port's geometry: ``n_cams`` cameras
+    along x looking at points 6-12 m away, 640 x 480, (f, cx, cy, k1)."""
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.sfm import geometry as G
+
+    rng = np.random.default_rng(seed)
+    intr = np.array([f, 320.0, 240.0, k1])
+    X = rng.uniform([-3, -3, 6], [3, 3, 12], (n_pts, 3))
+    poses = []
+    for i in range(n_cams):
+        rv = rng.normal(0, 0.08, 3)
+        c = np.array([i * 0.8 - 2, rng.normal(0, 0.2), rng.normal(0, 0.2)])
+        poses.append(np.concatenate([rv, -G.rotvec_to_matrix(rv) @ c]))
+    poses = np.array(poses)
+    obs = [[], [], []]
+    for i, p in enumerate(poses):
+        uv, z = G.project_points(intr, G.rotvec_to_matrix(p[:3]), p[3:], X)
+        idx = np.where((z > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < 640)
+                       & (uv[:, 1] >= 0) & (uv[:, 1] < 480))[0]
+        obs[0].append(np.full(len(idx), i))
+        obs[1].append(idx)
+        obs[2].append(uv[idx] + rng.normal(0, 0.4, (len(idx), 2)))
+    return rng, intr, X, poses, [np.concatenate(o) for o in obs]
+
+
+def test_bundle_adjust_on_cuda_matches_cpu(cuda):
+    """The perturbed 6-camera scene: float64 cost traces (20 CG steps, where
+    two summation orders still agree) card against CPU within 1e-3, and the
+    float32 default solve on the card down to test_sfm.py's 0.8 px with the
+    gauge pose held, and the same again bit for bit."""
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.sfm import ba, geometry as G
+
+    rng, intr, X, poses, (obs_pose, obs_pt, obs_uv) = _ba_scene(5)
+    poses0 = poses + rng.normal(0, 0.02, poses.shape)
+    poses0[0] = poses[0]
+    X0 = X + rng.normal(0, 0.05, X.shape)
+    pose_free = np.ones((len(poses), 6))
+    pose_free[0] = 0
+    pose_free[1, 3] = 0
+    args = (poses0, np.array([[950.0, 320.0, 240.0, 0.0]]), X0, obs_pose,
+            np.zeros_like(obs_pose), obs_pt, obs_uv, pose_free, np.array([[1.0, 0, 0, 1.0]]))
+    kw = dict(n_lm_iters=30, n_cg_iters=20, dtype=np.float64)
+    got, ref = ba.bundle_adjust(*args, **kw, device=cuda), ba.bundle_adjust(*args, **kw,
+                                                                           device="cpu")
+    n = min(len(got["costs"]), len(ref["costs"]))
+    assert n >= 10
+    np.testing.assert_allclose(got["costs"][:n], ref["costs"][:n], rtol=1e-3)
+    out = ba.bundle_adjust(*args, n_lm_iters=30, n_cg_iters=30, device=cuda)
+    sq = [np.sum((G.project_points(out["intr"][0], G.rotvec_to_matrix(p[:3]), p[3:],
+                                   out["points"][obs_pt[obs_pose == i]])[0]
+                  - obs_uv[obs_pose == i]) ** 2) for i, p in enumerate(out["poses"])]
+    assert np.sqrt(np.sum(sq) / len(obs_pose)) < 0.8
+    assert np.allclose(out["poses"][0], poses[0], atol=1e-6)
+    again = ba.bundle_adjust(*args, n_lm_iters=30, n_cg_iters=30, device=cuda)
+    for k in out:  # the segment sums add in a fixed order: the card repeats bit for bit
+        assert np.array_equal(out[k], again[k]), k
+
+
+def test_mapper_on_cuda_matches_ground_truth(cuda, tmp_path):
+    """tests/test_sfm.py's 6-image mapper scene with BA on the card: every
+    image registered, focal within 2 %, relative rotations within 0.5 deg."""
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.io.colmap_db import COLMAPDatabase
+    from deep_image_matching_tpu_torch.io.colmap_read_write_model import qvec2rotmat
+    from deep_image_matching_tpu_torch.sfm import geometry as G
+    from deep_image_matching_tpu_torch.sfm.incremental import native_incremental_mapping
+
+    rng, intr, X, poses, _ = _ba_scene(6, n_pts=900, k1=0.0)
+    db = COLMAPDatabase.connect(tmp_path / "database.db")
+    db.create_tables()
+    cam_id = db.add_camera(2, 640, 480, intr)
+    vis_ids, img_ids = [], []
+    for i, p in enumerate(poses):
+        uv, z = G.project_points(intr, G.rotvec_to_matrix(p[:3]), p[3:], X)
+        ids = np.where((z > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < 640)
+                       & (uv[:, 1] >= 0) & (uv[:, 1] < 480))[0]
+        ids = ids[rng.permutation(len(ids))]
+        img_ids.append(db.add_image(f"img{i}.jpg", cam_id))
+        db.add_keypoints(img_ids[-1], (uv[ids] + rng.normal(0, 0.4, (len(ids), 2)))
+                         .astype(np.float32))
+        vis_ids.append(ids)
+    for i in range(len(poses)):
+        for j in range(i + 1, min(i + 4, len(poses))):
+            _, ia, ib = np.intersect1d(vis_ids[i], vis_ids[j], return_indices=True)
+            m = np.stack([ia, ib], axis=1).astype(np.uint32)
+            m = m[rng.random(len(m)) < 0.8]
+            db.add_matches(img_ids[i], img_ids[j], m)
+            db.add_two_view_geometry(img_ids[i], img_ids[j], m)
+    db.commit()
+    db.close()
+    cameras, images, points3D = native_incremental_mapping(tmp_path / "database.db", tmp_path,
+                                                           tmp_path, device=cuda)
+    assert len(images) == len(poses) and len(points3D) > 500
+    assert abs(cameras[cam_id].params[0] - intr[0]) / intr[0] < 0.02
+    R = {im.name: qvec2rotmat(im.qvec) for im in images.values()}
+    for i in range(len(poses)):
+        for j in range(i + 1, len(poses)):
+            Rg = G.rotvec_to_matrix(poses[j, :3]) @ G.rotvec_to_matrix(poses[i, :3]).T
+            Rr = R[f"img{j}.jpg"] @ R[f"img{i}.jpg"].T
+            assert np.degrees(np.linalg.norm(G.matrix_to_rotvec(Rr @ Rg.T))) < 0.5, (i, j)

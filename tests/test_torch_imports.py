@@ -26,7 +26,7 @@ print(" ".join(names))
 
 # the modules of the ported slices (SuperPoint + LightGlue, then nearest
 # neighbours, SuperGlue, SIFT and ORB, then RoMa, then ALIKED and LightGlue's
-# two opt-in kernels)
+# two opt-in kernels, then reconstruction)
 SLICE_MODULES = (
     "models.superpoint", "models.lightglue", "ops.attention", "ops.ffn", "ops.assignment",
     "ops.nullspace", "ops.ransac",
@@ -36,6 +36,8 @@ SLICE_MODULES = (
     "extractors.no_extractor", "utils.dense_to_multiview",
     "ops.bidir_attention", "ops.qkv", "ops.deform", "models.aliked", "extractors.aliked",
     "upright", "low_resolution",
+    "native", "sfm", "sfm.geometry", "sfm.ba", "sfm.incremental", "reconstruction",
+    "triangulation", "io.tracks",
 )
 
 
@@ -44,7 +46,7 @@ def test_port_imports_without_jax_or_h5py():
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     names = set(res.stdout.split())
-    assert len(names) >= 62
+    assert len(names) >= 70
     assert {f"deep_image_matching_tpu_torch.{m}" for m in SLICE_MODULES} <= names
 
 
@@ -95,8 +97,8 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path):
 
     (tmp_path / "images").mkdir()
     args = {"dir": str(tmp_path), "pipeline": "superpoint+lightglue", "strategy": "bruteforce"}
-    with pytest.raises(NotImplementedError, match="reconstruction"):
-        run_matching(args)
+    with pytest.raises(NotImplementedError, match="OpenMVG"):
+        run_matching({**args, "openmvg": "openmvg.yaml"})
     for pipeline in ("disk+lightglue", "loftr", "se2loftr", "srif"):
         with pytest.raises(NotImplementedError, match="ported"):
             run_matching({**args, "pipeline": pipeline, "skip_reconstruction": True})
