@@ -71,7 +71,30 @@ Phases, each printing its own lines:
      path launched.
    Each run checks features.h5, raw_matches.h5 and database.db and prints
    the wall time per stage; each path checks that its kernels launched;
-6. reconstruction, the main path's stage 5 (no exception caught):
+6. tiled extraction and matching (``--tiling``), each counted run with the
+   launch counts set to 0 just before it and read just after:
+   - superpoint+lightglue ``--tiling preselection`` on 6 synthetic views of
+     6000 x 4000 (24 MP; the default tiles (2400, 2000), 6 an image; 15
+     ``bruteforce`` pairs; match threshold 0; views 4 and 5 are view 0
+     shifted by ``TILED_SHIFTS``, whose verified matches must carry the
+     shift) at the preset's 2048 keypoints, again warm under
+     ``torch.profiler`` (device busy, idle share, peak memory), and at 8192;
+     every image's keypoints carry ``tile_idx`` from at least two tiles and
+     no pair holds a query keypoint twice; the tile-pair jobs per pair;
+   - ``--tiling grid`` on the 5 demo images at tiles (400, 300) with
+     sift+kornia_matcher and superpoint+lightglue;
+   - 3 views of 4800 x 3200 (4 tiles an image, view 2 a shifted copy) on the
+     card and on the CPU: equal tile-pair jobs on the shifted pair (the
+     share of equal jobs over all pairs printed), at least 90 % of the
+     keypoints shared, and LightGlue on the CPU run's tile-pair jobs as one
+     batch gathered from a tiled store on each device, card against CPU in
+     float32 (the reference phase's float32 rule) and in bf16 (against the
+     CPU's float32, within twice the plain bf16 version's distance);
+   - ``cut_tiles`` and ``merge_tile_features`` on the card bitwise equal to
+     the CPU on a 24 MP view's tiles, and kernels 1 and 3 against their plain
+     versions on a batch of tile-pair jobs gathered from the tiled store
+     (masks scattered over the capacity);
+7. reconstruction, the main path's stage 5 (no exception caught):
    - bundle adjustment alone at 64 poses, 8192 points and ~262k observations
      (``ba_scene``: perturbed as ``tests/test_sfm.py`` perturbs its scene):
      the mapper's default solve on the card down to under 1.5 x the injected
@@ -503,10 +526,10 @@ def check_ffn(torch, dev, card):
     return err, tol, what, extra
 
 
-def _assignment_case(torch, gen, B, N, D, dev):
-    """One assignment shape with partial masks: the error on valid rows and
-    columns (inf if an argmax differs beyond a near-tie), the near-ties, the
-    times and the bounds."""
+def _assignment_case(torch, gen, B, N, D, dev, masks=None):
+    """One assignment shape with partial masks (``_masks``'s, or ``masks``
+    (m0, m1)): the error on valid rows and columns (inf if an argmax
+    differs beyond a near-tie), the near-ties, the times and the bounds."""
     from deep_image_matching_tpu_torch.ops.assignment import (
         assignment_fused, assignment_reference, log_assignment_dense)
 
@@ -514,8 +537,9 @@ def _assignment_case(torch, gen, B, N, D, dev):
     md1 = (torch.randn(B, N, D, generator=gen) * D ** -0.25).to(dev)
     z0 = torch.randn(B, N, generator=gen).to(dev)
     z1 = torch.randn(B, N, generator=gen).to(dev)
-    m0 = _masks(torch, gen, B, N, dev)
-    m1 = _masks(torch, gen, B, N, dev)
+    if masks is None:
+        masks = (_masks(torch, gen, B, N, dev), _masks(torch, gen, B, N, dev))
+    m0, m1 = masks
     args = (md0, md1, z0, z1, m0, m1)
     got = assignment_fused(*args)
     ref = assignment_reference(*args)
@@ -1189,21 +1213,29 @@ def phase_kernels(card: str) -> dict:
     return report
 
 
-def _synthetic_project(root: Path, n: int = 16, size: int = 1024, seed: int = 0) -> Path:
-    """``n`` views of one textured plane, written as PNG: random homographies
-    (small rotation, scale, shear and shift), except that the last two views
-    are view 0 shifted by whole SuperPoint cells. Random weights give no
-    confident matches between warped views, but shifted copies keep their
-    descriptors, so those pairs do match and reach verification (a pure
-    translation: the f33 = 0 case of the null-space solve)."""
+def _synthetic_project(root: Path, n: int = 16, size=1024, seed: int = 0,
+                       shifts: dict = SHIFTS) -> Path:
+    """``n`` views of one textured plane, written as PNG, ``size`` pixels
+    square or (w, h): random homographies (small rotation, scale, shear and
+    shift), except that the last views are view 0 shifted by ``shifts``
+    (view index from the end -> (dx, dy) in whole SuperPoint cells). Random
+    weights give no confident matches between warped views, but shifted
+    copies keep their descriptors, so those pairs do match and reach
+    verification (a pure translation: the f33 = 0 case of the null-space
+    solve)."""
     import cv2
     import numpy as np
 
+    w, h = (size, size) if isinstance(size, int) else size
     rng = np.random.default_rng(seed)
-    big = 2 * size
-    tex = rng.integers(0, 256, (big, big), dtype=np.uint8)
+    big_w, big_h = 2 * w, 2 * h
+    tex = rng.integers(0, 256, (big_h, big_w), dtype=np.uint8)
     tex = cv2.GaussianBlur(tex, (0, 0), 4)
-    for _ in range(300):  # blobs and strokes for corners at several scales
+    # blobs and strokes for corners at several scales, about as many per
+    # pixel as at 1024 x 1024 (drawn over the longer side's square; those
+    # beyond the shorter side fall off the texture)
+    big = max(big_w, big_h)
+    for _ in range(max(300, 300 * big * big // (2048 * 2048))):
         c = tuple(int(v) for v in rng.integers(0, big, 2))
         col = int(rng.integers(0, 256))
         if rng.random() < 0.5:
@@ -1214,30 +1246,31 @@ def _synthetic_project(root: Path, n: int = 16, size: int = 1024, seed: int = 0)
     tex = cv2.normalize(tex, None, 0, 255, cv2.NORM_MINMAX)
     img_dir = root / "images"
     img_dir.mkdir(parents=True, exist_ok=True)
-    center = np.array([big / 2, big / 2])
+    center = np.array([big_w / 2, big_h / 2])
+    spread = 200 * max(w, h) / 1024
+    png = [cv2.IMWRITE_PNG_COMPRESSION, 1]
     H0 = None
     for i in range(n):
-        if i >= n - 2 and H0 is not None:
+        if i - n in shifts and H0 is not None:
             shift = np.eye(3)
-            shift[:2, 2] = SHIFTS[i - n]
-            view = cv2.warpPerspective(tex, H0 @ shift, (size, size),
+            shift[:2, 2] = shifts[i - n]
+            view = cv2.warpPerspective(tex, H0 @ shift, (w, h),
                                        flags=cv2.INTER_LINEAR | cv2.WARP_INVERSE_MAP)
-            cv2.imwrite(str(img_dir / f"view_{i:02d}.png"), view)
+            cv2.imwrite(str(img_dir / f"view_{i:02d}.png"), view, png)
             continue
         ang = rng.uniform(-0.2, 0.2)
         s = rng.uniform(0.8, 1.2)
         R = s * np.array([[np.cos(ang), -np.sin(ang)], [np.sin(ang), np.cos(ang)]])
         R = R + rng.normal(0, 0.03, (2, 2))
-        t = center - R @ np.array([size / 2, size / 2]) + rng.uniform(-200, 200, 2)
+        t = center - R @ np.array([w / 2, h / 2]) + rng.uniform(-spread, spread, 2)
         H = np.eye(3)
         H[:2, :2], H[:2, 2] = R, t
-        H[2, :2] = rng.normal(0, 5e-5, 2)
+        H[2, :2] = rng.normal(0, 5e-5 * 1024 / max(w, h), 2)
         if i == 0:
             H[2, :2] = 0.0  # affine, so a shifted copy is an exact pixel shift
             H0 = H
-        view = cv2.warpPerspective(tex, H, (size, size),
-                                   flags=cv2.INTER_LINEAR | cv2.WARP_INVERSE_MAP)
-        cv2.imwrite(str(img_dir / f"view_{i:02d}.png"), view)
+        view = cv2.warpPerspective(tex, H, (w, h), flags=cv2.INTER_LINEAR | cv2.WARP_INVERSE_MAP)
+        cv2.imwrite(str(img_dir / f"view_{i:02d}.png"), view, png)
     return root
 
 
@@ -1391,7 +1424,7 @@ def _check_dense_outputs(out_dir: Path, names: list, n_pairs: int, num: int = 50
             f"{n_kp} keypoint rows, {n_m} match rows, {n_tv} two-view rows", len(ver))
 
 
-def _check_shifted(out_dir: Path, names: list) -> str:
+def _check_shifted(out_dir: Path, names: list, shifts: dict = SHIFTS) -> str:
     """Verified matches between view 0 and its shifted copies must carry
     the planted shift, and at least one such pair must verify."""
     import numpy as np
@@ -1399,7 +1432,7 @@ def _check_shifted(out_dir: Path, names: list) -> str:
     from deep_image_matching_tpu_torch.io import hdf5
 
     shift = {names[0]: np.zeros(2)}
-    shift.update({names[k]: np.asarray(v, float) for k, v in SHIFTS.items()})
+    shift.update({names[k]: np.asarray(v, float) for k, v in shifts.items()})
     done = []
     with hdf5.File(out_dir / "features.h5", "r") as f, \
             hdf5.File(out_dir / "matches.h5", "r") as m:
@@ -1912,12 +1945,12 @@ def _raw_match_sets(out_dir: Path) -> dict:
     return out
 
 
-def _run(pipeline: str, proj: Path, strategy: str, cfg: Path, outs: Path):
+def _run(pipeline: str, proj: Path, strategy: str, cfg: Path, outs: Path, tiling: str = "none"):
     from deep_image_matching_tpu_torch.__main__ import run_matching
 
     feature_path, _, _ = run_matching({
         "dir": str(proj), "outs": str(outs), "pipeline": pipeline, "strategy": strategy,
-        "skip_reconstruction": True, "force": True, "config_file": str(cfg),
+        "tiling": tiling, "skip_reconstruction": True, "force": True, "config_file": str(cfg),
     })
     return feature_path.parent
 
@@ -2015,6 +2048,376 @@ def phase_main_path(card: str) -> dict:
         with _env(_path_env(pipeline)):
             launches[label], _ = _run_path(pipeline, needed, runs, projects, configs, timers,
                                            card, label)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# tiled extraction and matching (--tiling)
+# ---------------------------------------------------------------------------
+
+# the tiled projects' shifted copies of view 0: whole SuperPoint cells at full
+# resolution and at the preselection probe's (2000 px over 6000 or 4800: a
+# third and 5/12), so the probe's matches, the tile-pair jobs and the
+# full-resolution matches all follow the shift
+TILED_SHIFTS = {-2: (192, -96), -1: (-288, 96)}
+
+
+@contextlib.contextmanager
+def _recording_jobs():
+    """The tile pairs ``select_tile_pairs`` chooses inside the block, one
+    list per image pair in the matcher's pair order."""
+    from deep_image_matching_tpu_torch.matchers import tiling
+
+    calls = []
+    orig = tiling.select_tile_pairs
+
+    def record(*args, **kwargs):
+        calls.append(orig(*args, **kwargs))
+        return calls[-1]
+
+    tiling.select_tile_pairs = record
+    try:
+        yield calls
+    finally:
+        tiling.select_tile_pairs = orig
+
+
+def _check_tiles(out_dir: Path, names: list) -> str:
+    """Every image's keypoints carry ``tile_idx`` from at least two tiles,
+    and no pair holds a query keypoint twice (the union's dedup)."""
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.io import hdf5
+
+    tiles = []
+    with hdf5.File(out_dir / "features.h5", "r") as f:
+        for name in names:
+            t = np.asarray(f[name]["tile_idx"]) if "tile_idx" in f[name] else np.zeros(0)
+            if len(t) != len(np.asarray(f[name]["keypoints"])) or len(np.unique(t)) < 2:
+                _fail(f"features of {name}: tile_idx from {len(np.unique(t))} tiles")
+            tiles.append(len(np.unique(t)))
+    for path in (out_dir / "raw_matches.h5", out_dir / "matches.h5"):
+        if path.exists():
+            with hdf5.File(path, "r") as f:
+                for a in f:
+                    for b in f[a]:
+                        m = np.asarray(f[a][b])
+                        if len(np.unique(m[:, 0])) != len(m):
+                            _fail(f"{path.name} {a}-{b}: a query keypoint matched twice")
+    return f"tiles per image {min(tiles)}-{max(tiles)}, no duplicate query keypoints"
+
+
+def _tiled_run(label, pipeline, proj, cfg, outs, tiling, needed, timers, card, dim=256,
+               shifts=None):
+    """One counted tiled run: the launch counts set to 0 just before it and
+    read just after; its files, tiles and (with ``shifts``) the shifted
+    pairs checked. Returns (out dir, tile pairs per image pair, launches,
+    wall s)."""
+    import torch
+
+    from deep_image_matching_tpu_torch.ops import _lib
+
+    names = sorted(p.name for p in (proj / "images").iterdir())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _recording_jobs() as jobs:
+        out_dir = _run(pipeline, proj, "bruteforce", cfg, outs, tiling)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_pairs = len(names) * (len(names) - 1) // 2
+    if len(jobs) != n_pairs:
+        _fail(f"{label}: tile pairs chosen for {len(jobs)} of {n_pairs} pairs")
+    summary, _ = _check_outputs(out_dir, names, n_pairs, dim)
+    summary += "; " + _check_tiles(out_dir, names)
+    if shifts:
+        summary += "; " + _check_shifted(out_dir, names, shifts)
+    stages = timers.lines[-1].split("] ", 2)[-1] if timers.lines else "no timer line"
+    n_jobs = sum(len(j) for j in jobs)
+    print(f"[tiled] {label}: {summary}; {n_jobs} tile-pair jobs over {n_pairs} pairs "
+          f"({min(len(j) for j in jobs)}-{max(len(j) for j in jobs)} a pair); run_matching "
+          f"{wall:.2f} s; stages {stages}; peak {peak:.2f} GiB [{card}]", flush=True)
+    print(f"[tiled] {label}: kernel launches {launches}", flush=True)
+    missing = [k for k in needed if launches[k] == 0]
+    if missing:
+        _fail(f"{label}: kernels {missing} of its path were never launched")
+    return out_dir, jobs, launches, wall
+
+
+def _tiled_card_vs_cpu(proj, cfg_card, cfg_cpu, timers, card) -> dict:
+    """The 3-view 4800 x 3200 project (view 2 a shifted copy of view 0) on
+    the card and on the CPU: equal tile-pair jobs on the shifted pair and the
+    share of equal jobs over all pairs; SuperPoint in bf16 on the card and in
+    f32 on the CPU keeping at least 90 % of the same keypoints; then
+    LightGlue on one batch of the CPU run's tile-pair jobs, gathered from a
+    tiled store of the CPU run's features on each device (``_tiled_lightglue``).
+    Returns the card run's launches."""
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.io import hdf5
+
+    names = sorted(p.name for p in (proj / "images").iterdir())
+    lg = ("attention", "ffn", "assignment", "nullspace", "nn")
+    out = WORK / "tiled" / "out"
+    gpu_dir, gpu_jobs, launches, _ = _tiled_run(
+        "superpoint+lightglue --tiling preselection (4800 x 3200, card)", "superpoint+lightglue",
+        proj, cfg_card, out / "p15_card", "preselection", lg, timers, card,
+        shifts={-1: TILED_SHIFTS[-1]})
+    t0 = time.perf_counter()
+    with _recording_jobs() as cpu_jobs:
+        cpu_dir = _run("superpoint+lightglue", proj, "bruteforce", cfg_cpu, out / "p15_cpu",
+                       "preselection")
+    cpu_wall = time.perf_counter() - t0
+    pairs = [tuple(line.split()) for line in (gpu_dir / "pairs.txt").read_text().splitlines()]
+    shifted = pairs.index((names[0], names[-1]))
+    if gpu_jobs[shifted] != cpu_jobs[shifted]:
+        _fail(f"tile-pair jobs of the shifted pair differ: card {gpu_jobs[shifted]}, "
+              f"CPU {cpu_jobs[shifted]}")
+    equal_pairs = sum(g == c for g, c in zip(gpu_jobs, cpu_jobs))
+    gj = {(p, t) for p, js in enumerate(gpu_jobs) for t in js}
+    cj = {(p, t) for p, js in enumerate(cpu_jobs) for t in js}
+    shared = []
+    with hdf5.File(gpu_dir / "features.h5", "r") as g, hdf5.File(cpu_dir / "features.h5", "r") as c:
+        for name in names:
+            gk = {tuple(k) for k in np.asarray(g[name]["keypoints"])}
+            ck = {tuple(k) for k in np.asarray(c[name]["keypoints"])}
+            shared.append(len(gk & ck) / max(len(ck), 1))
+    print(f"[tiled] card vs CPU at 4800 x 3200: tile-pair jobs of the shifted pair equal "
+          f"({len(gpu_jobs[shifted])}); pairs with equal jobs {equal_pairs}/{len(pairs)}, equal "
+          f"jobs {len(gj & cj)}/{len(gj | cj)} ({len(gj)} card, {len(cj)} CPU); keypoints the "
+          f"card's features share with the CPU's: {', '.join(f'{v:.4f}' for v in shared)}; "
+          f"CPU run_matching {cpu_wall:.2f} s [{card}]", flush=True)
+    if min(shared) < 0.9:
+        _fail("SuperPoint on the card keeps under 90 % of the CPU's keypoints")
+    _tiled_lightglue(cpu_dir, cpu_jobs, card)
+    return launches
+
+
+def _tiled_lightglue(out_dir: Path, jobs: list, card) -> None:
+    """LightGlue (the path's model and settings: random weights, threshold
+    0, adaptive depth and width) on every tile-pair job of a run as one
+    batch, gathered with ``gather_tiled`` from a tiled store of the run's
+    features.h5 built on the card and on the CPU, compared as
+    ``_reference_lightglue`` compares (``_agreement``). In float32 (the
+    kernels' float32 forms) as the reference phase's float32 rule holds it:
+    the same exit layer, at most one row in 1000 differing, scores within
+    1e-4. In bf16 (the path's dtype: kernels 1-3) the reference phase's 99 %
+    agreement does not hold on random-weight tile batches of a real texture,
+    where most matched rows are near-ties: the CPU's own plain bf16 differs
+    from its f32 there. So the card's bf16 is held to the CPU's f32: the
+    same exit layer, and at most twice as many rows differing as the plain
+    bf16 version's, plus one row in 1000."""
+    import torch
+
+    from deep_image_matching_tpu_torch.matchers.matcher_base import _PaddedFeatureStore
+    from deep_image_matching_tpu_torch.models.lightglue import forward, load_default_model
+    from deep_image_matching_tpu_torch.ops import _lib
+    from deep_image_matching_tpu_torch.utils.device import full_f32
+
+    pairs = [tuple(line.split()) for line in (out_dir / "pairs.txt").read_text().splitlines()]
+    names = sorted({n for p in pairs for n in p})
+    flat = [(pairs[p], t0, t1) for p, js in enumerate(jobs) for t0, t1 in js]
+    out = {}
+    for dev in (torch.device("cuda", 0), torch.device("cpu")):
+        store = _PaddedFeatureStore(out_dir / "features.h5", names, dev)
+        batches = [store.gather_tiled(
+            torch.tensor([store.index[pair[side]] for pair, _, _ in flat], device=dev),
+            torch.tensor([float(job[1 + side]) for job in flat], device=dev)) for side in (0, 1)]
+        b0, b1 = batches
+        model = load_default_model("superpoint").to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            _lib.reset_launch_counts()
+            with full_f32():
+                o = forward(model, b0["keypoints"], b1["keypoints"], b0["descriptors"],
+                            b1["descriptors"], b0["mask"], b1["mask"], b0["image_size"].float(),
+                            b1["image_size"].float(), filter_threshold=0.0,
+                            depth_confidence=0.95, width_confidence=0.99, compute_dtype=dtype)
+            out[dev.type, dtype] = ({k: v.cpu() if torch.is_tensor(v) else v for k, v in o.items()},
+                                    {k: v for k, v in _lib.LAUNCHES.items() if v})
+        model.cpu()
+    B, K = out["cpu", torch.float32][0]["matches0"].shape
+    valid = float(b0["mask"].float().mean())
+    lines, ok = [], True
+    for name, (a, b) in {"bf16 card vs bf16 CPU": (("cuda", torch.bfloat16), ("cpu", torch.bfloat16)),
+                         "f32 card vs f32 CPU": (("cuda", torch.float32), ("cpu", torch.float32)),
+                         "bf16 card vs f32 CPU": (("cuda", torch.bfloat16), ("cpu", torch.float32)),
+                         "bf16 CPU vs f32 CPU": (("cpu", torch.bfloat16), ("cpu", torch.float32))}.items():
+        x, y = out[a][0], out[b][0]
+        differ, score_err = _agreement(y, x)
+        both = x["valid0"] & y["valid0"]
+        agree = (x["matches0"] == y["matches0"])[both].float().mean().item()
+        lines.append(f"{name}: layers {x['layers_run']} / {y['layers_run']}, rows that differ "
+                     f"{differ}, agreement on rows matched by both {agree:.4f}, max score "
+                     f"difference {score_err:.3e}")
+        ok &= x["layers_run"] == y["layers_run"]
+        if name == "f32 card vs f32 CPU":
+            ok &= differ <= B * K // 1000 and score_err <= 1e-4
+    plain = _agreement(out["cpu", torch.float32][0], out["cpu", torch.bfloat16][0])[0]
+    kern = _agreement(out["cpu", torch.float32][0], out["cuda", torch.bfloat16][0])[0]
+    ok &= kern <= 2 * plain + B * K // 1000
+    print(f"[tiled] LightGlue on {B} tile-pair jobs of the CPU run (K = {K}, valid {valid:.3f} of "
+          f"the capacity): {'; '.join(lines)}; launches on the card bf16 "
+          f"{out['cuda', torch.bfloat16][1]}, f32 {out['cuda', torch.float32][1]} [{card}]",
+          flush=True)
+    if not ok:
+        _fail("LightGlue on tile-pair batches: the card disagrees with the CPU")
+
+
+def _tiled_steps_bitwise(proj, card) -> None:
+    """``cut_tiles`` and ``merge_tile_features`` on the card against the CPU
+    on the same inputs (one 24 MP view, its tiles' SuperPoint outputs from
+    the card): equal bits."""
+    import numpy as np
+    import torch
+
+    from deep_image_matching_tpu_torch.extractors.superpoint import SuperPointExtractor
+    from deep_image_matching_tpu_torch.ops.tile_merge import cut_tiles, merge_tile_features
+    from deep_image_matching_tpu_torch.utils.image import read_image
+    from deep_image_matching_tpu_torch.utils.tiling import Tiler
+
+    dev = torch.device("cuda", 0)
+    img = read_image(sorted((proj / "images").iterdir())[0], grayscale=True)
+    origins, pad, hw = Tiler().tile_origins(img.shape, (2400, 2000), 10)
+    starts = np.stack([origins[:, 1] + pad[0], origins[:, 0] + pad[2]], 1)
+    gpu = cut_tiles(torch.from_numpy(img).to(dev), starts, hw, pad)
+    cpu = cut_tiles(torch.from_numpy(img), starts, hw, pad)
+    if not torch.equal(gpu.cpu(), cpu):
+        _fail("cut_tiles on the card differs from the CPU")
+    ex = SuperPointExtractor({"extractor": {}, "general": {"tpu": {"device": "cuda"}}})
+    out = ex._extract_tiles_dev(gpu)
+    wh = (img.shape[1], img.shape[0])
+    org = torch.from_numpy(origins.astype(np.float32))
+    args = [out[k] for k in ("keypoints", "scores", "descriptors", "mask")]
+    for cap in (2048, 8192):
+        g = merge_tile_features(*args, org, wh, cap)
+        c = merge_tile_features(*(a.cpu() for a in args), org, wh, cap)
+        differ = [k for k in c if not torch.equal(g[k].cpu(), c[k])]
+        if differ:
+            _fail(f"merge_tile_features at cap {cap}: {differ} differ between the card and the CPU")
+    print(f"[tiled] cut_tiles ({len(origins)} tiles of {hw}) and merge_tile_features (caps 2048, "
+          f"8192; {int(out['mask'].sum())} tile keypoints, {int(g['mask'].sum())} merged at "
+          f"8192) bitwise equal on the card and the CPU [{card}]", flush=True)
+
+
+def _tiled_kernel_masks(out_dir: Path, jobs: list, card) -> None:
+    """Kernels 1 and 3 against their plain versions on a batch of tile-pair
+    jobs gathered from the tiled store (masks scattered by tile over the
+    capacity, not prefixes), within their kernel checks' tolerances."""
+    import torch
+
+    from deep_image_matching_tpu_torch.matchers.matcher_base import _PaddedFeatureStore
+    from deep_image_matching_tpu_torch.ops.attention import attention_reference, fused_attention
+
+    dev = torch.device("cuda", 0)
+    names = sorted({n for line in (out_dir / "pairs.txt").read_text().splitlines()
+                    for n in line.split()})
+    pairs = [tuple(line.split()) for line in (out_dir / "pairs.txt").read_text().splitlines()]
+    store = _PaddedFeatureStore(out_dir / "features.h5", names, dev)
+    flat = [(pairs[p], t0, t1) for p, js in enumerate(jobs) for t0, t1 in js][:16]
+    ind0 = torch.tensor([store.index[a] for (a, _), _, _ in flat], device=dev)
+    ind1 = torch.tensor([store.index[b] for (_, b), _, _ in flat], device=dev)
+    t0 = torch.tensor([float(t) for _, t, _ in flat], device=dev)
+    t1 = torch.tensor([float(t) for _, _, t in flat], device=dev)
+    m0 = store.gather_tiled(ind0, t0)["mask"]
+    m1 = store.gather_tiled(ind1, t1)["mask"]
+    B, K = m0.shape
+    prefix = bool(((m0.cumsum(1) == torch.arange(1, K + 1, device=dev)) | ~m0).all()
+                  and m0[:, 0].all())
+    gen = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(B, 4, K, 64, generator=gen).mul(s).to(dev, torch.bfloat16)
+               for s in (2.0, 2.0, 1.0))
+    a_err, a_tol, a = _attention_case(torch, fused_attention, attention_reference, q, k, v,
+                                      m0, m1)
+    s_err, ties, s = _assignment_case(torch, gen, B, K, 256, dev, masks=(m0, m1))
+    print(f"[tiled] kernels on {B} tile-pair jobs from the tiled store (K = {K}, valid "
+          f"{float(m0.float().mean()):.3f} / {float(m1.float().mean()):.3f} of the capacity, "
+          f"prefix masks {prefix}): attention max err {a_err:.3e} (tol {a_tol:.1e}), kernel "
+          f"{a['ms']:.3f} ms, plain {a['plain_ms']:.3f} ms; assignment max err {s_err:.3e} "
+          f"(tol 1.0e-03), near-ties {ties}, kernel {s['ms']:.3f} ms, plain "
+          f"{s['plain_ms']:.3f} ms [{card}]", flush=True)
+    if not a_err <= a_tol or not s_err <= 1e-3:
+        _fail("kernel 1 or 3 disagrees with its plain version on tile-masked batches")
+
+
+def phase_tiled(card: str) -> dict:
+    """Tiled extraction and matching: superpoint+lightglue --tiling
+    preselection on 6 synthetic 24 MP views at 2048 and 8192 keypoints (a
+    warm run of the first under torch.profiler), --tiling grid on the demo
+    images with sift and with superpoint+lightglue, the card against the
+    CPU on a 3-view 4800 x 3200 project, the tile cut and the merge bitwise,
+    and kernels 1 and 3 on tile-masked batches. Returns the counted runs'
+    launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    root = WORK / "tiled"
+    root.mkdir(parents=True, exist_ok=True)
+    base = "general:\n  allow_random_weights: true\n  tpu:\n    device: {}\n"
+    lg0 = "matcher:\n  filter_threshold: 0.0\n"
+    demo_tiles = "  tile_size: [400, 300]\n  tile_overlap: 20\n"
+    texts = {"card": base.format("cuda") + lg0, "cpu": base.format("cpu") + lg0,
+             "card8192": base.format("cuda") + lg0 + "extractor:\n  max_keypoints: 8192\n",
+             "demo_lg": base.format("cuda") + demo_tiles + lg0,
+             "demo_sift": base.format("cuda") + demo_tiles}
+    cfgs = {}
+    for name, text in texts.items():
+        cfgs[name] = root / f"{name}.yaml"
+        cfgs[name].write_text(text)
+    t0 = time.perf_counter()
+    p24 = _synthetic_project(root / "p24", n=6, size=(6000, 4000), shifts=TILED_SHIFTS)
+    p15 = _synthetic_project(root / "p15", n=3, size=(4800, 3200), shifts={-1: TILED_SHIFTS[-1]})
+    demo = WORK / "demo5"
+    print(f"[tiled] projects: 6 views of 6000 x 4000 (views 4 and 5 view 0 shifted by "
+          f"{TILED_SHIFTS[-2]} and {TILED_SHIFTS[-1]} px), 3 of 4800 x 3200, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    timers = _TimerLog()
+    lg = ("attention", "ffn", "assignment", "nullspace", "nn")
+    launches = {}
+    label = "superpoint+lightglue --tiling preselection (24 MP, 2048)"
+    out2048, jobs2048, launches[label], _ = _tiled_run(
+        label, "superpoint+lightglue", p24, cfgs["card"], root / "out" / "p24_2048",
+        "preselection", lg, timers, card, shifts=TILED_SHIFTS)
+
+    # the same run warm, under torch.profiler (not counted)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _run("superpoint+lightglue", p24, "bruteforce", cfgs["card"], root / "out" / "p24_prof",
+             "preselection")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, n_events, events = _device_busy(prof)
+    if busy is None:
+        _fail("the profiler recorded no device event in the tiled run")
+    stages = timers.lines[-1].split("] ", 2)[-1] if timers.lines else "no timer line"
+    top = "; ".join(f"{ms:.1f} ms x{n} {key[:60]}" for ms, n, key in events[:6])
+    print(f"[tiled] warm profiled run (24 MP, 2048): wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy:.1f} ms in {n_events} device events, idle {100 * (1 - busy / (wall * 1e3)):.1f} "
+          f"%, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; stages {stages}; top: "
+          f"{top} [{card}]", flush=True)
+
+    label = "superpoint+lightglue --tiling preselection (24 MP, 8192)"
+    _, _, launches[label], _ = _tiled_run(
+        label, "superpoint+lightglue", p24, cfgs["card8192"], root / "out" / "p24_8192",
+        "preselection", lg, timers, card, shifts=TILED_SHIFTS)
+    for pipeline, cfg, needed, dim in (
+            ("sift+kornia_matcher", "demo_sift", ("nn", "nullspace"), 128),
+            ("superpoint+lightglue", "demo_lg", ("attention", "ffn", "assignment", "nullspace"),
+             256)):
+        label = f"{pipeline} --tiling grid (demo5, tiles 400 x 300)"
+        _, _, launches[label], _ = _tiled_run(
+            label, pipeline, demo, cfgs[cfg], root / "out" / f"demo_{pipeline}", "grid", needed,
+            timers, card, dim=dim)
+    launches["superpoint+lightglue --tiling preselection (4800 x 3200)"] = _tiled_card_vs_cpu(
+        p15, cfgs["card"], cfgs["cpu"], timers, card)
+    _tiled_steps_bitwise(p24, card)
+    _tiled_kernel_masks(out2048, jobs2048, card)
+    print(f"[tiled] phase wall {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     return launches
 
 
@@ -2464,6 +2867,7 @@ def main() -> None:
     report = phase_kernels(card)
     phase_reference(card)
     launches = phase_main_path(card)
+    launches.update(phase_tiled(card))
     launches.update(phase_reconstruction(card))
     kernels = [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -16,7 +16,9 @@ one run under ``torch.profiler``, which gives
 Projects are ``chip_smoke.py``'s: 16 synthetic 1024x1024 views with
 ``bruteforce`` pairs (120) for the SuperPoint paths and for aliked+lightglue
 (``chip_smoke.py``'s seeded ALIKED checkpoint, ``tpu.attn_impl: bidir`` and
-``DIM_TPU_FUSED_PROLOGUE=1``, set for that path only), the 5 demo images with
+``DIM_TPU_FUSED_PROLOGUE=1``, set for that path only), 6 views of 6000 x
+4000 (``chip_smoke.TILED_SHIFTS``' shifted copies) for the two tiled paths
+(``--tiling preselection``, 2048 and 8192 keypoints), the 5 demo images with
 ``bruteforce`` pairs (10) for SIFT, ORB and RoMa (default settings: 560 /
 864 px, 5000 samples per pair, DINOv2 at 2 blocks). Weights are random, and the
 learned matchers run with match threshold 0 as in ``chip_smoke.py``, in
@@ -50,20 +52,22 @@ WORK = ROOT / "build" / "profile"
 BASE = "general:\n  allow_random_weights: true\n  tpu:\n    device: {device}\n"
 
 
-def matching(project: str, extra: str = ""):
-    """A path of ``run_matching`` on ``project`` with ``extra`` YAML: a
-    factory (path, project directory, base YAML, device) -> one run (with
-    ``+reconstruction`` through stage 5, else with --skip_reconstruction)."""
+def matching(project: str, extra: str = "", tiling: str = "none"):
+    """A path of ``run_matching`` on ``project`` with ``extra`` YAML and
+    ``--tiling``: a factory (path, project directory, base YAML, device) ->
+    one run (with ``+reconstruction`` through stage 5, else with
+    --skip_reconstruction). The pipeline is the path's name up to a
+    ``+reconstruction`` or an ``@`` suffix."""
 
     def make(path: str, project_dir: Path, base: str, device: str):
         from deep_image_matching_tpu_torch.__main__ import run_matching
 
         config = WORK / f"{path}_{device}.yaml"
         config.write_text(base.format(device=device) + extra)
-        pipeline = path.partition("+reconstruction")[0]
+        pipeline = path.partition("@")[0].partition("+reconstruction")[0]
         args = {"dir": str(project_dir), "outs": str(WORK / "out" / f"{path}_{device}"),
-                "pipeline": pipeline, "strategy": "bruteforce",
-                "skip_reconstruction": path == pipeline, "force": True,
+                "pipeline": pipeline, "strategy": "bruteforce", "tiling": tiling,
+                "skip_reconstruction": "+reconstruction" not in path, "force": True,
                 "config_file": str(config)}
         return lambda: run_matching(args)
 
@@ -97,6 +101,13 @@ PATHS = {
     "aliked+lightglue": matching(
         "synthetic16", "    attn_impl: bidir\nmatcher:\n  filter_threshold: 0.0\n"),
     "sift+kornia_matcher+reconstruction": matching("demo5"),
+    # --tiling preselection on 6 views of 6000 x 4000 at the default tiles
+    # (6 an image), at the preset's 2048 keypoints and at 8192
+    "superpoint+lightglue@tiled2048": matching(
+        "tiled24mp", "matcher:\n  filter_threshold: 0.0\n", "preselection"),
+    "superpoint+lightglue@tiled8192": matching(
+        "tiled24mp", "matcher:\n  filter_threshold: 0.0\nextractor:\n  max_keypoints: 8192\n",
+        "preselection"),
     "mapper60": ("60 synthetic views", mapper, False),
 }
 
@@ -194,6 +205,9 @@ def main() -> None:
     for name in {PATHS[p][0] for p in opts.paths}:
         if name == "synthetic16":
             projects[name] = chip_smoke._synthetic_project(WORK / name)
+        elif name == "tiled24mp":
+            projects[name] = chip_smoke._synthetic_project(
+                WORK / name, n=6, size=(6000, 4000), shifts=chip_smoke.TILED_SHIFTS)
         elif name == "demo5":
             projects[name] = WORK / name
             shutil.copytree(ROOT / "notebooks" / "demo_project" / "images",

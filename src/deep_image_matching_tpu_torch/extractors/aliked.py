@@ -8,8 +8,11 @@ checkpoint ``<model_name>.pth`` in the upstream state-dict layout must be in
 ``DIM_TPU_WEIGHTS_DIR`` or ``~/.cache/dim_tpu``. Images are bucketed by
 their shape padded to multiples of 32 and extracted in batches of at most
 ``pixel_budget`` pixels on the configured device; a batch that runs out of
-device memory is halved and retried, every other error propagates. The JAX
-package's device handoff, decode prefetch and tiled branches are not ported
+device memory is halved and retried, every other error propagates. With
+``--tiling`` the tiles go through the host template
+(``ExtractorBase._extract_by_tile``) as uint8, one padded batch per shape
+bucket (``_extract_many``); as in the JAX package, ALIKED has no device
+route. The JAX package's device handoff and decode prefetch are not ported
 (ROADMAP.md, queue 1).
 """
 
@@ -23,6 +26,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..constants import TileSelection
 from ..io.writer import AsyncFeatureWriter
 from ..models import aliked as aliked_model
 from ..utils.device import resolve_device
@@ -70,6 +74,8 @@ class ALIKEDExtractor(ExtractorBase):
     # ALIKED's aggregation upsamples every block to the input resolution, so
     # memory grows with batch x pixels: batches hold at most this many
     pixel_budget = 4_200_000
+    # the model normalises uint8 on the device, so tiles stay uint8
+    tile_uint8 = True
 
     def __init__(self, config: dict):
         super().__init__(config)
@@ -87,6 +93,8 @@ class ALIKEDExtractor(ExtractorBase):
         self.compute_dtype = getattr(torch, str(self.conf.get("compute_dtype", default)))
 
     def extract_batch(self, images: List[Image], feature_path) -> None:
+        if self.tile_selection is not TileSelection.NONE:
+            return super().extract_batch(images, feature_path)
         prepped = []
         for img in images:
             # uint8 on the host; the device normalises
@@ -108,6 +116,12 @@ class ALIKEDExtractor(ExtractorBase):
         if image.ndim == 2:
             image = np.repeat(image[..., None], 3, axis=-1)
         return self._run([(image, None)])[0]
+
+    def _extract_many(self, images) -> list:
+        """One image's tiles as padded batches per shape bucket through
+        ``_run`` (with its out-of-memory halving)."""
+        return self._run([(im if im.ndim == 3 else np.repeat(im[..., None], 3, axis=-1), None)
+                          for im in images])
 
     def _run(self, prepped) -> list:
         """prepped: list of (image (h, w, 3) uint8 or float in [0, 1], any);

@@ -1,7 +1,7 @@
 """Matcher templates: batched sparse matching + verification + h5 writes.
 
-Port of ``deep_image_matching_tpu/matchers/matcher_base.py`` for one device
-and untiled matching. ``BatchedMatcher.match_all`` loads every image's
+Port of ``deep_image_matching_tpu/matchers/matcher_base.py`` for one
+device. ``BatchedMatcher.match_all`` loads every image's
 features once into a padded store that lives on the device, assembles pair
 batches there, runs the matcher and (on CUDA) the batched RANSAC chained
 behind it, and packs each chunk's results into one int32 tensor, one
@@ -12,11 +12,17 @@ dispatched before chunk N is verified and written.
 the matcher produces the keypoints of each pair, which are appended to each
 image's group of features.h5, with the same two-chunk window.
 
+With ``--tiling`` and features that carry ``tile_idx``,
+``BatchedMatcher._match_all_tiled`` expands each pair into tile-pair jobs
+(``matchers/tiling.py``); each job is the same batched matcher with each
+side's mask restricted to one tile on the device (``gather_tiled``), and each
+pair's union of its jobs' matches, deduplicated on the query index, is
+verified (device RANSAC on CUDA) and written.
+
 Failures are not swallowed: a chunk that runs out of device memory is
 bisected and retried (a batch that does not fit at B usually fits at B/2);
 every other exception propagates, and so does an out-of-memory error of a
-single pair. The mesh path and tiled matching are not ported yet
-(ROADMAP.md, queue 1).
+single pair. The mesh path is not ported (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..constants import KPT_PAD_MULTIPLE, GeometricVerification, Quality
+from ..constants import KPT_PAD_MULTIPLE, GeometricVerification, Quality, TileSelection
 from ..io import hdf5
 from ..io.h5 import get_features, list_h5_names
 from ..io.writer import MatchWriter
@@ -61,6 +67,18 @@ def _pack_match_results(matches0, valid, inl=None) -> torch.Tensor:
     if inl is not None:
         packed = packed | (inl.int() << 17)
     return packed
+
+
+def _to_host_async(t: torch.Tensor):
+    """Queue ``t``'s copy to pinned host memory; returns (host tensor, event
+    to wait on, None on the CPU)."""
+    if not t.is_cuda:
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
 
 
 class MatcherBase:
@@ -212,6 +230,9 @@ class BatchedMatcher(MatcherBase):
             return {}
         names = sorted({n for p in pairs for n in p})
         store = _PaddedFeatureStore(feature_path, names, self.device, cache=self.feature_cache)
+        tile_mode = self.config.get("general", {}).get("tile_selection", TileSelection.NONE)
+        if tile_mode is not TileSelection.NONE and store.has_tiles:
+            return self._match_all_tiled(pairs, store, matches_path, tile_mode)
         bsz = int(self.tpu.get("match_batch_size", 32))
         use_device_gv = self._use_device_gv()
         results: Dict[Tuple[str, str], int] = {}
@@ -244,14 +265,7 @@ class BatchedMatcher(MatcherBase):
                 iters=int(self.tpu.get("ransac_iters", 2048)),
                 generator=torch.Generator(device=self.device).manual_seed(0),
             )
-        packed = _pack_match_results(matches0, valid, inl)
-        done = None
-        if packed.is_cuda:
-            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            host.copy_(packed, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            packed = host
+        packed, done = _to_host_async(_pack_match_results(matches0, valid, inl))
         return idx0, idx1, packed, done, inl is not None
 
     def _finish_chunk(self, chunk, disp, store, matches_path, use_device_gv, results):
@@ -286,6 +300,144 @@ class BatchedMatcher(MatcherBase):
                 store.keypoints_of(idx0[b]), store.keypoints_of(idx1[b]), inlier_mask=mask,
             )
             results[(img0, img1)] = 0 if verified is None else len(verified)
+
+    # ---------------------------------------------------------------- tiled
+    def _match_all_tiled(self, pairs, store, matches_path, tile_mode):
+        """Tiled matching: each pair expands into tile-pair jobs whose masks
+        restrict both padded feature sets to one tile each, on the device;
+        indices stay global, so each pair's jobs union and dedup directly
+        (the first match of a query keypoint is kept), then verify."""
+        from .tiling import LowResProbe, RomaProbe, select_tile_pairs, tile_grid_for
+
+        general = self.config.get("general", {})
+        tile_size = general.get("tile_size", (2400, 2000))
+        overlap = general.get("tile_overlap", 10)
+        min_per_tile = int(general.get("min_matches_per_tile", 10))
+        image_dir = general.get("image_dir")
+
+        probe = None
+        if tile_mode in (TileSelection.PRESELECTION,
+                         TileSelection.PRESELECTION_AFFINE_TRANSFORM):
+            # reference matcher_base.py:1095-1110: superpoint+lightglue (the
+            # default) or roma
+            if str(general.get("preselection_pipeline", "superpoint+lightglue")) == "roma":
+                probe = RomaProbe(device=self.device)
+            else:
+                probe = LowResProbe(
+                    preselection_size=int(general.get("tile_preselection_size", 2000)),
+                    device=self.device)
+
+        grids = {name: tile_grid_for(store.image_size[i], tile_size, overlap)
+                 for name, i in store.index.items()}
+        jobs = []  # (pair index, i0, i1, t0, t1)
+        for p_idx, (name0, name1) in enumerate(pairs):
+            (o0, twh0), (o1, twh1) = grids[name0], grids[name1]
+            lp0 = lp1 = None
+            if probe is not None and image_dir is not None:
+                lp0, lp1 = probe.matches(Path(image_dir) / name0, Path(image_dir) / name1)
+            for t0, t1 in select_tile_pairs(
+                    tile_mode, len(o0), len(o1), lowres_pts0=lp0, lowres_pts1=lp1,
+                    origins0=o0, origins1=o1, tile_wh0=twh0, tile_wh1=twh1,
+                    min_matches=min_per_tile):
+                jobs.append((p_idx, store.index[name0], store.index[name1], t0, t1))
+        logger.info(f"Tiled matching: {len(pairs)} pairs -> {len(jobs)} tile-pair jobs")
+
+        gv_per_tile = bool(general.get("geometric_verification_per_tile", False))
+        gv_tile_th = float(general.get("gv_threshold_in_tiles_matching", 4))
+        per_pair: Dict[int, list] = {i: [] for i in range(len(pairs))}
+
+        def dispatch(chunk):
+            dev = self.device
+            tiles = [torch.tensor([j[c] for j in chunk], dtype=torch.float32, device=dev)
+                     for c in (3, 4)]
+            batch0 = store.gather_tiled(torch.as_tensor([j[1] for j in chunk], device=dev),
+                                        tiles[0])
+            batch1 = store.gather_tiled(torch.as_tensor([j[2] for j in chunk], device=dev),
+                                        tiles[1])
+            return _to_host_async(_pack_match_results(*self._match_batch_arrays(batch0, batch1)))
+
+        def finish(chunk, disp):
+            packed, done = disp
+            if done is not None:
+                done.synchronize()
+            packed = packed.numpy()
+            matches0 = (packed & 0xFFFF).astype(np.int32)
+            valid = ((packed >> 16) & 1).astype(bool)
+            for b, (p_idx, i0, i1, _, _) in enumerate(chunk):
+                rows = np.nonzero(valid[b])[0]
+                if not len(rows):
+                    continue
+                m = np.stack([rows, matches0[b][rows]], axis=1)
+                if gv_per_tile:
+                    # reference matcher_base.py:428-440: each tile pair
+                    # verifies alone; under 15 inliers it adds nothing
+                    _, inl = geometric_verification(
+                        store.keypoints_of(i0)[m[:, 0]], store.keypoints_of(i1)[m[:, 1]],
+                        method=self.gv_method, threshold=gv_tile_th,
+                        confidence=self.gv_confidence, quiet=True)
+                    if inl is None or inl.sum() < 15:
+                        continue
+                    m = m[inl]
+                per_pair[p_idx].append(m)
+
+        self._pipelined(jobs, int(self.tpu.get("match_batch_size", 32)), dispatch, finish)
+
+        unions = []
+        for p_idx, (name0, name1) in enumerate(pairs):
+            i0, i1 = store.index[name0], store.index[name1]
+            m = np.zeros((0, 2), np.int32)
+            if per_pair[p_idx]:
+                m = np.concatenate(per_pair[p_idx], axis=0).astype(np.int32)
+                _, first = np.unique(m[:, 0], return_index=True)
+                m = m[np.sort(first)]
+                m = m[(m[:, 0] < store.counts[i0]) & (m[:, 1] < store.counts[i1])]
+            unions.append((name0, name1, i0, i1, m))
+        masks = self._verify_unions(unions, store)
+        results: Dict[Tuple[str, str], int] = {}
+        with MatchWriter(matches_path) as writer:
+            self._writer = writer
+            try:
+                for (name0, name1, i0, i1, m), mask in zip(unions, masks):
+                    writer.save_raw(name0, name1, m)
+                    verified = self._verify_and_save(
+                        name0, name1, m, store.keypoints_of(i0), store.keypoints_of(i1),
+                        inlier_mask=mask)
+                    results[(name0, name1)] = 0 if verified is None else len(verified)
+            finally:
+                self._writer = None
+        return results
+
+    def _verify_unions(self, unions, store) -> list:
+        """Inlier masks of each pair's unioned matches: the batched device
+        RANSAC over the store's keypoints where ``_use_device_gv``, in chunks
+        of ``match_batch_size`` pairs (each union as a (K,) match row with
+        its validity, as the untiled chunks hold it); None (host
+        verification in ``_verify_and_save``) otherwise."""
+        if not self._use_device_gv():
+            return [None] * len(unions)
+        from ..ops.ransac import ransac_fundamental_store_batch
+
+        K = store.dev["keypoints"].shape[1]
+        bsz = int(self.tpu.get("match_batch_size", 32))
+        masks = []
+        for start in range(0, len(unions), bsz):
+            chunk = unions[start:start + bsz]
+            matches0 = np.zeros((len(chunk), K), np.int32)
+            valid = np.zeros((len(chunk), K), bool)
+            for b, (_, _, _, _, m) in enumerate(chunk):
+                matches0[b, m[:, 0]] = m[:, 1]
+                valid[b, m[:, 0]] = True
+            dev = self.device
+            inl = ransac_fundamental_store_batch(
+                store.dev["keypoints"], torch.as_tensor([u[2] for u in chunk], device=dev),
+                torch.as_tensor([u[3] for u in chunk], device=dev),
+                torch.from_numpy(matches0).to(dev), torch.from_numpy(valid).to(dev),
+                self.gv_threshold * GV_QUALITY_SCALES[self.quality],
+                iters=int(self.tpu.get("ransac_iters", 2048)),
+                generator=torch.Generator(device=dev).manual_seed(0),
+            ).cpu().numpy()
+            masks.extend(inl[b][m[:, 0]] for b, (_, _, _, _, m) in enumerate(chunk))
+        return masks
 
     def _match_batch_arrays(self, batch0: Dict[str, torch.Tensor],
                             batch1: Dict[str, torch.Tensor]):
@@ -345,9 +497,26 @@ class _PaddedFeatureStore:
             "mask": torch.from_numpy(mask).to(device),
             "image_size": torch.from_numpy(self.image_size).to(device),
         }
+        # per-keypoint tile indices (-1 on padding) where the features are
+        # tiled, on the device for the tile-restricted gathers
+        tile_idx = np.full((n, cap), -1.0, np.float32)
+        self.has_tiles = False
+        for i, f in enumerate(feats):
+            if "tile_idx" in f and counts[i] > 0:
+                tile_idx[i, :counts[i]] = f["tile_idx"]
+                self.has_tiles = True
+        self.tile_idx = torch.from_numpy(tile_idx).to(device)
 
     def gather(self, ind: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {k: v[ind] for k, v in self.dev.items()}
+
+    def gather_tiled(self, ind: torch.Tensor, tiles: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The pair batch of ``gather`` with each row's mask restricted to
+        keypoints of one tile (``tiles`` (B,) float, on the device): the
+        valid rows lie scattered over the capacity, not as a prefix."""
+        out = self.gather(ind)
+        out["mask"] = out["mask"] & (self.tile_idx[ind] == tiles[:, None])
+        return out
 
     def keypoints_of(self, i: int) -> np.ndarray:
         return self.kpts[i, : self.counts[i]]

@@ -117,6 +117,11 @@ class RomaMatcher(DetectorFreeMatcher):
         self._img_cache_bytes = 0
         self._full_shapes: Dict[str, Tuple[int, int]] = {}
 
+    def _match_images(self, path0, path1) -> Tuple[np.ndarray, np.ndarray]:
+        """One pair's sampled matches as (kpts0 (M, 2), kpts1 (M, 2)) in
+        full-resolution pixels (the RoMa tile-preselection probe)."""
+        return self._finish_images_batch(self._dispatch_images_batch([(path0, path1)]))[0]
+
     def _full_shape(self, path) -> Tuple[int, int]:
         key = str(path)
         if key not in self._full_shapes:

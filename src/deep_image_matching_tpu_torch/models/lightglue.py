@@ -614,6 +614,19 @@ class LightGlueRunner:
             counts.extend(int(c) for c in out["valid0"].sum(1).cpu())
         return counts
 
+    def match_pairs(self, feats: list, pairs: list) -> list:
+        """(M, 2) int32 match indices per (i, j) pair."""
+        store = self._device_store(feats)
+        out_matches = []
+        for start in range(0, len(pairs), self.batch_size):
+            chunk = pairs[start:start + self.batch_size]
+            out = self._run_chunk(chunk, store)
+            matches0, valid0 = out["matches0"].cpu().numpy(), out["valid0"].cpu().numpy()
+            for b in range(len(chunk)):
+                rows = np.nonzero(valid0[b])[0]
+                out_matches.append(np.stack([rows, matches0[b][rows]], 1).astype(np.int32))
+        return out_matches
+
     def _device_store(self, feats: list) -> dict:
         """All images' features padded to one capacity (multiple of 128)."""
         cap = max((len(f["keypoints"]) for f in feats), default=1)

@@ -4,6 +4,8 @@ Copy of ``deep_image_matching_tpu/parser.py`` — the reference's flag surface
 (--dir/--images/--outs/--pipeline/--config_file/--quality/--tiling/
 --strategy/--pair_file/--overlap/--global_feature/--db_path/--upright/
 --skip_reconstruction/--force/-V/--graph/--openmvg/--camera_options/--gui).
+``--tiling`` also takes ``preselection_affine_transform``, which the JAX
+package's parser leaves to the YAML key ``tile_selection``.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "-t", "--tiling", type=str,
-        choices=["none", "preselection", "grid", "exhaustive"], default="none",
+        choices=["none", "preselection", "grid", "exhaustive", "preselection_affine_transform"],
+        default="none",
     )
     parser.add_argument(
         "-m", "--strategy", type=str,

@@ -418,3 +418,29 @@ def test_run_matching_aliked_lightglue_agrees_with_jax(tmp_path, aliked_weights)
     for pair in jver:
         assert as_jax(pair, tver[pair]) == {tuple(r) for r in jver[pair].tolist()}, pair
     assert ttab == jtab and timg == jimg
+
+
+def test_tiled_extract_matches_jax(tmp_path, aliked_weights):
+    """``--tiling grid`` through the host template (ALIKED has no device
+    route in either package): tiles of (96, 64) px over a quarter-size demo
+    image, each shape bucket one padded batch, merged, deduplicated and
+    capped by score. Keypoints equal as sets within 1e-4 px (sub-pixel
+    refinement of f32 scores), descriptors within 1e-4, tile indices
+    equal; the image and its keypoints in the host template's order."""
+    from deep_image_matching_tpu.constants import TileSelection as JTileSelection
+    from deep_image_matching_tpu_torch.constants import TileSelection
+
+    path = _demo_project(tmp_path / "proj") / "images" / "sacre_coeur_A.png"
+
+    def conf(tiling):
+        return {"extractor": {"model_name": MODEL, "max_num_keypoints": 300},
+                "general": {"tile_selection": tiling, "tile_size": (96, 64), "tile_overlap": 8,
+                            "tpu": {"device": "cpu"}}}
+
+    jf = jext.ALIKEDExtractor(conf(JTileSelection.GRID)).extract(path)
+    tf = text.ALIKEDExtractor(conf(TileSelection.GRID)).extract(path)
+    assert len(np.unique(tf["tile_idx"])) >= 4 and len(tf["keypoints"]) > 50
+    idx = _same_rows(jf["keypoints"], tf["keypoints"], 1e-4)
+    np.testing.assert_array_equal(tf["tile_idx"][idx], jf["tile_idx"])
+    np.testing.assert_allclose(tf["descriptors"][idx], jf["descriptors"], atol=1e-4)
+    np.testing.assert_allclose(tf["scores"][idx], jf["scores"], atol=1e-5)

@@ -725,3 +725,37 @@ def test_mapper_on_cuda_matches_ground_truth(cuda, tmp_path):
             Rg = G.rotvec_to_matrix(poses[j, :3]) @ G.rotvec_to_matrix(poses[i, :3]).T
             Rr = R[f"img{j}.jpg"] @ R[f"img{i}.jpg"].T
             assert np.degrees(np.linalg.norm(G.matrix_to_rotvec(Rr @ Rg.T))) < 0.5, (i, j)
+
+
+def test_tile_cut_and_merge_on_cuda_match_cpu(cuda):
+    """The tiled extraction's device steps (``ops/tile_merge.py``: the tile
+    cut from one upload and the merge of the tiles' features) on the card
+    against the CPU, bitwise: sorts, gathers and products by 0 or 1 only.
+    Planted duplicates across tiles and tied scores exercise the dedup's and
+    the cap's tie rules."""
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.ops import tile_merge as tmerge
+    from deep_image_matching_tpu_torch.utils.tiling import Tiler
+
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 255, (1000, 1500), np.uint8)
+    origins, pad, hw = Tiler().tile_origins(img.shape, (600, 500), 10)
+    starts = np.stack([origins[:, 1] + pad[0], origins[:, 0] + pad[2]], 1)
+    cpu = tmerge.cut_tiles(torch.from_numpy(img), starts, hw, pad)
+    gpu = tmerge.cut_tiles(torch.from_numpy(img).to(cuda), starts, hw, pad)
+    assert torch.equal(gpu.cpu(), cpu)
+
+    T, K = len(origins), 2048
+    kpts = rng.uniform(0, 600, (T, K, 2)).astype(np.float32)
+    kpts[1, :64] = kpts[0, :64] + (origins[0] - origins[1])
+    scores = rng.uniform(0.1, 1.0, (T, K)).astype(np.float32)
+    scores[2, :32] = scores[0, 0]
+    args = [torch.from_numpy(a) for a in (
+        kpts, scores, rng.normal(size=(T, K, 256)).astype(np.float32),
+        rng.uniform(size=(T, K)) < 0.6, origins.astype(np.float32))]
+    for cap in (1024, 8192):
+        ref = tmerge.merge_tile_features(*args, (1500.0, 1000.0), cap)
+        got = tmerge.merge_tile_features(*(a.to(cuda) for a in args), (1500.0, 1000.0), cap)
+        for k in ref:
+            assert torch.equal(got[k].cpu(), ref[k]), k

@@ -26,7 +26,7 @@ print(" ".join(names))
 
 # the modules of the ported slices (SuperPoint + LightGlue, then nearest
 # neighbours, SuperGlue, SIFT and ORB, then RoMa, then ALIKED and LightGlue's
-# two opt-in kernels, then reconstruction)
+# two opt-in kernels, then reconstruction, then tiling)
 SLICE_MODULES = (
     "models.superpoint", "models.lightglue", "ops.attention", "ops.ffn", "ops.assignment",
     "ops.nullspace", "ops.ransac",
@@ -38,6 +38,7 @@ SLICE_MODULES = (
     "upright", "low_resolution",
     "native", "sfm", "sfm.geometry", "sfm.ba", "sfm.incremental", "reconstruction",
     "triangulation", "io.tracks",
+    "utils.tiling", "ops.tile_merge", "matchers.tiling",
 )
 
 
