@@ -110,7 +110,27 @@ Phases, each printing its own lines:
      same registered images, and stage 5 on the card over the CPU run's
      database within 2 % of the CPU's points; the model's files), and the
      default superpoint+lightglue (``matching_lowres``), which must end on
-     the card as on the CPU; each with its kernels' launches counted.
+     the card as on the CPU; each with its kernels' launches counted;
+8. retrieval pairs (``phase_retrieval``): NetVLAD, OpenIBL, CosPlace, DIR
+   and the tiny descriptor at their published widths (seeded checkpoints in
+   their files' own layouts, ``retrieval_weights``) on the 16 synthetic
+   views, on the card (warm wall, device busy) against the CPU (descriptors
+   within RETRIEVAL_TOL, top-10 pairs equal but for near-ties), then
+   ``run_matching --strategy retrieval --global_feature netvlad`` with
+   superpoint+lightglue, kernels 1-4 counted;
+9. ``--upright`` (``phase_upright``) on the 5 demo images plus three copies
+   of the first rotated by 90, 180 and 270 degrees (lossless PNG): the
+   2clusters probe on the card and on the CPU must recover the planted
+   rotations, launching kernel 5 twice an image; kernel 5 against its plain
+   version at the probe's shapes (4, 512, 256) and (4, 512, 128); then
+   ``run_matching --upright`` with superpoint+lightglue under ``custom``
+   (``rotations.txt``) and ``2clusters`` (kernel 5 counted): the upright
+   copies equal the reference's pixels, and features.h5 holds each copy's
+   keypoints, the reference's rotated into its frame, with its image_size;
+10. the exports (``phase_exports``) on the sift+kornia_matcher demo run of
+   stage 5: Bundler, Metashape, MicMac with its import back to h5, OpenMVG
+   and the view graph, their files and tie-point counts against matches.h5
+   and database.db, with no device event; then ``run_matching --openmvg``.
 
 Exits non-zero without a CUDA device, without the package beside it, or on
 any failure. The last three lines are the card, the kernel report and the
@@ -2854,6 +2874,619 @@ def phase_reconstruction(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# retrieval pairs, the upright stage, the exports and the view graph
+# ---------------------------------------------------------------------------
+
+RETRIEVAL = ("netvlad", "openibl", "cosplace", "dir", "tiny")
+# card against CPU, full f32 on both: descriptors are L2-normalised, so an
+# absolute bound; pair ranks may differ only where two similarities tie
+RETRIEVAL_TOL = 1e-4
+NEAR_TIE = 1e-5
+
+
+def _resnet_checkpoint(rng, stages, bottleneck: bool, proj: int, prefix: str, proj_key: str,
+                       gem_key: str) -> dict:
+    """A seeded torchvision-style ResNet checkpoint (BatchNorm with running
+    statistics; each residual branch's last BatchNorm scaled down, the
+    zero-init-residual practice, so 33 blocks keep activations finite), a
+    projection and a GeM exponent, keys under ``prefix``."""
+    import numpy as np
+    import torch
+
+    sd = {}
+
+    def conv(name, co, ci, k):
+        sd[f"{name}.weight"] = rng.standard_normal((co, ci, k, k), np.float32) * np.float32(
+            (2.0 / (ci * k * k)) ** 0.5)
+
+    def bn(name, n, scale=(0.5, 1.5)):
+        sd[f"{name}.weight"] = rng.uniform(*scale, n).astype(np.float32)
+        sd[f"{name}.bias"] = rng.normal(0, 0.1, n).astype(np.float32)
+        sd[f"{name}.running_mean"] = rng.normal(0, 0.1, n).astype(np.float32)
+        sd[f"{name}.running_var"] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for si, (n, cout, s) in enumerate(stages):
+        for bi in range(n):
+            p = f"layer{si + 1}.{bi}"
+            shapes = ([(cout // 4, cin, 1), (cout // 4, cout // 4, 3), (cout, cout // 4, 1)]
+                      if bottleneck else [(cout, cin, 3), (cout, cout, 3)])
+            for k, (co, ci, ks) in enumerate(shapes, 1):
+                conv(f"{p}.conv{k}", co, ci, ks)
+                bn(f"{p}.bn{k}", co, (0.05, 0.15) if k == len(shapes) else (0.5, 1.5))
+            if (s if bi == 0 else 1) != 1 or cin != cout:
+                conv(f"{p}.downsample.0", cout, cin, 1)
+                bn(f"{p}.downsample.1", cout)
+            cin = cout
+    sd[f"{proj_key}.weight"] = (rng.standard_normal((proj, cin), np.float32)
+                                * np.float32(cin ** -0.5))
+    sd[f"{proj_key}.bias"] = np.zeros(proj, np.float32)
+    sd[gem_key] = np.array([3.0], np.float32)
+    return {prefix + k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def retrieval_weights(wdir: Path, seed: int = 0) -> None:
+    """Seeded checkpoints of the four learned retrieval networks at their
+    published widths, each in its file's own layout: ``netvlad.npz`` (the
+    JAX package's arrays under flat names: VGG16 HWIO convolutions, 64
+    clusters x 512, the (D, K) assignment, PCA 32768 -> 4096),
+    ``vgg16_netvlad.pth`` (OpenIBL: ``base_model.*``, ``net_vlad.*`` with an
+    assignment bias), ``cosplace.pth`` (ResNet-18, GeM, 512 -> 512) and
+    ``Resnet101-AP-GeM-LM18.pt`` (DIR: ResNet-101 under ``module.``, GeM,
+    whitening 2048 -> 2048)."""
+    import numpy as np
+    import torch
+
+    from deep_image_matching_tpu_torch.models.retrieval import (
+        R18_STAGES, R101_STAGES, VGG16_WIDTHS, vgg16_conv_indices)
+
+    rng = np.random.default_rng(seed)
+    K = 64
+
+    def normal(shape, std):
+        return rng.standard_normal(shape, np.float32) * np.float32(std)
+
+    flat, openibl, cin = {}, {}, 3
+    for i, (idx, c) in enumerate(zip(vgg16_conv_indices(), VGG16_WIDTHS)):
+        w = normal((c, cin, 3, 3), (2.0 / (9 * cin)) ** 0.5)
+        flat[f"backbone.convs.{i}.w"] = w.transpose(2, 3, 1, 0).copy()
+        flat[f"backbone.convs.{i}.b"] = np.zeros(c, np.float32)
+        openibl[f"base_model.{idx}.weight"] = torch.from_numpy(normal((c, cin, 3, 3),
+                                                                      (2.0 / (9 * cin)) ** 0.5))
+        openibl[f"base_model.{idx}.bias"] = torch.zeros(c)
+        cin = c
+    flat["centers"] = normal((K, cin), 0.05)
+    flat["assign_w"] = normal((cin, K), 2.0)
+    flat["pca_w"] = normal((K * cin, 4096), (K * cin) ** -0.5)
+    flat["pca_b"] = np.zeros(4096, np.float32)
+    np.savez(wdir / "netvlad.npz", **flat)
+    openibl["net_vlad.centroids"] = torch.from_numpy(normal((K, cin), 0.05))
+    openibl["net_vlad.conv.weight"] = torch.from_numpy(normal((K, cin, 1, 1), 2.0))
+    openibl["net_vlad.conv.bias"] = torch.from_numpy(normal((K,), 0.1))
+    torch.save({"state_dict": openibl}, wdir / "vgg16_netvlad.pth")
+    torch.save(_resnet_checkpoint(rng, R18_STAGES, False, 512, "backbone.", "aggregation.3",
+                                  "aggregation.1.p"), wdir / "cosplace.pth")
+    torch.save({"state_dict": _resnet_checkpoint(rng, R101_STAGES, True, 2048, "module.", "fc",
+                                                 "adpool.p")}, wdir / "Resnet101-AP-GeM-LM18.pt")
+
+
+def _pairs_agree(names, pa, pb, descs, k: int, what: str) -> str:
+    """Two top-k pair lists of the same images (``descs``' similarities):
+    equal, or differing only in pairs whose similarity ties the k-th of one
+    of its images within NEAR_TIE; returns a summary."""
+    import numpy as np
+
+    if pa == pb:
+        return f"top-{k} pairs equal ({len(pa)})"
+    sim = descs @ descs.T
+    np.fill_diagonal(sim, -np.inf)
+    kth = np.sort(sim, axis=1)[:, ::-1][:, k - 1]
+    idx = {n: i for i, n in enumerate(names)}
+    for x, y in set(pa) ^ set(pb):
+        i, j = idx[x], idx[y]
+        gap = min(abs(sim[i, j] - kth[i]), abs(sim[i, j] - kth[j]))
+        if gap > NEAR_TIE:
+            _fail(f"{what}: pair ({x}, {y}) differs, {gap:.2e} from the k-th similarity")
+    return f"top-{k} pairs equal but for {len(set(pa) ^ set(pb))} near-ties"
+
+
+def phase_retrieval(card: str) -> dict:
+    """Retrieval pairs: the five global descriptors at full width (seeded
+    checkpoints in a temporary DIM_TPU_WEIGHTS_DIR) on the 16 synthetic
+    views, on the card (a warm call timed, one under torch.profiler) and on
+    the CPU: descriptors within RETRIEVAL_TOL, top-10 pairs equal; then
+    ``run_matching --strategy retrieval --global_feature netvlad`` with
+    superpoint+lightglue, whose kernels 1-4 must launch. Returns that run's
+    launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deep_image_matching_tpu_torch import image_retrieval as tir
+    from deep_image_matching_tpu_torch.ops import _lib
+    from deep_image_matching_tpu_torch.utils import weights
+    from deep_image_matching_tpu_torch.utils.image import ImageList
+
+    t_phase = time.perf_counter()
+    root = WORK / "retrieval"
+    wdir = root / "weights"
+    wdir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    retrieval_weights(wdir)
+    size = sum(p.stat().st_size for p in wdir.iterdir()) / 2 ** 20
+    print(f"[retrieval] seeded checkpoints ({size:.0f} MiB) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    proj = WORK / "synthetic16"
+    if not (proj / "images").is_dir():
+        _synthetic_project(proj)
+    il = ImageList(proj / "images")
+    names = il.img_names
+    descs = {}
+    with _env({"DIM_TPU_WEIGHTS_DIR": str(wdir)}), weights.strict():
+        for kind in RETRIEVAL:
+            t0 = time.perf_counter()
+            model = tir.load_model(kind)
+            load = time.perf_counter() - t0
+            if (model is None) != (kind == "tiny"):
+                _fail(f"retrieval {kind}: the checkpoint did not load")
+            tir.compute_global_descriptors(il, kind, device="cuda", model=model)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gpu = tir.compute_global_descriptors(il, kind, device="cuda", model=model)
+            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tir.compute_global_descriptors(il, kind, device="cuda", model=model)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            busy, n_events, events = _device_busy(prof)
+            if busy is None:
+                _fail(f"retrieval {kind}: the profiler recorded no device event")
+            t0 = time.perf_counter()
+            cpu = tir.compute_global_descriptors(il, kind, device="cpu", model=model)
+            cpu_wall = time.perf_counter() - t0
+            err = float(np.abs(gpu - cpu).max())
+            if not np.isfinite(gpu).all() or err > RETRIEVAL_TOL:
+                _fail(f"retrieval {kind}: card against CPU max abs err {err:.3e}")
+            if not np.allclose(np.linalg.norm(gpu, axis=1), 1.0, atol=1e-5):
+                _fail(f"retrieval {kind}: descriptors not L2-normalised")
+            ranks = _pairs_agree(names, tir.pairs_from_descriptors(names, gpu, 10),
+                                 tir.pairs_from_descriptors(names, cpu, 10), gpu, 10,
+                                 f"retrieval {kind}")
+            descs[kind] = gpu
+            top = "; ".join(f"{ms:.1f} ms x{n} {key[:50]}" for ms, n, key in events[:3])
+            print(f"[retrieval] {kind}: {gpu.shape[1]}-D on {len(names)} views of "
+                  f"{il[0].width} x {il[0].height} (at 640 x 480, batches of 8): card "
+                  f"{wall * 1e3:.1f} ms warm (load {load:.2f} s), CPU {cpu_wall * 1e3:.1f} ms; "
+                  f"device busy {busy:.1f} ms in {n_events} events, idle {100 * (1 - busy / (prof_wall * 1e3)):.1f} % of "
+                  f"{prof_wall * 1e3:.1f} ms; card vs CPU max abs err {err:.2e} (tol "
+                  f"{RETRIEVAL_TOL:.0e}), {ranks}; top: {top} [{card}]", flush=True)
+            del model
+            torch.cuda.empty_cache()
+
+    cfg = root / "retrieval.yaml"
+    cfg.write_text("general:\n  allow_random_weights: true\n  tpu:\n    device: cuda\n"
+                   "matcher:\n  filter_threshold: 0.0\n")
+    label = "superpoint+lightglue --strategy retrieval --global_feature netvlad"
+    timers = _TimerLog()
+    _lib.reset_launch_counts()
+    from deep_image_matching_tpu_torch.__main__ import run_matching
+
+    t0 = time.perf_counter()
+    with _env({"DIM_TPU_WEIGHTS_DIR": str(wdir)}):
+        feature_path, _, _ = run_matching({
+            "dir": str(proj), "outs": str(root / "out"), "pipeline": "superpoint+lightglue",
+            "strategy": "retrieval", "global_feature": "netvlad", "skip_reconstruction": True,
+            "force": True, "config_file": str(cfg)})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {label: dict(_lib.LAUNCHES)}
+    missing = [k for k in ("attention", "ffn", "assignment", "nullspace") if not launches[label][k]]
+    if missing:
+        _fail(f"{label}: kernels {missing} of its path were never launched")
+    out_dir = feature_path.parent
+    pairs = [tuple(line.split()) for line in (out_dir / "pairs.txt").read_text().splitlines()]
+    summary, _ = _check_outputs(out_dir, names, len(pairs), 256)
+    ranks = _pairs_agree(names, sorted(pairs),
+                         tir.pairs_from_descriptors(names, descs["netvlad"], 10),
+                         descs["netvlad"], 10, label)
+    stages = timers.lines[-1].split("] ", 2)[-1] if timers.lines else "no timer line"
+    print(f"[retrieval] {label} on synthetic16: {len(pairs)} of "
+          f"{len(names) * (len(names) - 1) // 2} pairs, against NetVLAD's on the card: {ranks}; "
+          f"{summary}; run_matching {wall:.2f} s; stages {stages}; kernel launches "
+          f"{ {k: v for k, v in launches[label].items() if v} } [{card}]", flush=True)
+    print(f"[retrieval] phase wall {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches
+
+
+# the upright project: the reference view (the first name) rotated by these
+# degrees clockwise, lossless; the upright stage must undo each
+UPRIGHT_PLANTED = (90, 180, 270)
+
+
+def _upright_project(root: Path) -> dict:
+    """The 5 demo images as PNG and three copies of the first, sacre_coeur_A,
+    rotated by UPRIGHT_PLANTED (lossless PNG, so an exact rotation of its
+    pixels), with rotations.txt naming the rotations that undo them. Returns
+    {copy name: degrees that make it upright}."""
+    import cv2
+
+    from deep_image_matching_tpu_torch.upright import rotate_image
+
+    images = root / "images"
+    images.mkdir(parents=True, exist_ok=True)
+    for p in sorted((ROOT / "notebooks" / "demo_project" / "images").iterdir()):
+        cv2.imwrite(str(images / f"{p.stem}.png"), cv2.imread(str(p), cv2.IMREAD_COLOR))
+    ref = cv2.imread(str(images / "sacre_coeur_A.png"), cv2.IMREAD_COLOR)
+    planted = {}
+    for deg in UPRIGHT_PLANTED:
+        name = f"sacre_coeur_A_rot{deg:03d}.png"
+        cv2.imwrite(str(images / name), rotate_image(ref, deg))
+        planted[name] = (360 - deg) % 360
+    (images / "rotations.txt").write_text("".join(f"{n} {d}\n" for n, d in planted.items()))
+    return planted
+
+
+def _probe_kernel_check(card: str) -> dict:
+    """Kernel 5 at the upright probe's shapes, (4, 512, 256) (SuperPoint) and
+    (4, 512, 128) (ALIKED), valid rows 30-100 % of the capacity as prefixes:
+    ``nn_top2`` against its plain version (values within 1e-4, argmins equal
+    away from near-ties) and ``nn_match_fused``'s matches against the dense
+    plain route, with both times."""
+    import torch
+
+    from deep_image_matching_tpu_torch.ops.nn import nn_match_fused, nn_top2, nn_top2_reference
+    from deep_image_matching_tpu_torch.ops.nn_match import nn_match_batch
+
+    F = torch.nn.functional
+    dev = torch.device("cuda", 0)
+    out = {}
+    for D in (256, 128):
+        gen = torch.Generator().manual_seed(30 + D)
+        B, K = 4, 512
+        d0 = F.normalize(torch.randn(B, K, D, generator=gen), dim=-1)
+        d1 = F.normalize(torch.randn(B, K, D, generator=gen), dim=-1)
+        perm = torch.randperm(K, generator=gen)[:K // 4]
+        d1[:, perm] = F.normalize(d0[:, :K // 4] + 0.05 * torch.randn(B, K // 4, D, generator=gen),
+                                  dim=-1)
+        counts0 = torch.tensor([K, int(0.3 * K), int(0.6 * K), int(0.9 * K)])
+        counts1 = torch.tensor([int(0.3 * K), K, int(0.8 * K), int(0.45 * K)])
+        m0 = (torch.arange(K)[None] < counts0[:, None]).to(dev)
+        m1 = (torch.arange(K)[None] < counts1[:, None]).to(dev)
+        d0, d1 = (d0 * m0[..., None].cpu()).to(dev), (d1 * m1[..., None].cpu()).to(dev)
+        sq1 = (d1 ** 2).sum(-1) + torch.where(m1, 0.0, 1e12)
+        got, ref = nn_top2(d0, d1, sq1), nn_top2_reference(d0, d1, sq1)
+        err = max(float((got[0] - ref[0]).abs().max()), float((got[1] - ref[1]).abs().max()))
+        clear = (ref[1] - ref[0]) > 1e-3
+        if err > 1e-4 or not bool((got[2] == ref[2])[clear].all()):
+            _fail(f"kernel 5 at the probe's (4, 512, {D}): max abs err {err:.3e}")
+        mg, _ = nn_match_fused(d0, d1, m0, m1)
+        mr, _ = nn_match_batch(d0, d1, m0, m1)
+        share = float((mg == mr).float().mean())
+        if share < 0.995:
+            _fail(f"kernel 5 at the probe's (4, 512, {D}): matches equal on {share:.4f}")
+        ms = _time_ms(lambda: nn_top2(d0, d1, sq1))
+        plain = _time_ms(lambda: nn_top2_reference(d0, d1, sq1))
+        out[f"4x512x{D}"] = {"max_abs_err": err, "matches_equal": share, "ms": ms,
+                             "plain_ms": plain,
+                             **_bound(_nbytes(d0, d1, sq1, *got), 2.0 * B * K * K * D, "f32")}
+        print(f"[upright] kernel 5 at the probe's (4, 512, {D}): max_abs_err {err:.3e} (tol "
+              f"1.0e-04), nn_match_fused's matches equal to the plain route on {share:.4f} "
+              f"(>= 0.995); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{out[f'4x512x{D}']['bound_ms']:.5f} ms [{card}]", flush=True)
+    return out
+
+
+def phase_upright(card: str) -> tuple:
+    """``--upright``: the 2clusters probe on the card (planted rotations
+    recovered, the same rotations as on the CPU for the planted copies, its
+    device time), kernel 5 at the probe's shapes, then ``run_matching
+    --upright`` with superpoint+lightglue under ``upright_strategy: custom``
+    (features.h5 holds each copy's keypoints in its own frame: the reference's
+    keypoints rotated into it, with the copy's image_size) and under
+    ``2clusters`` (kernel 5 must launch; the upright copies equal the
+    reference). Returns (the counted runs' launches, kernel 5's report at the
+    probe's shapes)."""
+    import cv2
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deep_image_matching_tpu_torch import upright
+    from deep_image_matching_tpu_torch.__main__ import run_matching
+    from deep_image_matching_tpu_torch.io import hdf5
+    from deep_image_matching_tpu_torch.ops import _lib
+    from deep_image_matching_tpu_torch.utils.image import ImageList
+
+    t_phase = time.perf_counter()
+    root = WORK / "upright"
+    planted = _upright_project(root)
+    images = root / "images"
+    names = ImageList(images).img_names
+    ref_name = names[0]
+    with _env({"DIM_TPU_ALLOW_RANDOM_WEIGHTS": "1"}):
+        upright._probe_rotations(ImageList(images), device="cuda")  # warm
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rot = upright._probe_rotations(ImageList(images), device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n_nn = _lib.LAUNCHES["nn"]
+        t0 = time.perf_counter()
+        rot_cpu = upright._probe_rotations(ImageList(images), device="cpu")
+        cpu_wall = time.perf_counter() - t0
+    busy, n_events, _ = _device_busy(prof)
+    wrong = {n: rot[n] for n in planted if rot[n] != planted[n]}
+    if wrong or any(rot_cpu[n] != planted[n] for n in planted):
+        _fail(f"upright 2clusters: planted {planted}, the card found {rot}, the CPU {rot_cpu}")
+    if n_nn != 2 * (len(names) - 1):
+        _fail(f"upright 2clusters: {n_nn} launches of kernel 5, expected {2 * (len(names) - 1)}")
+    print(f"[upright] 2clusters probe on {len(names)} images (the 5 demo images + "
+          f"{len(planted)} rotated copies of {ref_name}): card {wall * 1e3:.1f} ms warm, device "
+          f"busy {busy or 0:.1f} ms in {n_events or 0} events, idle "
+          f"{100 * (1 - (busy or 0) / (wall * 1e3)):.1f} %, kernel 5 launched {n_nn} times; CPU "
+          f"{cpu_wall * 1e3:.1f} ms; planted {planted} recovered on both; card {rot}, CPU "
+          f"{rot_cpu} [{card}]", flush=True)
+    probe_report = _probe_kernel_check(card)
+
+    launches = {}
+    base = ("general:\n  allow_random_weights: true\n  upright_strategy: {}\n  tpu:\n"
+            "    device: cuda\nmatcher:\n  filter_threshold: 0.0\n")
+    timers = _TimerLog()
+    for strategy, needed in (("custom", ("attention", "ffn", "assignment", "nullspace")),
+                             ("2clusters", ("attention", "ffn", "assignment", "nullspace", "nn"))):
+        label = f"superpoint+lightglue --upright ({strategy})"
+        cfg = root / f"{strategy}.yaml"
+        cfg.write_text(base.format(strategy))
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        feature_path, match_path, _ = run_matching({
+            "dir": str(root), "outs": str(root / f"out_{strategy}"),
+            "pipeline": "superpoint+lightglue", "strategy": "bruteforce", "upright": True,
+            "skip_reconstruction": True, "force": True, "config_file": str(cfg)})
+        torch.cuda.synchronize()
+        run_wall = time.perf_counter() - t0
+        launches[label] = dict(_lib.LAUNCHES)
+        missing = [k for k in needed if not launches[label][k]]
+        if missing:
+            _fail(f"{label}: kernels {missing} of its path were never launched")
+        out_dir = feature_path.parent
+        up_dir = out_dir / "upright_images"
+        ref_px = cv2.imread(str(images / ref_name), cv2.IMREAD_UNCHANGED)
+        for name in planted:
+            if not np.array_equal(cv2.imread(str(up_dir / name), cv2.IMREAD_UNCHANGED), ref_px):
+                _fail(f"{label}: the upright copy of {name} is not the reference's pixels")
+        summary, _ = _check_outputs(out_dir, names, len(names) * (len(names) - 1) // 2, 256)
+        lines = []
+        with hdf5.File(feature_path, "r") as f:
+            k_ref = np.asarray(f[ref_name]["keypoints"])
+            h, w = ref_px.shape[:2]
+            for name, deg in planted.items():
+                k = np.asarray(f[name]["keypoints"])
+                size = tuple(int(v) for v in np.asarray(f[name]["image_size"]))
+                ch, cw = cv2.imread(str(images / name), cv2.IMREAD_UNCHANGED).shape[:2]
+                if size != (cw, ch):
+                    _fail(f"{label}: image_size of {name} {size}, its frame ({cw}, {ch})")
+                want = upright.rotate_keypoints_back(k_ref, deg, (w, h))
+                if len(k) != len(k_ref):
+                    _fail(f"{label}: {name} holds {len(k)} keypoints, the reference {len(k_ref)}")
+                same = float((np.abs(k - want).max(axis=1) <= 1e-3).mean())
+                if same < 0.99:
+                    _fail(f"{label}: only {same:.3f} of {name}'s keypoints are the reference's "
+                          f"rotated into its frame")
+                lines.append(f"{name}: {len(k)} keypoints in its {cw} x {ch} frame, "
+                             f"{same:.4f} equal to the reference's rotated by {(360 - deg) % 360}")
+        for path, what in ((out_dir / "raw_matches.h5", "raw"), (match_path, "verified")):
+            with hdf5.File(path, "r") as m:
+                counts = []
+                for name in planted:
+                    a, b = sorted((ref_name, name))
+                    counts.append(len(np.asarray(m[a][b])) if a in m and b in m[a] else 0)
+            lines.append(f"{what} matches of the reference with its copies {counts}")
+        stages = timers.lines[-1].split("] ", 2)[-1] if timers.lines else "no timer line"
+        print(f"[upright] {label}: {summary}; {'; '.join(lines)}; run_matching {run_wall:.2f} s; "
+              f"stages {stages}; kernel launches "
+              f"{ {k: v for k, v in launches[label].items() if v} } [{card}]", flush=True)
+    print(f"[upright] phase wall {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches, probe_report
+
+
+def _read_putative(path: Path) -> dict:
+    """OpenMVG's binary PairWiseMatches: {(view, view): match count}."""
+    import numpy as np
+
+    raw = path.read_bytes()
+    n, off, out = int.from_bytes(raw[1:9], "little"), 9, {}
+    for _ in range(n):
+        i, j = np.frombuffer(raw, np.int32, 2, off)
+        k = int.from_bytes(raw[off + 8:off + 16], "little")
+        out[(int(i), int(j))] = k
+        off += 16 + 8 * k
+    if off != len(raw):
+        _fail(f"{path}: {len(raw) - off} trailing bytes")
+    return out
+
+
+def phase_exports(card: str) -> dict:
+    """The exports and the view graph, on the sift+kornia_matcher demo run
+    through stage 5 of ``phase_reconstruction``: Bundler, Metashape, MicMac
+    (and its import back to h5), OpenMVG, the view graph; each file must
+    exist and the tie-point counts agree with matches.h5 and database.db;
+    then a ``run_matching --openmvg`` run. All of it host work: the
+    profiler must record no device event outside the CLI run. Returns the
+    CLI run's launches."""
+    import json
+    import sqlite3
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deep_image_matching_tpu_torch.__main__ import run_matching
+    from deep_image_matching_tpu_torch.graph import view_graph
+    from deep_image_matching_tpu_torch.io import hdf5
+    from deep_image_matching_tpu_torch.io.h5_to_bundler import export_to_bundler
+    from deep_image_matching_tpu_torch.io.h5_to_metashape import export_to_metashape
+    from deep_image_matching_tpu_torch.io.h5_to_micmac import export_to_micmac
+    from deep_image_matching_tpu_torch.io.h5_to_openmvg import export_to_openmvg
+    from deep_image_matching_tpu_torch.io.micmac_to_h5 import micmac_to_h5
+    from deep_image_matching_tpu_torch.ops import _lib
+
+    t_phase = time.perf_counter()
+    src = WORK / "stage5" / "sift+kornia_matcher_cuda"
+    images = WORK / "stage5" / "demo5" / "images"
+    feats, matches, db = src / "features.h5", src / "matches.h5", src / "database.db"
+    out = WORK / "exports"
+    shutil.rmtree(out, ignore_errors=True)
+    with hdf5.File(matches, "r") as m:
+        per_pair = {(a, b): len(np.asarray(m[a][b])) for a in m for b in m[a]}
+    total = sum(per_pair.values())
+    con = sqlite3.connect(str(db))
+    try:
+        db_total = int(con.execute("SELECT COALESCE(SUM(rows), 0) FROM two_view_geometries")
+                       .fetchone()[0])
+        n_images = int(con.execute("SELECT COUNT(*) FROM images").fetchone()[0])
+    finally:
+        con.close()
+    if not total or db_total != total:
+        _fail(f"exports: matches.h5 holds {total} verified matches, database.db {db_total}")
+    walls = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bundler = export_to_bundler(images, feats, matches, out / "bundler")
+        walls["bundler"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        meta = export_to_metashape(images, feats, matches, out / "metashape")
+        walls["metashape"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mm = export_to_micmac(images, feats, matches, out / "micmac")
+        back_f, back_m = micmac_to_h5(mm / "Homol", out / "micmac_features.h5",
+                                      out / "micmac_matches.h5")
+        walls["micmac + import"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mvg = export_to_openmvg(images, feats, matches, out / "openmvg")
+        walls["openmvg"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        view_graph(db, out / "graph", images)
+        walls["view graph"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    busy, _, _ = _device_busy(prof)
+    if busy is not None:
+        _fail(f"exports: {busy:.2f} ms of device work in host-only exports")
+
+    # Bundler and Metashape: the same Bundler file; tracks of >= 2 images
+    head = bundler.read_text().splitlines()
+    n_cams, n_tracks = map(int, head[1].split())
+    obs = [int(head[2 + 5 * n_cams + 3 * t + 2].split()[0]) for t in range(n_tracks)]
+    if meta.read_bytes() != bundler.read_bytes() or n_cams != n_images or min(obs) < 2:
+        _fail(f"exports: Bundler {n_cams} cameras, {n_tracks} tracks; Metashape "
+              f"{'equal' if meta.read_bytes() == bundler.read_bytes() else 'different'}")
+    if not (out / "metashape" / "README_metashape.txt").is_file():
+        _fail("exports: the Metashape README is missing")
+    # MicMac: one Homol line per verified match, both directions
+    homol = {}
+    for (a, b), n in per_pair.items():
+        for x, y in ((a, b), (b, a)):
+            f = mm / "Homol" / f"Pastis{x}" / f"{y}.txt"
+            homol[(x, y)] = len(f.read_text().splitlines()) if f.is_file() else -1
+            if homol[(x, y)] != max(n, 1):
+                _fail(f"exports: Homol {x} -> {y} holds {homol[(x, y)]} lines, {n} matches")
+    # the import keeps one tie point per keypoint position (1e-3 px) and
+    # pair, the first: SIFT's keypoints repeat positions with other
+    # orientations, so it holds fewer than the Homol lines
+    with hdf5.File(back_m, "r") as m:
+        back = {(a, b): len(np.asarray(m[a][b])) for a in m for b in m[a]}
+    want = {}
+    for (a, b), n in per_pair.items():
+        if n:
+            rows = [tuple(round(float(v) * 1000) for v in line.split()[:4]) for line in
+                    (mm / "Homol" / f"Pastis{a}" / f"{b}.txt").read_text().splitlines()]
+            seen, first = set(), []
+            for r in rows:
+                if r[:2] not in seen:
+                    seen.add(r[:2])
+                    first.append(r)
+            want[(a, b)] = len({r[2:] for r in first})
+    if back != want:
+        _fail(f"exports: the MicMac import holds {sum(back.values())} tie points over "
+              f"{len(back)} pairs, the Homol tree's distinct ones {sum(want.values())} over "
+              f"{len(want)}")
+    # OpenMVG: the putative matches are matches.h5's
+    putative = _read_putative(mvg / "matches" / "matches.putative.bin")
+    sfm = json.loads((mvg / "matches" / "sfm_data.json").read_text())
+    feat_files = list((mvg / "matches").glob("*.feat"))
+    if sum(putative.values()) != total or len(sfm["views"]) != n_images or \
+            len(feat_files) != n_images or not (mvg / "matches" / "matches.f.bin").is_file():
+        _fail(f"exports: OpenMVG {sum(putative.values())} putative matches, "
+              f"{len(sfm['views'])} views, {len(feat_files)} .feat files")
+    # the view graph: one edge per verified pair
+    html = (out / "graph" / "graph.html").read_text()
+    n_edges = html.count(" matches'}")
+    csv_rows = len((out / "graph" / "communities.csv").read_text().splitlines()) - 1
+    mst = len((out / "graph" / "mst_pairs.txt").read_text().splitlines())
+    parent = {}
+
+    def find(x):
+        while parent.setdefault(x, x) != x:
+            x = parent[x]
+        return x
+
+    for a, b in per_pair:
+        parent[find(a)] = find(b)
+    n_trees = len({find(x) for x in parent})
+    if n_edges != len(per_pair) or csv_rows != len(parent) or mst != len(parent) - n_trees:
+        _fail(f"exports: view graph {n_edges} edges, {csv_rows} community rows, {mst} tree "
+              f"pairs; {len(per_pair)} verified pairs over {len(parent)} linked images")
+    print(f"[exports] sift+kornia_matcher demo5 (stage 5's card run): {total} verified matches "
+          f"over {len(per_pair)} pairs in matches.h5 and database.db; Bundler = Metashape: "
+          f"{n_cams} cameras, {n_tracks} tracks, {sum(obs)} observations; MicMac "
+          f"{sum(v for (x, y), v in homol.items() if (x, y) in per_pair)} Homol lines each way, "
+          f"imported back {sum(back.values())} tie points; OpenMVG {sum(putative.values())} "
+          f"putative matches, {len(feat_files)} .feat files; view graph {n_edges} edges, "
+          f"{mst} tree pairs; no device event; walls "
+          f"{ {k: round(v, 3) for k, v in walls.items()} } s [{card}]", flush=True)
+
+    # the CLI: --openmvg (no OpenMVG binaries: the project is exported, the
+    # reconstruction skipped with a warning) and the view graph on by default
+    conf = out / "openmvg.yaml"
+    conf.write_text("general:\n  path_to_binaries: null\n")
+    cfg = out / "cuda.yaml"
+    cfg.write_text("general:\n  tpu:\n    device: cuda\n")
+    label = "sift+kornia_matcher --openmvg"
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    feature_path, match_path, _ = run_matching({
+        "dir": str(WORK / "stage5" / "demo5"), "outs": str(out / "cli"),
+        "pipeline": "sift+kornia_matcher", "strategy": "bruteforce",
+        "skip_reconstruction": True, "force": True, "config_file": str(cfg),
+        "openmvg": str(conf)})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {label: dict(_lib.LAUNCHES)}
+    if not launches[label]["nn"] or not launches[label]["nullspace"]:
+        _fail(f"{label}: kernels 5 and 4 of its path were not both launched")
+    with hdf5.File(match_path, "r") as m:
+        cli_total = sum(len(np.asarray(m[a][b])) for a in m for b in m[a])
+    cli_out = feature_path.parent
+    putative = _read_putative(cli_out / "openmvg" / "matches" / "matches.putative.bin")
+    graph_files = [f for f in ("communities.csv", "mst_pairs.txt", "mst_expanded_pairs.txt",
+                               "graph.html") if (cli_out / f).is_file()]
+    if sum(putative.values()) != cli_total or len(graph_files) != 4:
+        _fail(f"{label}: {sum(putative.values())} putative matches of {cli_total}; view graph "
+              f"files {graph_files}")
+    print(f"[exports] {label} on demo5: {cli_total} verified matches, the OpenMVG project holds "
+          f"{sum(putative.values())}; the view graph's 4 files written; run_matching {wall:.2f} "
+          f"s; kernel launches { {k: v for k, v in launches[label].items() if v} } [{card}]",
+          flush=True)
+    print(f"[exports] phase wall {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches
+
+
 def main() -> None:
     if not PKG.is_dir():
         print("FAIL: the port package is missing next to chip_smoke.py", flush=True)
@@ -2869,6 +3502,10 @@ def main() -> None:
     launches = phase_main_path(card)
     launches.update(phase_tiled(card))
     launches.update(phase_reconstruction(card))
+    launches.update(phase_retrieval(card))
+    upright_launches, report["nn"]["upright_probe"] = phase_upright(card)
+    launches.update(upright_launches)
+    launches.update(phase_exports(card))
     kernels = [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

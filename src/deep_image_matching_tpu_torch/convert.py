@@ -30,6 +30,14 @@ JAX package's tree over (convolutions HWIO -> OIHW, dense (in, out) ->
 (``roma_outdoor.pth``, ``dinov2_vitl14_pretrain.pth``), folding each
 BatchNorm into the convolution before it once, as the JAX package's
 ``params_from_torch`` does.
+
+The retrieval networks (``models/retrieval.py``) are modules:
+``retrieval_params_from_jax`` turns each of the JAX package's four trees
+(``netvlad``: ``{"backbone": {"convs"}, "centers", "assign_w", "pca_w",
+"pca_b"}``; ``openibl``: ``{"convs", "centers", "assign_w", "assign_b"}``;
+``cosplace`` and ``dir``: ``{"stem", "stages", "proj", "gem_p"}``, BatchNorm
+folded) into the modules' state dicts: convolutions HWIO -> OIHW, the (D, K)
+assignment -> a (K, D, 1, 1) convolution, dense (in, out) -> (out, in).
 """
 
 from __future__ import annotations
@@ -331,3 +339,48 @@ def roma_params_from_torch(state_dict, dinov2_state_dict: Optional[Dict] = None)
     if dinov2_state_dict is not None:
         params["dinov2"] = dinov2_params_from_torch(dinov2_state_dict)
     return params
+
+
+# ---------------------------------------------------------------------------
+# retrieval: VGG16 + NetVLAD, folded-BN ResNets + GeM
+# ---------------------------------------------------------------------------
+
+def _retrieval_conv(p) -> tuple:
+    return _t(np.asarray(p["w"]).transpose(3, 2, 0, 1)), _t(p["b"])
+
+
+def retrieval_params_from_jax(params, kind: str) -> StateDict:
+    """One of the JAX package's retrieval trees -> the state dict of
+    ``models/retrieval.VGG16NetVLAD`` (``netvlad``, ``openibl``) or
+    ``ResNetGeM`` (``cosplace``, ``dir``)."""
+    from .models.retrieval import vgg16_conv_indices
+
+    sd: StateDict = {}
+    if kind in ("netvlad", "openibl"):
+        convs = (params["backbone"] if kind == "netvlad" else params)["convs"]
+        for idx, p in zip(vgg16_conv_indices(), convs):
+            sd[f"features.{idx}.weight"], sd[f"features.{idx}.bias"] = _retrieval_conv(p)
+        assign = np.asarray(params["assign_w"])  # (D, K)
+        sd["net_vlad.conv.weight"] = _t(assign.T[:, :, None, None])
+        sd["net_vlad.centroids"] = _t(params["centers"])
+        if params.get("assign_b") is not None:
+            sd["net_vlad.conv.bias"] = _t(params["assign_b"])
+        if params.get("pca_w") is not None:
+            pca_w = np.asarray(params["pca_w"])  # (K * D, out)
+            sd["net_vlad.pca.weight"] = _t(pca_w.T)
+            b = params.get("pca_b")
+            sd["net_vlad.pca.bias"] = _t(np.zeros(pca_w.shape[1]) if b is None else b)
+        return sd
+    if kind not in ("cosplace", "dir"):
+        raise ValueError(f"Unknown retrieval network '{kind}'")
+    sd["stem.weight"], sd["stem.bias"] = _retrieval_conv(params["stem"])
+    for si, blocks in enumerate(params["stages"]):
+        for bi, bp in enumerate(blocks):
+            for name, p in bp.items():
+                dst = f"layers.{si}.{bi}.{'downsample' if name == 'down' else name}"
+                sd[f"{dst}.weight"], sd[f"{dst}.bias"] = _retrieval_conv(p)
+    if "proj" in params:
+        sd["proj.weight"] = _t(np.asarray(params["proj"]["w"]).T)
+        sd["proj.bias"] = _t(params["proj"]["b"])
+    sd["gem_p"] = _t(params["gem_p"])
+    return sd

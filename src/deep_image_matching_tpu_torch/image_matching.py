@@ -4,10 +4,12 @@
 Scans the image dir, loads the configured extractor and matcher by name,
 generates pairs, extracts features into features.h5 and matches pairs into
 raw_matches.h5 / matches.h5, with verification and gating inside the
-matcher. This package carries the superpoint, aliked, sift, orb and
+matcher. With ``general.upright`` the images are rotated upright before
+extraction and the keypoints in features.h5 rotated back after matching
+(``upright.py``). This package carries the superpoint, aliked, sift, orb and
 no_extractor extractors and the lightglue, kornia_matcher, superglue and roma
-matchers; other presets and the upright stage are not ported yet
-(ROADMAP.md, queue 1) and fail at construction.
+matchers; other presets are not ported yet (ROADMAP.md, queue 1) and fail at
+construction.
 """
 
 from __future__ import annotations
@@ -41,11 +43,6 @@ class ImageMatcher:
                 f"yet (ROADMAP.md, queue 1); ported extractors: "
                 f"{', '.join(PORTED_EXTRACTORS)}; matchers: {', '.join(PORTED_MATCHERS)}"
             )
-        if config.general.get("upright"):
-            raise NotImplementedError(
-                "--upright is not ported to the PyTorch package yet "
-                "(ROADMAP.md, queue 1: retrieval and upright)"
-            )
         self.image_dir = Path(config.image_dir)
         self.output_dir = Path(config.output_dir)
         self.image_list = ImageList(self.image_dir)
@@ -68,10 +65,21 @@ class ImageMatcher:
         timer = Timer(logger=logger, cumulate_by_key=True)
         pairs = self.generate_pairs()
         timer.update("generate_pairs")
+        upright = self.config.general.get("upright")
+        if upright:
+            from .upright import rotate_upright_images
+
+            self.rotated = rotate_upright_images(self.image_list, self.output_dir, self.config)
+            timer.update("upright")
         feature_path = self.extract_features()
         timer.update("extract_features")
         match_path = self.match_pairs(pairs, feature_path)
         timer.update("match_pairs")
+        if upright:
+            from .upright import rotate_back_features
+
+            rotate_back_features(feature_path, self.rotated)
+            timer.update("rotate_back")
         timer.print("ImageMatcher")
         return feature_path, match_path
 
@@ -131,4 +139,28 @@ class ImageMatcher:
         results = self.matcher.match_all(pairs, feature_path, match_path)
         kept = sum(1 for v in results.values() if v > 0)
         logger.info(f"Matched {kept}/{len(pairs)} pairs passed verification -> {match_path}")
+        if self.config.general.get("verbose") and kept:
+            self._dump_debug_viz(feature_path, match_path, results)
         return match_path
+
+    def _dump_debug_viz(self, feature_path, match_path, results) -> None:
+        """Debug artifact under ``debug/``: the best-matched pair side by
+        side with its verified matches. A failure here is logged with its
+        traceback, not raised: the plot is a diagnostic of a finished stage."""
+        try:
+            from .io.h5 import get_features, get_matches
+            from .utils.image import read_image
+            from .visualization import viz_matches_cv2
+
+            (name0, name1), _ = max(results.items(), key=lambda kv: kv[1])
+            m = get_matches(match_path, name0, name1)
+            f0, f1 = get_features(feature_path, name0), get_features(feature_path, name1)
+            img0 = read_image(self.image_dir / name0, grayscale=False)[:, :, ::-1]
+            img1 = read_image(self.image_dir / name1, grayscale=False)[:, :, ::-1]
+            out = self.output_dir / "debug"
+            out.mkdir(exist_ok=True)
+            viz_matches_cv2(img0, img1, f0["keypoints"][m[:, 0]], f1["keypoints"][m[:, 1]],
+                            output_path=out / f"matches_{name0}_{name1}.jpg")
+            logger.debug(f"Debug match visualization written to {out}")
+        except Exception as e:
+            logger.warning(f"Debug viz failed: {e}", exc_info=True)

@@ -3,10 +3,10 @@
 
 Strategies ``bruteforce`` (all combinations), ``sequential`` (sliding
 window), ``matching_lowres`` (low-res SuperPoint+LightGlue probe over all
-brute-force pairs, keep pairs with > min_matches), ``covisibility`` (top-k
+brute-force pairs, keep pairs with > min_matches), ``retrieval``
+(global-descriptor top-k on ``general.tpu.device``), ``covisibility`` (top-k
 co-observed from an existing COLMAP model) and ``custom_pairs`` (file).
-``retrieval`` is not ported yet (ROADMAP.md, queue 1). Writes ``pairs.txt``
-("name0 name1" per line).
+Writes ``pairs.txt`` ("name0 name1" per line).
 """
 
 from __future__ import annotations
@@ -67,11 +67,11 @@ def pairs_from_retrieval(
     retrieval: str,
     image_dir,
     num_matched: int = 10,
+    device=None,
 ) -> List[Pair]:
-    raise NotImplementedError(
-        "The 'retrieval' strategy is not ported to the PyTorch package yet "
-        "(ROADMAP.md, queue 1: retrieval and upright)"
-    )
+    from .image_retrieval import retrieval_pairs
+
+    return retrieval_pairs(image_list, retrieval, num_matched=num_matched, device=device)
 
 
 def pairs_from_covisibility(db_path, img_names: List[str], top_k: int = 10) -> List[Pair]:
@@ -151,8 +151,10 @@ class PairsGenerator:
         elif self.strategy == "matching_lowres":
             pairs = pairs_from_lowres(self.image_list, config=self.config)
         elif self.strategy == "retrieval":
+            general = getattr(self.config, "general", None) or {}
             pairs = pairs_from_retrieval(
-                self.image_list, self.retrieval, self.image_list[0].path.parent
+                self.image_list, self.retrieval, self.image_list[0].path.parent,
+                device=general.get("tpu", {}).get("device", "auto"),
             )
         elif self.strategy == "covisibility":
             pairs = pairs_from_covisibility(self.db_path, names)

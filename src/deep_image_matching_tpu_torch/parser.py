@@ -66,7 +66,9 @@ def parse_cli() -> dict:
     parser = build_parser()
     args = parser.parse_args()
     if args.gui:
-        parser.error("--gui is not ported to the PyTorch package yet (ROADMAP.md, queue 1)")
+        from .gui import gui
+
+        return gui()
     if not args.dir and not args.images:
         parser.error("either --dir or --images is required")
     if not args.pipeline:

@@ -759,3 +759,75 @@ def test_tile_cut_and_merge_on_cuda_match_cpu(cuda):
         got = tmerge.merge_tile_features(*(a.to(cuda) for a in args), (1500.0, 1000.0), cap)
         for k in ref:
             assert torch.equal(got[k].cpu(), ref[k]), k
+
+
+@pytest.mark.parametrize("D", [256, 128])
+def test_nn_match_at_the_upright_probe_shapes(cuda, D):
+    """The upright probe's batch: 4 rotations of 512 padded keypoints against
+    the reference (SuperPoint's D = 256, ALIKED's 128), valid rows 30-100 %
+    of the capacity as prefixes. ``nn_match_fused`` (kernel 5, two launches:
+    forward and the mutual check) against the dense plain route on the CPU:
+    the planted matches equal, other rows equal but for near-ties."""
+    from deep_image_matching_tpu_torch.ops.nn_match import nn_match_batch
+
+    gen = torch.Generator().manual_seed(20 + D)
+    B, K = 4, 512
+    F = torch.nn.functional
+    d0 = F.normalize(torch.randn(B, K, D, generator=gen), dim=-1)
+    d1 = F.normalize(torch.randn(B, K, D, generator=gen), dim=-1)
+    perm = torch.randperm(K, generator=gen)[:K // 4]
+    d1[:, perm] = F.normalize(d0[:, :K // 4] + 0.05 * torch.randn(B, K // 4, D, generator=gen),
+                              dim=-1)
+    counts0 = torch.tensor([K, int(0.3 * K), int(0.6 * K), int(0.9 * K)])
+    counts1 = torch.tensor([int(0.3 * K), K, int(0.8 * K), int(0.45 * K)])
+    m0 = torch.arange(K)[None] < counts0[:, None]
+    m1 = torch.arange(K)[None] < counts1[:, None]
+    before = _lib.LAUNCHES["nn"]
+    got, got_valid = tnn.nn_match_fused(d0.to(cuda), d1.to(cuda), m0.to(cuda), m1.to(cuda))
+    assert _lib.LAUNCHES["nn"] == before + 2
+    ref, ref_valid = nn_match_batch(d0, d1, m0, m1)
+    got, got_valid = got.cpu(), got_valid.cpu()
+    planted = torch.zeros(B, K, dtype=torch.bool)
+    planted[:, :K // 4] = (perm[None] < counts1[:, None]) & m0[:, :K // 4]
+    assert int(ref_valid[planted].sum()) > 0
+    assert torch.equal(got[planted], ref[planted])
+    assert float((got == ref).float().mean()) >= 0.995
+    assert not bool(got_valid[~m0].any())
+
+
+@pytest.mark.parametrize("kind", ["netvlad", "cosplace", "dir", "tiny"])
+def test_retrieval_descriptors_on_cuda_match_cpu(cuda, kind, tmp_path):
+    """The retrieval networks at full width with seeded weights,
+    ``compute_global_descriptors`` on the card (under ``full_f32``) against
+    the CPU on the demo images: descriptors within 1e-4, the same top-2
+    pairs but where two similarities tie within 1e-5 (random weights make
+    the demo images' descriptors nearly equal)."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from deep_image_matching_tpu_torch import image_retrieval as tir
+    from deep_image_matching_tpu_torch.models import retrieval as tr
+    from deep_image_matching_tpu_torch.utils.image import ImageList
+
+    torch.manual_seed(0)
+    model = {"netvlad": lambda: tr.VGG16NetVLAD(pca_dim=4096),
+             "cosplace": lambda: tr.ResNetGeM(tr.R18_STAGES, False, proj_dim=512),
+             "dir": lambda: tr.ResNetGeM(tr.R101_STAGES, True, proj_dim=2048),
+             "tiny": lambda: None}[kind]()
+    if model is not None:
+        model = model.eval()
+    il = ImageList(Path(__file__).resolve().parents[1] / "notebooks" / "demo_project" / "images")
+    cpu = tir.compute_global_descriptors(il, kind, device="cpu", model=model)
+    gpu = tir.compute_global_descriptors(il, kind, device="cuda", model=model)
+    assert float(abs(gpu - cpu).max()) <= 1e-4
+    names, k = il.img_names, 2
+    sim = cpu @ cpu.T
+    np.fill_diagonal(sim, -np.inf)
+    kth = np.sort(sim, axis=1)[:, ::-1][:, k - 1]
+    idx = {n: i for i, n in enumerate(names)}
+    differ = set(tir.pairs_from_descriptors(names, gpu, k)) ^ set(
+        tir.pairs_from_descriptors(names, cpu, k))
+    for x, y in differ:
+        i, j = idx[x], idx[y]
+        assert min(abs(sim[i, j] - kth[i]), abs(sim[i, j] - kth[j])) <= 1e-5, (x, y)

@@ -1,11 +1,13 @@
-"""The port stands alone: it imports without JAX, without the JAX package
-and without h5py (which the GPU hosts lack), and its entry points refuse
-what is not ported instead of running something else."""
+"""The port stands alone: it imports without JAX, without the JAX package,
+without h5py and without networkx (which the GPU hosts lack), and its entry
+points refuse what is not ported instead of running something else."""
 
+import json
 import subprocess
 import sys
 from pathlib import Path
 
+import cv2
 import h5py
 import numpy as np
 import pytest
@@ -15,7 +17,7 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
-for blocked in ("jax", "jaxlib", "deep_image_matching_tpu", "h5py"):
+for blocked in ("jax", "jaxlib", "deep_image_matching_tpu", "h5py", "networkx"):
     sys.modules[blocked] = None  # any import of these raises ImportError
 import deep_image_matching_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -26,7 +28,8 @@ print(" ".join(names))
 
 # the modules of the ported slices (SuperPoint + LightGlue, then nearest
 # neighbours, SuperGlue, SIFT and ORB, then RoMa, then ALIKED and LightGlue's
-# two opt-in kernels, then reconstruction, then tiling)
+# two opt-in kernels, then reconstruction, then tiling, then retrieval,
+# upright, the exports and the host tools)
 SLICE_MODULES = (
     "models.superpoint", "models.lightglue", "ops.attention", "ops.ffn", "ops.assignment",
     "ops.nullspace", "ops.ransac",
@@ -39,6 +42,9 @@ SLICE_MODULES = (
     "native", "sfm", "sfm.geometry", "sfm.ba", "sfm.incremental", "reconstruction",
     "triangulation", "io.tracks",
     "utils.tiling", "ops.tile_merge", "matchers.tiling",
+    "models.retrieval", "image_retrieval", "io.h5_to_bundler", "io.h5_to_micmac",
+    "io.micmac_to_h5", "io.h5_to_metashape", "io.h5_to_openmvg", "openmvg", "graph",
+    "visualization", "gui", "utils.profiler",
 )
 
 
@@ -97,9 +103,21 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path):
     from deep_image_matching_tpu_torch.utils.device import resolve_device
 
     (tmp_path / "images").mkdir()
+    demo = Path(__file__).resolve().parents[1] / "notebooks" / "demo_project" / "images"
+    for p in sorted(demo.iterdir())[:3]:
+        cv2.imwrite(str(tmp_path / "images" / p.name), cv2.resize(cv2.imread(str(p)), (320, 240)))
     args = {"dir": str(tmp_path), "pipeline": "superpoint+lightglue", "strategy": "bruteforce"}
-    with pytest.raises(NotImplementedError, match="OpenMVG"):
-        run_matching({**args, "openmvg": "openmvg.yaml"})
+    # --openmvg is ported: on the CPU it exports the project (no OpenMVG
+    # binaries here, so the reconstruction is skipped with a warning)
+    cfg = tmp_path / "cpu.yaml"
+    cfg.write_text("general:\n  tpu:\n    device: cpu\n")
+    feats, _, _ = run_matching({**args, "pipeline": "sift+kornia_matcher", "force": True,
+                                "skip_reconstruction": True, "config_file": str(cfg),
+                                "openmvg": str(tmp_path / "openmvg.yaml")})
+    project = feats.parent / "openmvg" / "matches"
+    sfm = json.loads((project / "sfm_data.json").read_text())
+    assert len(sfm["views"]) == 3 and (project / "matches.f.bin").is_file()
+    assert len(list(project.glob("*.feat"))) == 3
     for pipeline in ("disk+lightglue", "loftr", "se2loftr", "srif"):
         with pytest.raises(NotImplementedError, match="ported"):
             run_matching({**args, "pipeline": pipeline, "skip_reconstruction": True})
