@@ -9,7 +9,8 @@ Phases, each printing its own lines:
    ptxas' register and spill report, and the count of HGMMA instructions in
    the SASS of the two attention kernels, the FFN, the assignment and the
    QKV prologue (each of the four in its bf16 and its float32 form), and of
-   HMMA (``mma.sync``) in the refiner's (``cuobjdump -sass``; none fails);
+   HMMA (``mma.sync``) in the refiner's and in kernel 1's head-dim-96 forms
+   (``cuobjdump -sass``; none fails);
 3. each kernel against its plain PyTorch version on the card, at the
    main-path shapes (partial masks, degenerate hypotheses, integer
    descriptors with ties), with its tolerance and both times (CUDA events
@@ -26,7 +27,9 @@ Phases, each printing its own lines:
    row logsumexp, RoMa's refiner stack (both passes' shapes), LightGlue's
    bidirectional cross attention (LightGlue's and ALIKED's lengths) and its
    fused QKV + rotary prologue (both modes, beside the path's own unfused
-   prologue on the same inputs); then the float32 forms (split TF32) of
+   prologue on the same inputs), kernel 1's head-dim-96 forms
+   (``attention_mma``, bf16 and split TF32) at LighterGlue's (16, 1, 4096,
+   96) with partial masks; then the float32 forms (split TF32) of
    attention (LightGlue's and SuperGlue's shapes), the FFN (both modes),
    the bidirectional attention (2048 and 4096) and the QKV prologue (both
    modes), each against its plain version in f32 with its tolerance relative
@@ -68,7 +71,17 @@ Phases, each printing its own lines:
    - with ``general.tpu.dtype: float32``: superpoint+lightglue on the 16
      synthetic views, superpoint+superglue and aliked+lightglue (bidir, fused
      prologue) on 6 of them, each checking that the float32 kernels of its
-     path launched.
+     path launched;
+   - the presets of ``SPARSE_PATHS`` (``phase_sparse_presets``):
+     disk+lightglue, xfeat+lighterglue (bf16 and float32: kernel 1's
+     head-dim-96 forms, never kernel 2) and superpoint_open+kornia_matcher
+     on the synthetic views (match threshold 0), keynetaffnethardnet+
+     kornia_matcher on the demo images at the preset's 4000 features (DoH,
+     then seeded KeyNet, AffNet and OriNet checkpoints, ``keynet_weights``),
+     and the AdaLAM matcher over sift (``adalam``, ``adalam_fast``), each
+     once more warm under ``torch.profiler`` (wall, device busy, idle share,
+     peak memory), then each against the CPU (``SPARSE_CPU_CHECKS``: shares
+     of keypoints and raw matches).
    Each run checks features.h5, raw_matches.h5 and database.db and prints
    the wall time per stage; each path checks that its kernels launched;
 6. tiled extraction and matching (``--tiling``), each counted run with the
@@ -190,6 +203,12 @@ KERNELS = {
                             "src/deep_image_matching_tpu/ops/pallas_bidir_attention.py:151"),
     "qkv_f32": ("src/deep_image_matching_tpu_torch/csrc/qkv.cu",
                 "src/deep_image_matching_tpu/ops/pallas_qkv.py:115"),
+    # kernel 1 at LighterGlue's head dim 96 (attention_mma, mma.sync), in
+    # bf16 and in split TF32
+    "attention_hd96": ("src/deep_image_matching_tpu_torch/csrc/attention.cu",
+                       "src/deep_image_matching_tpu/ops/attention.py:96"),
+    "attention_hd96_f32": ("src/deep_image_matching_tpu_torch/csrc/attention.cu",
+                           "src/deep_image_matching_tpu/ops/attention.py:96"),
 }
 
 # NVIDIA H100 SXM data sheet: HBM bytes/s, dense peak operations/s by type
@@ -298,6 +317,27 @@ def _device_busy(prof) -> tuple:
     return sum(e[0] for e in events), sum(e[1] for e in events), events
 
 
+def _profiled(fn) -> tuple:
+    """``fn()`` under ``torch.profiler`` (device activity), its wall seconds
+    and ``_device_busy`` of the run. CUPTI now and then drops every device
+    event of a session (1 session in 30 of a loop of identical runs on the
+    H100), so a session that recorded none runs once more; the caller fails
+    where the second records none either."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = _device_busy(prof)
+        if busy[0] is not None:
+            break
+    return wall, busy
+
+
 def phase_environment() -> str:
     import torch
 
@@ -349,7 +389,10 @@ MMA_KERNELS = {"attention": ("attention_sm90", "HGMMA"),
                "qkv": ("qkv_sm90", "HGMMA"), "refiner": ("refiner_block_kernel", "HMMA"),
                "attention_f32": ("attention_f32_sm90", "HGMMA"),
                "bidir_attention_f32": ("bidir_attention_f32_sm90", "HGMMA"),
-               "ffn_f32": ("ffn_f32_sm90", "HGMMA"), "qkv_f32": ("qkv_f32_sm90", "HGMMA")}
+               "ffn_f32": ("ffn_f32_sm90", "HGMMA"), "qkv_f32": ("qkv_f32_sm90", "HGMMA"),
+               # the head-dim-96 forms' template instantiations (bf16 bits, f32)
+               "attention_hd96": ("attention_mmaItLi96", "HMMA"),
+               "attention_hd96_f32": ("attention_mmaIfLi96", "HMMA")}
 
 
 def _ptxas(name: str) -> dict:
@@ -1072,6 +1115,56 @@ def check_attention_f32(torch, dev, card):
     return max(a["err"], b["err"]), F32_ATTENTION_TOL, what, extra
 
 
+def check_attention_hd96(torch, dev, card):
+    """Kernel 1's head-dim-96 form at LighterGlue's shape, (16, 1, 4096, 96)
+    bf16 with partial masks (a prefix count per pair; one pair full, one with
+    37 valid points)."""
+    from deep_image_matching_tpu_torch.ops.attention import (
+        attention_reference, fused_attention)
+
+    gen = torch.Generator().manual_seed(23)
+    B, H, N, d = 16, 1, 4096, 96
+    q, k, v = (torch.randn(B, H, N, d, generator=gen).mul(s).to(dev, torch.bfloat16)
+               for s in (2.0, 2.0, 1.0))
+    qm, km = _masks(torch, gen, B, N, dev), _masks(torch, gen, B, N, dev)
+    err, tol, main = _attention_case(torch, fused_attention, attention_reference, q, k, v, qm, km)
+    what = ("valid query rows, 2 bf16 ulps elementwise; LighterGlue's (16, 1, 4096, 96), the "
+            "mma.sync form")
+    return err, tol, what, {**main, "shape": [B, H, N, d], "ptxas": _ptxas("attention_mmaItLi96")}
+
+
+def check_attention_hd96_f32(torch, dev, card):
+    """The same in float32 (split TF32 on mma.sync), held as kernel 1's
+    float32 form is held."""
+    from deep_image_matching_tpu_torch.ops.attention import (
+        attention_reference, fused_attention)
+
+    gen = torch.Generator().manual_seed(24)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, H, N, d = 16, 1, 4096, 96
+    q, k, v = (torch.randn(B, H, N, d, generator=gen).mul(s).to(dev) for s in (2.0, 2.0, 1.0))
+    qm, km = _masks(torch, gen, B, N, dev), _masks(torch, gen, B, N, dev)
+    scale = d ** -0.5
+    got = fused_attention(q, k, v, qm, km, scale)
+    ref = attention_reference(q, k, v, km, scale)
+    torch.cuda.synchronize()
+    err = _rel_err(got, ref, qm[:, None, :, None].expand_as(got))
+    del got, ref
+    pairs = float((qm.sum(1).double() * km.sum(1).double()).sum())
+    mask = km[:, None, None, :]
+    extra = {**_bound(_nbytes(q, k, v, q) + qm.numel() + km.numel(), 3 * 4.0 * H * d * pairs,
+                      "tf32"),
+             "ms": _time_ms(lambda: fused_attention(q, k, v, qm, km, scale)),
+             "plain_ms": _time_ms(lambda: attention_reference(q, k, v, km, scale)),
+             "library_ms": _time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale)),
+             "library_note": "scaled_dot_product_attention in f32 with the same key mask",
+             "bound_note": "three TF32 products of the valid pairs at 495 TFLOP/s, or the f32 "
+                           "bytes",
+             "shape": [B, H, N, d], "ptxas": _ptxas("attention_mmaIfLi96")}
+    what = "|err| / max|out| over valid rows; LighterGlue's (16, 1, 4096, 96) in f32"
+    return err, F32_ATTENTION_TOL, what, extra
+
+
 def check_bidir_attention_f32(torch, dev, card):
     from deep_image_matching_tpu_torch.ops.bidir_attention import (
         bidir_cross_attention, bidir_cross_attention_reference)
@@ -1204,7 +1297,8 @@ def phase_kernels(card: str) -> dict:
               "refiner": check_refiner, "bidir_attention": check_bidir_attention,
               "qkv": check_qkv, "attention_f32": check_attention_f32,
               "ffn_f32": check_ffn_f32, "bidir_attention_f32": check_bidir_attention_f32,
-              "qkv_f32": check_qkv_f32}
+              "qkv_f32": check_qkv_f32, "attention_hd96": check_attention_hd96,
+              "attention_hd96_f32": check_attention_hd96_f32}
     report = {}
     ok = True
     for name, fn in checks.items():
@@ -1933,6 +2027,174 @@ F32_PATHS = {
 }
 
 
+# the presets of DISK, XFeat + LighterGlue, the open SuperPoint, KeyNet +
+# AffNet + HardNet and the AdaLAM matcher: label -> (pipeline, kernels that
+# must launch, kernels that must not, runs (project, strategy, config,
+# descriptor width), environment). LighterGlue (width 96) runs kernel 1's
+# head-dim-96 form and the unfused FFN, never kernel 2 or the head-dim-64
+# form; AdaLAM's filter is plain tensor arithmetic after a dense nearest
+# neighbour, as the JAX package's is XLA, and kernel 4 verifies
+SPARSE_PATHS = {
+    "disk+lightglue": ("disk+lightglue", ("attention", "ffn", "assignment", "nullspace"), (), (
+        ("synthetic16", "bruteforce", "threshold0", 128),), None),
+    "xfeat+lighterglue": ("xfeat+lighterglue", ("attention_hd96", "assignment", "nullspace"), (
+        "ffn", "ffn_f32", "attention", "attention_f32"), (
+        ("synthetic16", "bruteforce", "threshold0", 64),), None),
+    "xfeat+lighterglue (float32)": ("xfeat+lighterglue", (
+        "attention_hd96_f32", "assignment", "nullspace"), (
+        "ffn", "ffn_f32", "attention", "attention_f32", "attention_hd96"), (
+        ("synthetic16", "bruteforce", "f32_threshold0", 64),), None),
+    "superpoint_open+kornia_matcher": ("superpoint_open+kornia_matcher", ("nn", "nullspace"), (), (
+        ("synthetic16", "bruteforce", "default", 256),), None),
+    "keynetaffnethardnet+kornia_matcher": ("keynetaffnethardnet+kornia_matcher", (
+        "nn", "nullspace"), (), (("demo5", "bruteforce", "default", 128),), None),
+    "keynetaffnethardnet+kornia_matcher (KeyNet, AffNet, OriNet)": (
+        "keynetaffnethardnet+kornia_matcher", ("nn", "nullspace"), (), (
+            ("demo5", "bruteforce", "default", 128),), "keynet_weights"),
+    "sift+adalam": ("sift+kornia_matcher", ("nullspace",), ("nn",), (
+        ("demo5", "bruteforce", "adalam", 128),), None),
+    "sift+adalam_fast": ("sift+kornia_matcher", ("nullspace",), ("nn",), (
+        ("demo5", "bruteforce", "adalam_fast", 128),), None),
+}
+
+# card against CPU on the same inputs: label -> (pipeline, project, card
+# config, CPU config, least share of each image's keypoints and of each
+# pair's raw matches common to both runs). The learned extractors and
+# matchers run in f32 on both sides on three views of 320 x 320 (view 0 and
+# two shifted copies), and the keypoints must be equal: on an H100 80GB HBM3
+# every keypoint and every raw match came out equal for DISK, XFeat +
+# LighterGlue, DoH + HardNet and AdaLAM; a match may still flip between
+# near-tied neighbours, so the raw matches are held to 99 %. SuperPoint's
+# convolutions run in bf16 on the card (98.3 % of the keypoints, 95.6 % of
+# the matches shared there), so the open SuperPoint is held to 95 % and 90 %
+SPARSE_CPU_CHECKS = {
+    "disk+lightglue": ("disk+lightglue", "synthetic3", "f32_threshold0", "cpu_threshold0",
+                       1.0, 0.99),
+    "xfeat+lighterglue": ("xfeat+lighterglue", "synthetic3", "f32_threshold0", "cpu_threshold0",
+                          1.0, 0.99),
+    "superpoint_open+kornia_matcher": ("superpoint_open+kornia_matcher", "synthetic3",
+                                       "f32_threshold0", "cpu_threshold0", 0.95, 0.9),
+    "keynetaffnethardnet+kornia_matcher": ("keynetaffnethardnet+kornia_matcher", "demo5",
+                                           "default", "cpu", 1.0, 0.99),
+    "sift+adalam": ("sift+kornia_matcher", "demo5", "adalam", "cpu_adalam", 1.0, 0.99),
+}
+
+
+def keynet_weights(wdir: Path, seed: int = 0) -> dict:
+    """Seeded KeyNet, AffNet and OriNet checkpoints in their files' layouts
+    (kornia's ``feature_extractor.lb_block.{i}.0`` / ``last_conv.0``; the
+    AffNet release's ``features.N`` convolutions, each but the head followed
+    by an affine-free BatchNorm at N + 1), He-normal weights; returns the
+    environment that points the extractor at them."""
+    import numpy as np
+    import torch
+
+    if not (wdir / "orinet.pth").exists():
+        wdir.mkdir(parents=True, exist_ok=True)
+        rng = np.random.default_rng(seed)
+
+        def conv(co, ci, k):
+            w = rng.normal(0, np.sqrt(2.0 / (ci * k * k)), (co, ci, k, k)).astype(np.float32)
+            return torch.from_numpy(w), torch.from_numpy(rng.normal(0, 0.05, co).astype(np.float32))
+
+        kn = {}
+        for i, (co, ci) in enumerate(((8, 10), (8, 8), (8, 8))):
+            kn[f"feature_extractor.lb_block.{i}.0.weight"], \
+                kn[f"feature_extractor.lb_block.{i}.0.bias"] = conv(co, ci, 5)
+        kn["last_conv.0.weight"], kn["last_conv.0.bias"] = conv(1, 24, 5)
+        torch.save(kn, wdir / "keynet.pth")
+        trunk = [(16, 1, 3), (16, 16, 3), (32, 16, 3), (32, 32, 3), (64, 32, 3), (64, 64, 3)]
+        for name, head in (("affnet.pth", (3, 64, 8)), ("orinet.pth", (2, 64, 8))):
+            sd = {}
+            for i, shape in zip((0, 3, 6, 9, 12, 15, 19), trunk + [head]):
+                sd[f"features.{i}.weight"], sd[f"features.{i}.bias"] = conv(*shape)
+                if i < 19:
+                    sd[f"features.{i + 1}.running_mean"] = torch.zeros(shape[0])
+                    sd[f"features.{i + 1}.running_var"] = torch.ones(shape[0])
+            torch.save({"state_dict": sd}, wdir / name)
+    return {"DIM_TPU_WEIGHTS_DIR": str(wdir)}
+
+
+def _profiled_run(label, pipeline, proj, strategy, cfg, outs, card) -> dict:
+    """One more (warm) run of a path under ``torch.profiler``: its wall,
+    device busy time (the device-side events), idle share and peak memory."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall, (busy, n_events, events) = _profiled(lambda: _run(pipeline, proj, strategy, cfg, outs))
+    if busy is None:
+        _fail(f"{label}: the profiled run recorded no device event")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    top = "; ".join(f"{ms:.2f} ms {name[:60]}" for ms, _, name in events[:3])
+    print(f"[main] {label}: warm run under torch.profiler: wall {wall:.3f} s, device busy "
+          f"{busy:.1f} ms in {n_events} events, idle {100 * (1 - busy / 1e3 / wall):.1f} %, "
+          f"peak {peak:.2f} GiB; top: {top} [{card}]", flush=True)
+    return {"wall_s": wall, "busy_ms": busy, "idle": 1 - busy / 1e3 / wall, "peak_gib": peak}
+
+
+def _feature_sets(out_dir: Path) -> dict:
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.io import hdf5
+
+    with hdf5.File(out_dir / "features.h5", "r") as f:
+        return {n: {tuple(k) for k in np.asarray(f[n]["keypoints"])} for n in f}
+
+
+def _least_share(a: dict, b: dict) -> float:
+    """The least |a & b| / |a | b| over the keys (1 where both are empty)."""
+    if a.keys() != b.keys():
+        return 0.0
+    return min((len(a[k] & b[k]) / len(a[k] | b[k]) if a[k] | b[k] else 1.0) for k in a)
+
+
+def phase_sparse_presets(projects, configs, timers, card) -> dict:
+    """The slice's presets through ``run_matching`` on the card, each with the
+    launch counts set to 0 just before it and read just after, then one warm
+    run under ``torch.profiler``; then each against the CPU."""
+    from deep_image_matching_tpu_torch.extractors import keynetaffnethardnet as kah
+
+    def reload_keynet_stages():
+        # the extractor keeps the stages it found (or their absence) per
+        # process; the learned run looks again in its own weights directory
+        kah._KEYNET = kah._FRAMES = kah._UNSET
+
+    launches = {}
+    for label, (pipeline, needed, banned, runs, env) in SPARSE_PATHS.items():
+        extra = keynet_weights(WORK / "keynet_weights") if env == "keynet_weights" else {}
+        if extra:
+            reload_keynet_stages()
+        with _env(extra):
+            launches[label], _ = _run_path(
+                pipeline, needed, [run + (False,) for run in runs], projects, configs, timers,
+                card, label)
+            ran = [k for k in banned if launches[label][k]]
+            if ran:
+                _fail(f"{label}: kernels {ran} launched, which its path must not run")
+            proj_name, strategy, cfg, _ = runs[0]
+            _profiled_run(label, pipeline, projects[proj_name], strategy, configs[cfg],
+                          WORK / "out" / f"profiled_{pipeline}_{cfg}", card)
+        if extra:
+            if kah._KEYNET is None or None in kah._FRAMES:
+                _fail(f"{label}: the learned KeyNet, AffNet or OriNet did not load")
+            reload_keynet_stages()
+    for label, (pipeline, proj_name, cfg_card, cfg_cpu, kp_min, raw_min) in \
+            SPARSE_CPU_CHECKS.items():
+        proj = projects[proj_name]
+        out = WORK / "out" / f"vs_cpu_{pipeline}_{cfg_card}"
+        gpu_dir = _run(pipeline, proj, "bruteforce", configs[cfg_card], out)
+        cpu_dir = _run(pipeline, proj, "bruteforce", configs[cfg_cpu], out.with_name(out.name + "_cpu"))
+        kp = _least_share(_feature_sets(gpu_dir), _feature_sets(cpu_dir))
+        raw = _least_share(_raw_match_sets(gpu_dir), _raw_match_sets(cpu_dir))
+        print(f"[main] {label} card against CPU on {proj_name}: least share of keypoints "
+              f"{kp:.4f} (at least {kp_min}), of raw matches {raw:.4f} (at least {raw_min}) "
+              f"[{card}]", flush=True)
+        if kp < kp_min or raw < raw_min:
+            _fail(f"{label}: the card and the CPU disagree beyond the stated shares")
+    return launches
+
+
 def _path_env(pipeline: str) -> dict:
     """Environment set for one path's runs only: the aliked path's seeded
     ALIKED checkpoint (and no SuperPoint or LightGlue one) and the fused
@@ -2000,9 +2262,13 @@ def _run_path(pipeline, needed, runs, projects, configs, timers, card, label=Non
             summary, n_verified = _check_dense_outputs(out_dir, names, n_pairs)
         else:
             summary, n_verified = _check_outputs(out_dir, names, n_pairs, dim)
-        if proj_name == "synthetic16" and pipeline != "superpoint+superglue":
+        if proj_name == "synthetic16" and pipeline not in ("superpoint+superglue",
+                                                           "xfeat+lighterglue"):
             # random SuperGlue weights mix the keypoint positions into the
-            # descriptors, so only the other matchers find the shift
+            # descriptors, and LighterGlue's random input projection and six
+            # random layers at width 96 leave a few mutual neighbours a pair
+            # (on the CPU as on the card), so only the other matchers find
+            # the shift
             summary += "; " + _check_shifted(out_dir, names)
         if pipeline == "sift+kornia_matcher" and n_verified == 0:
             _fail("sift+kornia_matcher verified no pair of the demo images")
@@ -2020,12 +2286,21 @@ def _run_path(pipeline, needed, runs, projects, configs, timers, card, label=Non
 
 
 def phase_main_path(card: str) -> dict:
+    projects, configs, timers = _main_setup()
+    launches = {name: {} for name in PATHS}
+    return _run_main_paths(projects, configs, timers, card, launches)
+
+
+def _main_setup():
+    """The main paths' projects (synthetic views, the demo images) and YAML
+    configurations under WORK, made anew, and the stage-timer log."""
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
     base = "general:\n  allow_random_weights: true\n  tpu:\n    device: {}\n"
     configs = {name: WORK / f"{name}.yaml"
                for name in ("default", "threshold0", "superglue0", "cpu", "aliked_bidir",
-                            "f32_threshold0", "f32_superglue0", "f32_aliked_bidir")}
+                            "f32_threshold0", "f32_superglue0", "f32_aliked_bidir",
+                            "cpu_threshold0", "adalam", "adalam_fast", "cpu_adalam")}
     configs["default"].write_text(base.format("cuda"))
     configs["aliked_bidir"].write_text(base.format("cuda") + "    attn_impl: bidir\n"
                                        "matcher:\n  filter_threshold: 0.0\n")
@@ -2034,6 +2309,13 @@ def phase_main_path(card: str) -> dict:
     configs["threshold0"].write_text(base.format("cuda") + "matcher:\n  filter_threshold: 0.0\n")
     configs["superglue0"].write_text(base.format("cuda") + "matcher:\n  match_threshold: 0.0\n")
     configs["cpu"].write_text(base.format("cpu"))
+    configs["cpu_threshold0"].write_text(base.format("cpu") + "    dtype: float32\n"
+                                         "matcher:\n  filter_threshold: 0.0\n")
+    # the AdaLAM matcher over sift (its YAML swaps the preset's matcher)
+    for name, mode, dev in (("adalam", "adalam", "cuda"), ("adalam_fast", "adalam_fast", "cuda"),
+                            ("cpu_adalam", "adalam", "cpu")):
+        configs[name].write_text(base.format(dev) + f"matcher:\n  name: adalam\n"
+                                                    f"  match_mode: {mode}\n")
     # the same in float32: the kernels' float32 forms
     for name in ("threshold0", "superglue0", "aliked_bidir"):
         text = configs[name].read_text().replace("    device: cuda\n",
@@ -2041,11 +2323,13 @@ def phase_main_path(card: str) -> dict:
         configs[f"f32_{name}"].write_text(text)
     projects = {"synthetic16": _synthetic_project(WORK / "synthetic16"),
                 "synthetic6": _synthetic_project(WORK / "synthetic6", n=6),
+                "synthetic3": _synthetic_project(WORK / "synthetic3", n=3, size=320),
                 "demo5": WORK / "demo5"}
     shutil.copytree(ROOT / "notebooks" / "demo_project" / "images", projects["demo5"] / "images")
-    timers = _TimerLog()
+    return projects, configs, _TimerLog()
 
-    launches = {name: {} for name in PATHS}
+
+def _run_main_paths(projects, configs, timers, card, launches) -> dict:
     for pipeline, (needed, runs) in PATHS.items():
         with _env(_path_env(pipeline)):
             launches[pipeline], cpu_checks = _run_path(pipeline, needed, runs, projects, configs,
@@ -2068,6 +2352,7 @@ def phase_main_path(card: str) -> dict:
         with _env(_path_env(pipeline)):
             launches[label], _ = _run_path(pipeline, needed, runs, projects, configs, timers,
                                            card, label)
+    launches.update(phase_sparse_presets(projects, configs, timers, card))
     return launches
 
 
@@ -2371,7 +2656,6 @@ def phase_tiled(card: str) -> dict:
     and kernels 1 and 3 on tile-masked batches. Returns the counted runs'
     launches."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
     root = WORK / "tiled"
@@ -2405,13 +2689,9 @@ def phase_tiled(card: str) -> dict:
     # the same run warm, under torch.profiler (not counted)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _run("superpoint+lightglue", p24, "bruteforce", cfgs["card"], root / "out" / "p24_prof",
-             "preselection")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy, n_events, events = _device_busy(prof)
+    wall, (busy, n_events, events) = _profiled(lambda: _run(
+        "superpoint+lightglue", p24, "bruteforce", cfgs["card"], root / "out" / "p24_prof",
+        "preselection"))
     if busy is None:
         _fail("the profiler recorded no device event in the tiled run")
     stages = timers.lines[-1].split("] ", 2)[-1] if timers.lines else "no timer line"
@@ -3003,7 +3283,6 @@ def phase_retrieval(card: str) -> dict:
     launches."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from deep_image_matching_tpu_torch import image_retrieval as tir
     from deep_image_matching_tpu_torch.ops import _lib
@@ -3037,12 +3316,8 @@ def phase_retrieval(card: str) -> dict:
             t0 = time.perf_counter()
             gpu = tir.compute_global_descriptors(il, kind, device="cuda", model=model)
             wall = time.perf_counter() - t0
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                tir.compute_global_descriptors(il, kind, device="cuda", model=model)
-                torch.cuda.synchronize()
-                prof_wall = time.perf_counter() - t0
-            busy, n_events, events = _device_busy(prof)
+            prof_wall, (busy, n_events, events) = _profiled(
+                lambda: tir.compute_global_descriptors(il, kind, device="cuda", model=model))
             if busy is None:
                 _fail(f"retrieval {kind}: the profiler recorded no device event")
             t0 = time.perf_counter()

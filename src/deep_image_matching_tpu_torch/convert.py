@@ -38,6 +38,15 @@ The retrieval networks (``models/retrieval.py``) are modules:
 ``cosplace`` and ``dir``: ``{"stem", "stages", "proj", "gem_p"}``, BatchNorm
 folded) into the modules' state dicts: convolutions HWIO -> OIHW, the (D, K)
 assignment -> a (K, D, 1, 1) convolution, dense (in, out) -> (out, in).
+
+``disk_params_from_jax``, ``xfeat_params_from_jax``, ``keynet_params_from_jax``,
+``affnet_params_from_jax`` / ``orinet_params_from_jax`` and
+``hardnet_params_from_jax`` write the checkpoints' own layouts (each gate
+between the convolutions it separates; ``XFeatModel``'s, kornia's KeyNet and
+the ``features.N`` names), which the JAX package's ``params_from_torch``
+reads back exactly and the port's loaders read as they read the released
+files. LighterGlue's tree goes through ``lightglue_params_from_jax`` at its
+own sizes.
 """
 
 from __future__ import annotations
@@ -383,4 +392,107 @@ def retrieval_params_from_jax(params, kind: str) -> StateDict:
         sd["proj.weight"] = _t(np.asarray(params["proj"]["w"]).T)
         sd["proj.bias"] = _t(params["proj"]["b"])
     sd["gem_p"] = _t(params["gem_p"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# DISK, XFeat, KeyNet, AffNet / OriNet, HardNet: checkpoint-layout state
+# dicts from the JAX package's trees. The JAX package folds each BatchNorm
+# into its convolution on load, so a folded convolution is written with an
+# identity BatchNorm (mean 0, variance 1 - eps, whose sum with eps is 1.0 in
+# f32), which folds back to the same weights bit for bit.
+# ---------------------------------------------------------------------------
+
+def _identity_bn(sd: StateDict, prefix: str, n: int, affine: bool = False) -> None:
+    if affine:
+        sd[f"{prefix}.weight"] = torch.ones(n)
+        sd[f"{prefix}.bias"] = torch.zeros(n)
+    sd[f"{prefix}.running_mean"] = torch.zeros(n)
+    sd[f"{prefix}.running_var"] = torch.full((n,), 1.0 - _BN_EPS)
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _oihw(w) -> torch.Tensor:
+    return _t(np.asarray(w).transpose(3, 2, 0, 1))
+
+
+def disk_params_from_jax(params) -> StateDict:
+    """The JAX package's DISK tree -> ``models/disk.DISK``'s state dict,
+    which the position-based converters of both packages read back: per
+    block its gate (where gated) before its conv, so each gate lies between
+    its conv and the one before."""
+    sd: StateDict = {}
+    for group in ("down", "up"):
+        for i, p in enumerate(params[group]):
+            if p["prelu"] is not None:
+                sd[f"{group}.{i}.prelu.weight"] = _t(p["prelu"])
+            sd[f"{group}.{i}.conv.weight"] = _oihw(p["w"])
+            sd[f"{group}.{i}.conv.bias"] = _t(p["b"])
+    return sd
+
+
+def xfeat_params_from_jax(params) -> StateDict:
+    """The JAX package's XFeat tree -> an ``XFeatModel`` state dict
+    (``block.{i}.layer.0`` conv + ``layer.1`` affine-free BatchNorm for a
+    BasicLayer, ``block.{i}`` for a plain conv; ``skip1``'s conv at index 1)."""
+    from .models.xfeat import BLOCKS
+
+    sd: StateDict = {}
+    for block, layers in BLOCKS.items():
+        for i, (kind, *_rest) in enumerate(layers):
+            p = params[block][i]
+            src = 1 if block == "skip1" else i
+            if kind == "bl":
+                sd[f"{block}.{src}.layer.0.weight"] = _oihw(p["w"])
+                sd[f"{block}.{src}.layer.0.bias"] = _t(p["b"])
+                _identity_bn(sd, f"{block}.{src}.layer.1", np.asarray(p["b"]).shape[0])
+            else:
+                sd[f"{block}.{src}.weight"] = _oihw(p["w"])
+                sd[f"{block}.{src}.bias"] = _t(p["b"])
+    return sd
+
+
+def keynet_params_from_jax(params) -> StateDict:
+    """The JAX package's KeyNet tree -> kornia's names
+    (``feature_extractor.lb_block.{i}.0``, ``last_conv.0``), without
+    BatchNorms (the converter folds one only where present)."""
+    sd: StateDict = {}
+    for i, p in enumerate(params["blocks"]):
+        sd[f"feature_extractor.lb_block.{i}.0.weight"] = _oihw(p["w"])
+        sd[f"feature_extractor.lb_block.{i}.0.bias"] = _t(p["b"])
+    sd["last_conv.0.weight"] = _oihw(params["last"]["w"])
+    sd["last_conv.0.bias"] = _t(params["last"]["b"])
+    return sd
+
+
+def _features_from_jax(params, conv_idx) -> StateDict:
+    """``features.{i}`` convolutions, each but the last followed by an
+    identity affine-free BatchNorm at ``features.{i + 1}``."""
+    sd: StateDict = {}
+    layers = params["layers"]
+    for j, (i, p) in enumerate(zip(conv_idx, layers)):
+        sd[f"features.{i}.weight"] = _oihw(p["w"])
+        sd[f"features.{i}.bias"] = _t(p["b"])
+        if j < len(layers) - 1:
+            _identity_bn(sd, f"features.{i + 1}", np.asarray(p["b"]).shape[0])
+    return sd
+
+
+def affnet_params_from_jax(params) -> StateDict:
+    """The JAX package's AffNet or OriNet tree -> the released
+    ``features.N.*`` layout (the head at ``features.19``)."""
+    return _features_from_jax(params, (0, 3, 6, 9, 12, 15, 19))
+
+
+orinet_params_from_jax = affnet_params_from_jax
+
+
+def hardnet_params_from_jax(params) -> StateDict:
+    """The JAX package's HardNet tree -> the ``features.N.*`` layout; the
+    last convolution keeps its (identity) BatchNorm, as HardNet has one."""
+    sd: StateDict = {}
+    for i, p in zip((0, 3, 6, 9, 12, 15, 19), params["layers"]):
+        sd[f"features.{i}.weight"] = _oihw(p["w"])
+        sd[f"features.{i}.bias"] = _t(p["b"])
+        _identity_bn(sd, f"features.{i + 1}", np.asarray(p["b"]).shape[0])
     return sd

@@ -39,7 +39,7 @@ class SuperPointExtractor(ExtractorBase):
         super().__init__(config)
         tpu = self.config.get("general", {}).get("tpu", {})
         self._runner = SuperPointRunner(
-            model=load_default_model(),
+            model=self._load_model(),
             max_keypoints=int(self.conf["max_keypoints"]),
             nms_radius=int(self.conf["nms_radius"]),
             keypoint_threshold=float(self.conf["keypoint_threshold"]),
@@ -48,6 +48,12 @@ class SuperPointExtractor(ExtractorBase):
             device=resolve_device(tpu.get("device", "auto")),
         )
         self.device = self._runner.device
+
+    @staticmethod
+    def _load_model():
+        """The network's weights (``superpoint_v1.pth``); the open-license
+        extractor overrides this with its own checkpoints."""
+        return load_default_model()
 
     def extract_batch(self, images: List[Image], feature_path) -> None:
         if self.tile_selection is not TileSelection.NONE:

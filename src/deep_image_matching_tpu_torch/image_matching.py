@@ -6,10 +6,11 @@ generates pairs, extracts features into features.h5 and matches pairs into
 raw_matches.h5 / matches.h5, with verification and gating inside the
 matcher. With ``general.upright`` the images are rotated upright before
 extraction and the keypoints in features.h5 rotated back after matching
-(``upright.py``). This package carries the superpoint, aliked, sift, orb and
-no_extractor extractors and the lightglue, kornia_matcher, superglue and roma
-matchers; other presets are not ported yet (ROADMAP.md, queue 1) and fail at
-construction.
+(``upright.py``). This package carries the superpoint, superpoint_open,
+aliked, disk, xfeat, keynetaffnethardnet, sift, orb and no_extractor
+extractors and the lightglue, lighterglue, kornia_matcher, adalam, superglue
+and roma matchers; other presets are not ported yet (ROADMAP.md, queue 1)
+and fail at construction.
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ from .utils.timer import Timer
 
 logger = logging.getLogger("dim_tpu_torch")
 
-PORTED_EXTRACTORS = ("superpoint", "aliked", "sift", "orb", "no_extractor")
-PORTED_MATCHERS = ("lightglue", "kornia_matcher", "superglue", "roma")
+PORTED_EXTRACTORS = ("superpoint", "superpoint_open", "aliked", "disk", "xfeat",
+                     "keynetaffnethardnet", "sift", "orb", "no_extractor")
+PORTED_MATCHERS = ("lightglue", "lighterglue", "kornia_matcher", "adalam", "superglue", "roma")
 
 
 class ImageMatcher:

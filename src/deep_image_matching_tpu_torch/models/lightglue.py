@@ -15,8 +15,9 @@ capacity and validity masks, masked self and cross attention, and
 
 Attention, the FFN and the assignment go through the kernel wrappers of
 ``ops/`` (CUDA kernels on the GPU, their plain versions on the CPU). The FFN
-and assignment routes are the JAX package's: ``ffn_impl`` "fused" (kernel 2)
-or "xla" (its unfused arithmetic, ``ops/ffn.py::ffn_xla``), "auto" resolved
+and assignment routes are the JAX package's: ``ffn_impl`` "fused" (kernel 2,
+at widths that are multiples of 128) or "xla" (its unfused arithmetic,
+``ops/ffn.py::ffn_xla``, also taken by "fused" at other widths), "auto" resolved
 from ``attn_impl`` as there; ``assignment_impl`` "fused" (kernel 3) or
 "dense". A checkpoint deeper than the model gives its first ``n_layers``
 layers. The JAX package's two opt-ins are honoured:
@@ -280,13 +281,17 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn(x, msg, p, prefix, impl="fused", split=None):
-    """The FFN of block ``prefix``: kernel 2 for "fused" (any row count; on
-    CUDA it takes D = 256 and raises otherwise; ``split``: its weights' TF32
-    halves for the f32 form), ``ffn_xla`` for "xla"."""
+    """The FFN of block ``prefix``: kernel 2 for "fused" at widths that are
+    multiples of 128 (the JAX package's gate, but at any row count; on CUDA
+    the kernel takes D = 256; ``split``: its weights' TF32 halves for the f32
+    form); otherwise, or for "xla", the JAX package's unfused arithmetic
+    ``ffn_xla``, which LighterGlue's width 96 takes as there."""
     args = (x, msg, p[f"{prefix}.ffn.0.weight"], p[f"{prefix}.ffn.0.bias"],
             p[f"{prefix}.ffn.1.weight"], p[f"{prefix}.ffn.1.bias"],
             p[f"{prefix}.ffn.3.weight"], p[f"{prefix}.ffn.3.bias"])
-    return ffn_fused(*args, split=split) if impl == "fused" else ffn_xla(*args)
+    if impl == "fused" and x.shape[-1] % 128 == 0:
+        return ffn_fused(*args, split=split)
+    return ffn_xla(*args)
 
 
 def _lin(x, p, prefix):

@@ -193,13 +193,14 @@ def gem_pool(feats: torch.Tensor, p: float = 3.0) -> torch.Tensor:
     return _l2n(v)
 
 
-def resize_weights(in_size: int, out_size: int) -> np.ndarray:
+def resize_weights(in_size: int, out_size: int, antialias: bool = True) -> np.ndarray:
     """(in, out) f32 weights of ``jax.image.resize(..., "linear")`` along one
-    axis: a triangle kernel widened by the shrink factor (antialiasing),
-    normalised per output sample."""
+    axis: samples at (i + 0.5) in / out - 0.5, a triangle kernel (widened by
+    the shrink factor where ``antialias``, as by default in JAX), normalised
+    per output sample."""
     scale = out_size / in_size
     inv_scale = np.float32(1.0 / scale)
-    kernel_scale = np.maximum(inv_scale, np.float32(1.0))
+    kernel_scale = np.maximum(inv_scale, np.float32(1.0)) if antialias else np.float32(1.0)
     sample = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale \
         - np.float32(0.0) * inv_scale - np.float32(0.5)
     x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
@@ -211,10 +212,10 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
 
 
-def _resize(images: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def resize_linear(images: torch.Tensor, h: int, w: int, antialias: bool = True) -> torch.Tensor:
     """(B, C, H, W) -> (B, C, h, w) with ``resize_weights`` on both axes."""
-    wh = torch.from_numpy(resize_weights(images.shape[2], h)).to(images.device)
-    ww = torch.from_numpy(resize_weights(images.shape[3], w)).to(images.device)
+    wh = torch.from_numpy(resize_weights(images.shape[2], h, antialias)).to(images.device)
+    ww = torch.from_numpy(resize_weights(images.shape[3], w, antialias)).to(images.device)
     return torch.matmul(wh.t(), torch.matmul(images, ww))
 
 
@@ -223,10 +224,10 @@ def tiny_descriptor(images: torch.Tensor) -> torch.Tensor:
     16x16 contrast-normalised grey thumbnail and the 4x4 colour means, in the
     JAX package's (h, w, c) order, L2-normalised."""
     B = images.shape[0]
-    thumb = _resize(images.mean(dim=1, keepdim=True), 16, 16).reshape(B, -1)
+    thumb = resize_linear(images.mean(dim=1, keepdim=True), 16, 16).reshape(B, -1)
     mu = thumb.mean(dim=1, keepdim=True)
     sd = thumb.std(dim=1, keepdim=True, unbiased=False) + 1e-6
-    color = _resize(images, 4, 4).permute(0, 2, 3, 1).reshape(B, -1)
+    color = resize_linear(images, 4, 4).permute(0, 2, 3, 1).reshape(B, -1)
     return _l2n(torch.cat([(thumb - mu) / sd, color], dim=1))
 
 

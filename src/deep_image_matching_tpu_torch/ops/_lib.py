@@ -40,11 +40,13 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# the float32 forms of kernels 1, 2, 6 and 10 count apart from the bf16 ones
+# the float32 forms of kernels 1, 2, 6 and 10 count apart from the bf16 ones,
+# and kernel 1's head-dim-96 forms apart from its head-dim-64 ones
 LAUNCHES: Dict[str, int] = {
     "attention": 0, "ffn": 0, "assignment": 0, "nullspace": 0, "nn": 0,
     "sinkhorn": 0, "lse_rows": 0, "refiner": 0, "bidir_attention": 0, "qkv": 0,
     "attention_f32": 0, "ffn_f32": 0, "bidir_attention_f32": 0, "qkv_f32": 0,
+    "attention_hd96": 0, "attention_hd96_f32": 0,
 }
 
 _P = ctypes.c_void_p
@@ -67,6 +69,8 @@ _SIGNATURES = {
     "dim_bidir_attention_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _F, _P],
     "dim_qkv_rotary_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dim_attention_hd96_bf16": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "dim_attention_hd96_f32": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 # the dtypes of the kernels with a bf16 and a float32 form

@@ -1,8 +1,9 @@
 """Masked multi-head attention for the matching transformer (kernel 1).
 
 ``fused_attention`` launches the CUDA kernel of ``csrc/attention.cu`` for
-CUDA tensors (its bf16 form, or its float32 form in split TF32) and runs
-``attention_reference`` for CPU tensors. Layouts are
+CUDA tensors (its bf16 form, or its float32 form in split TF32; at head dim
+64 the ``wgmma`` core, at head dim 96, LighterGlue's, the ``mma.sync`` form
+``attention_mma``) and runs ``attention_reference`` for CPU tensors. Layouts are
 the JAX package's: (B, H, T, hd) heads, (B, T) bool padding masks.
 """
 
@@ -13,6 +14,10 @@ from typing import Optional
 import torch
 
 from . import _lib
+
+# the head dims of the CUDA kernel: 64 on the wgmma core, 96 (LighterGlue's one
+# head of width 96) on the mma.sync form
+HEAD_DIMS = (64, 96)
 
 
 def attention_reference(
@@ -46,14 +51,14 @@ def fused_attention(
     Rows of masked queries are undefined (the JAX package's flash route and
     its dense route disagree there too): compare valid rows only. On CUDA the
     kernel takes q, k and v all in bf16 or all in f32 (its split-TF32 form),
-    hd = 64, contiguous tensors and raises otherwise.
+    hd = 64 or 96, contiguous tensors and raises otherwise.
     """
     if not q.is_cuda:
         return attention_reference(q, k, v, kv_mask, sm_scale)
     B, H, Tq, hd = q.shape
     Tk = k.shape[2]
-    if hd != 64:
-        raise ValueError(f"attention kernel takes head dim 64, got {hd}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"attention kernel takes head dim 64 or 96, got {hd}")
     dt = _lib.kernel_dtype("attention", q, k, v)
     for name, t, shape in (("q", q, (B, H, Tq, hd)), ("k", k, (B, H, Tk, hd)),
                            ("v", v, (B, H, Tk, hd))):
@@ -64,6 +69,15 @@ def fused_attention(
     out = torch.empty_like(q)
     masks = (None if q_mask is None else q_mask.data_ptr(),
              None if kv_mask is None else kv_mask.data_ptr())
+    if hd == 96:
+        form = "bf16" if dt == torch.bfloat16 else "f32"
+        _lib.launch(
+            "attention_hd96" if dt == torch.bfloat16 else "attention_hd96_f32",
+            f"dim_attention_hd96_{form}", q.device.index, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), *masks, out.data_ptr(), B, H, Tq, Tk, float(sm_scale),
+            _lib.stream_of(q),
+        )
+        return out
     if dt == torch.bfloat16:
         _lib.launch(
             "attention", "dim_attention_bf16", q.device.index, q.data_ptr(),

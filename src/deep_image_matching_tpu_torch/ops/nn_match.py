@@ -61,3 +61,32 @@ def nn_match_auto(desc0, desc1, mask0, mask1, mode: str = "smnn", ratio_th: floa
     if desc0.is_cuda:
         return nn_match_fused(desc0, desc1, mask0, mask1, mode=mode, ratio_th=ratio_th)
     return nn_match_batch(desc0, desc1, mask0, mask1, mode=mode, ratio_th=ratio_th)
+
+
+def nn_match_with_ratios(desc0, desc1, mask0, mask1, mode: str = "smnn",
+                         ratio_th: float = 0.95):
+    """``nn_match_batch`` plus the Lowe ratios and the mutual mask, which
+    AdaLAM takes as seed scores and for seed selection: (B, N0, D) x
+    (B, N1, D) -> matches0 (B, N0) int32, valid, ratios (B, N0) (1 where a
+    row has no second neighbour), mutual (B, N0). The JAX package's version
+    is dense XLA, so this is plain tensor arithmetic on every device."""
+    check_mode(mode)
+    mask0, mask1 = mask0.bool(), mask1.bool()
+    dist = _dist_matrix(desc0, desc1, mask0, mask1)
+    nn1_idx = dist.argmin(dim=2)
+    nn1_val = torch.gather(dist, 2, nn1_idx[..., None])[..., 0]
+    cols = torch.arange(dist.shape[2], device=dist.device)
+    nn2_val = torch.where(cols[None, None, :] == nn1_idx[..., None],
+                          dist.new_tensor(_INF), dist).amin(2)
+    valid = mask0 & torch.isfinite(nn1_val)
+    ratio = torch.sqrt(nn1_val) / torch.sqrt(torch.clamp(nn2_val, min=1e-12))
+    ratio = torch.where(torch.isfinite(nn2_val), ratio, ratio.new_tensor(1.0))
+    back = dist.argmin(dim=1)
+    rows = torch.arange(dist.shape[1], device=dist.device)[None]
+    mutual = valid & (torch.gather(back, 1, nn1_idx) == rows)
+    if mode in ("snn", "smnn"):
+        valid = valid & (ratio <= ratio_th)
+    if mode in ("mnn", "smnn"):
+        valid = valid & mutual
+    matches0 = torch.where(valid, nn1_idx, nn1_idx.new_tensor(-1)).int()
+    return matches0, valid, ratio, mutual

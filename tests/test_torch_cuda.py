@@ -125,6 +125,65 @@ def test_attention_kernel_matches_plain(cuda, nan_shared, dtype, case):
         assert bool((got[2] == 0).all())
 
 
+# head dim 96, LighterGlue's one head: (B, H, Tq, Tk, masks), ragged against
+# the 64-row blocks and the 64- (bf16) / 32-key (f32) tiles
+ATTENTION_HD96_CASES = {
+    "ragged": (2, 1, 300, 131, "prefix"),
+    "short": (2, 1, 40, 200, "prefix"),
+    "lighterglue": (2, 1, 1024, 1024, "prefix"),
+    "middle_tile": (3, 2, 300, 520, "middle"),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTENTION_HD96_CASES))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_attention_hd96_kernel_matches_plain(cuda, nan_shared, dtype, case):
+    """Kernel 1's head-dim-96 forms (``attention_mma``) against the plain
+    version on valid query rows: partial masks, a batch element whose keys
+    are all masked (the uniform average) and one whose queries are all
+    masked (zeros); NaN left in shared memory before each, so that padding
+    the kernel never writes would show."""
+    B, H, N, M, masks = ATTENTION_HD96_CASES[case]
+    gen = torch.Generator().manual_seed(3)
+    dt = DTYPES[dtype]
+    q, k, v = (torch.randn(B, H, n, 96, generator=gen).mul(s).to(cuda, dt)
+               for n, s in ((N, 2.0), (M, 2.0), (M, 1.0)))
+    qm = _prefix_masks(gen, B, N, 10).to(cuda)
+    if masks == "prefix":
+        km = _prefix_masks(gen, B, M, 10).to(cuda)
+        km[1] = False
+    else:
+        km = _middle_tile_masks(gen, B, M, cuda)
+        qm[2, :] = False
+    counter = "attention_hd96" if dtype == "bf16" else "attention_hd96_f32"
+    nan_shared()
+    before = _lib.LAUNCHES[counter]
+    scale = 96 ** -0.5
+    got = tattn.fused_attention(q, k, v, qm, km, scale)
+    assert _lib.LAUNCHES[counter] == before + 1
+    ref = tattn.attention_reference(q, k, v, km, scale)
+    assert got.dtype == dt and got.shape == q.shape
+    if dtype == "bf16":
+        assert _within_two_ulps(got, ref, qm)
+    else:
+        assert _within_f32(got, ref, F32_ATTENTION_TOL, qm)
+    if masks == "prefix":
+        mean = v[1].float().mean(1, keepdim=True).expand(H, N, 96)
+        if dtype == "bf16":
+            assert _within_two_ulps(got[1:2], mean[None].to(torch.bfloat16), qm[1:2])
+        else:
+            assert _within_f32(got[1:2], mean[None], F32_ATTENTION_TOL, qm[1:2])
+    else:
+        assert bool((got[2] == 0).all())
+
+
+def test_attention_refuses_other_head_dims(cuda):
+    for d in (32, 80, 128):
+        q = torch.zeros(1, 1, 16, d, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim 64 or 96"):
+            tattn.fused_attention(q, q, q, None, None, 0.1)
+
+
 # (B, K): fewer rows than one 64-row tile, a ragged last tile (231 rows),
 # and SuperGlue's 16 x 4096 rows
 FFN_CASES = {"short": (1, 40), "ragged": (3, 77), "superglue": (16, 4096)}
@@ -170,14 +229,18 @@ ASSIGNMENT_CASES = {
     "middle_tile": (3, 300, 520, "middle"),
     "masked_side": (2, 256, 300, "side"),
     "aliked": (2, 4096, 4096, "prefix"),
+    "width96_ragged": (2, 300, 131, "prefix"),
+    "lighterglue": (2, 4096, 4096, "prefix"),
 }
+# LighterGlue's assignment runs at width 96; the others at LightGlue's 256
+ASSIGNMENT_WIDTHS = {"width96_ragged": 96, "lighterglue": 96}
 
 
 @pytest.mark.parametrize("case", list(ASSIGNMENT_CASES))
 def test_assignment_kernel_matches_plain(cuda, case):
     gen = torch.Generator().manual_seed(6)
     B, M, N, masks = ASSIGNMENT_CASES[case]
-    D = 256
+    D = ASSIGNMENT_WIDTHS.get(case, 256)
     md0 = (torch.randn(B, M, D, generator=gen) / 4).to(cuda)
     md1 = (torch.randn(B, N, D, generator=gen) / 4).to(cuda)
     md1[:, :100] = md0[:, :100] + 0.01 * torch.randn(B, 100, D, generator=gen).to(cuda)

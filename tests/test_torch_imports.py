@@ -29,7 +29,8 @@ print(" ".join(names))
 # the modules of the ported slices (SuperPoint + LightGlue, then nearest
 # neighbours, SuperGlue, SIFT and ORB, then RoMa, then ALIKED and LightGlue's
 # two opt-in kernels, then reconstruction, then tiling, then retrieval,
-# upright, the exports and the host tools)
+# upright, the exports and the host tools, then DISK, XFeat + LighterGlue,
+# open SuperPoint, KeyNet + AffNet + HardNet and AdaLAM)
 SLICE_MODULES = (
     "models.superpoint", "models.lightglue", "ops.attention", "ops.ffn", "ops.assignment",
     "ops.nullspace", "ops.ransac",
@@ -45,6 +46,9 @@ SLICE_MODULES = (
     "models.retrieval", "image_retrieval", "io.h5_to_bundler", "io.h5_to_micmac",
     "io.micmac_to_h5", "io.h5_to_metashape", "io.h5_to_openmvg", "openmvg", "graph",
     "visualization", "gui", "utils.profiler",
+    "extractors.superpoint_open", "models.disk", "extractors.disk", "models.xfeat",
+    "extractors.xfeat", "matchers.lighterglue", "models.keynet", "models.affnet",
+    "models.hardnet", "extractors.keynetaffnethardnet", "ops.adalam", "matchers.adalam",
 )
 
 
@@ -118,7 +122,7 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path):
     sfm = json.loads((project / "sfm_data.json").read_text())
     assert len(sfm["views"]) == 3 and (project / "matches.f.bin").is_file()
     assert len(list(project.glob("*.feat"))) == 3
-    for pipeline in ("disk+lightglue", "loftr", "se2loftr", "srif"):
+    for pipeline in ("dedode+kornia_matcher", "loftr", "se2loftr", "srif"):
         with pytest.raises(NotImplementedError, match="ported"):
             run_matching({**args, "pipeline": pipeline, "skip_reconstruction": True})
     assert resolve_device("cpu") == torch.device("cpu")
