@@ -8,9 +8,9 @@ Phases, each printing its own lines:
    compiled for sm_90a (one nvcc per source, all started together), with
    ptxas' register and spill report, and the count of HGMMA instructions in
    the SASS of the two attention kernels, the FFN, the assignment and the
-   QKV prologue (each of the four in its bf16 and its float32 form), and of
-   HMMA (``mma.sync``) in the refiner's and in kernel 1's head-dim-96 forms
-   (``cuobjdump -sass``; none fails);
+   QKV prologue (each of the four in its bf16 and its float32 form, and
+   kernel 1 also at head dim 96 in both), and of HMMA (``mma.sync``) in the
+   refiner's (``cuobjdump -sass``; none fails);
 3. each kernel against its plain PyTorch version on the card, at the
    main-path shapes (partial masks, degenerate hypotheses, integer
    descriptors with ties), with its tolerance and both times (CUDA events
@@ -27,9 +27,9 @@ Phases, each printing its own lines:
    row logsumexp, RoMa's refiner stack (both passes' shapes), LightGlue's
    bidirectional cross attention (LightGlue's and ALIKED's lengths) and its
    fused QKV + rotary prologue (both modes, beside the path's own unfused
-   prologue on the same inputs), kernel 1's head-dim-96 forms
-   (``attention_mma``, bf16 and split TF32) at LighterGlue's (16, 1, 4096,
-   96) with partial masks; then the float32 forms (split TF32) of
+   prologue on the same inputs), kernel 1's head-dim-96 forms (the
+   ``wgmma`` / TMA cores at D = 96, bf16 and split TF32) at LighterGlue's
+   (16, 1, 4096, 96) with partial masks; then the float32 forms (split TF32) of
    attention (LightGlue's and SuperGlue's shapes), the FFN (both modes),
    the bidirectional attention (2048 and 4096) and the QKV prologue (both
    modes), each against its plain version in f32 with its tolerance relative
@@ -203,8 +203,8 @@ KERNELS = {
                             "src/deep_image_matching_tpu/ops/pallas_bidir_attention.py:151"),
     "qkv_f32": ("src/deep_image_matching_tpu_torch/csrc/qkv.cu",
                 "src/deep_image_matching_tpu/ops/pallas_qkv.py:115"),
-    # kernel 1 at LighterGlue's head dim 96 (attention_mma, mma.sync), in
-    # bf16 and in split TF32
+    # kernel 1 at LighterGlue's head dim 96 (the wgmma / TMA cores at
+    # D = 96), in bf16 and in split TF32
     "attention_hd96": ("src/deep_image_matching_tpu_torch/csrc/attention.cu",
                        "src/deep_image_matching_tpu/ops/attention.py:96"),
     "attention_hd96_f32": ("src/deep_image_matching_tpu_torch/csrc/attention.cu",
@@ -390,9 +390,8 @@ MMA_KERNELS = {"attention": ("attention_sm90", "HGMMA"),
                "attention_f32": ("attention_f32_sm90", "HGMMA"),
                "bidir_attention_f32": ("bidir_attention_f32_sm90", "HGMMA"),
                "ffn_f32": ("ffn_f32_sm90", "HGMMA"), "qkv_f32": ("qkv_f32_sm90", "HGMMA"),
-               # the head-dim-96 forms' template instantiations (bf16 bits, f32)
-               "attention_hd96": ("attention_mmaItLi96", "HMMA"),
-               "attention_hd96_f32": ("attention_mmaIfLi96", "HMMA")}
+               "attention_hd96": ("attention_hd96_sm90", "HGMMA"),
+               "attention_hd96_f32": ("attention_hd96_f32_sm90", "HGMMA")}
 
 
 def _ptxas(name: str) -> dict:
@@ -1128,14 +1127,20 @@ def check_attention_hd96(torch, dev, card):
                for s in (2.0, 2.0, 1.0))
     qm, km = _masks(torch, gen, B, N, dev), _masks(torch, gen, B, N, dev)
     err, tol, main = _attention_case(torch, fused_attention, attention_reference, q, k, v, qm, km)
+    ptxas = _ptxas("19attention_hd96_sm90")
+    spills = sum(i.get("spill_store_bytes", 0) + i.get("spill_load_bytes", 0)
+                 for i in ptxas.values())
+    if not ptxas or spills:
+        _fail(f"attention_hd96: ptxas reports {spills} bytes of spills (or no entry): {ptxas}")
     what = ("valid query rows, 2 bf16 ulps elementwise; LighterGlue's (16, 1, 4096, 96), the "
-            "mma.sync form")
-    return err, tol, what, {**main, "shape": [B, H, N, d], "ptxas": _ptxas("attention_mmaItLi96")}
+            "wgmma / TMA core at D = 96: 192 rows a block, 64-key tiles of three 64-byte "
+            "swizzled boxes, P V one m64n96k16 a k-step")
+    return err, tol, what, {**main, "shape": [B, H, N, d], "ptxas": ptxas}
 
 
 def check_attention_hd96_f32(torch, dev, card):
-    """The same in float32 (split TF32 on mma.sync), held as kernel 1's
-    float32 form is held."""
+    """The same in float32 (the split-TF32 wgmma core at D = 96), held as
+    kernel 1's float32 form is held."""
     from deep_image_matching_tpu_torch.ops.attention import (
         attention_reference, fused_attention)
 
@@ -1160,8 +1165,9 @@ def check_attention_hd96_f32(torch, dev, card):
              "library_note": "scaled_dot_product_attention in f32 with the same key mask",
              "bound_note": "three TF32 products of the valid pairs at 495 TFLOP/s, or the f32 "
                            "bytes",
-             "shape": [B, H, N, d], "ptxas": _ptxas("attention_mmaIfLi96")}
-    what = "|err| / max|out| over valid rows; LighterGlue's (16, 1, 4096, 96) in f32"
+             "shape": [B, H, N, d], "ptxas": _ptxas("23attention_hd96_f32_sm90")}
+    what = ("|err| / max|out| over valid rows; LighterGlue's (16, 1, 4096, 96) in f32, the "
+            "split-TF32 wgmma core at D = 96: 128 rows a block, 32-key stages")
     return err, F32_ATTENTION_TOL, what, extra
 
 

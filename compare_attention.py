@@ -12,10 +12,16 @@ package first on the path: the inputs, tolerances and timings of that
 checkout's kernel phase (runs of back-to-back calls), the same in both unless
 a check changed its inputs with its path. Prints one JSON line per run with
 every time the check reports (its keys ending in ``ms``), then the mean of
-each checkout's two runs as the last line. Each run also writes kernel 1's
-outputs at head dim 64 (bf16 and f32, three shapes, partial masks, from one
-seed) under ``build/compare_attention/``, and a line before the last says
-whether the two checkouts' outputs are equal bit for bit.
+each checkout's two runs as the last line. Each run also writes, from one
+seed with partial masks, the head-dim-64 outputs of kernel 1 (three shapes)
+and of kernel 6 (two shapes), both in bf16 and f32, and kernel 1's
+head-dim-96 outputs (two shapes, bf16 and f32) under
+``build/compare_attention/``. Lines before the last say whether the two
+checkouts' head-dim-64 outputs are equal bit for bit (kernels 1 and 6 share
+the attention cores, so a change to a core shows there), and the largest
+difference of their head-dim-96 outputs over valid rows, absolute in bf16
+and relative to max|out| in f32 (those are not expected to be bit-equal
+across a change of the head-dim-96 kernel).
 """
 
 from __future__ import annotations
@@ -31,8 +37,12 @@ DEFAULT = ("attention", "bidir_attention")
 
 
 OUT = ROOT / "build" / "compare_attention"
-# (B, H, Nq, Nk): LightGlue's, DINOv2's and a ragged one
+# kernel 1, (B, H, Nq, Nk): LightGlue's, DINOv2's and a ragged one
 OUTPUT_SHAPES = ((16, 4, 2048, 2048), (2, 16, 1601, 1601), (3, 4, 300, 131))
+# kernel 6, (B, H, M, N): LightGlue's and a ragged one
+BIDIR_SHAPES = ((16, 4, 2048, 2048), (3, 4, 300, 131))
+# kernel 1 at head dim 96, (B, H, Nq, Nk): LighterGlue's and a ragged one
+HD96_SHAPES = ((16, 1, 4096, 4096), (3, 1, 300, 131))
 
 
 def _out_path(src: str) -> Path:
@@ -40,20 +50,46 @@ def _out_path(src: str) -> Path:
 
 
 def attention_outputs(torch, path: Path) -> None:
-    """Kernel 1's head-dim-64 outputs on seeded inputs with partial masks,
-    both forms, saved to ``path``."""
+    """Kernels 1 and 6 on seeded inputs with partial masks, both forms, at
+    head dim 64 (and kernel 1 at 96), saved to ``path`` as
+    {case: (output, valid query rows (B, Nq))}."""
     from deep_image_matching_tpu_torch.ops.attention import fused_attention
+    from deep_image_matching_tpu_torch.ops.bidir_attention import bidir_cross_attention
 
     gen = torch.Generator().manual_seed(5)
+
+    def masks(B, *ns):
+        return [(torch.arange(n)[None] < torch.randint(n // 2, n + 1, (B,), generator=gen)
+                 [:, None]).cuda() for n in ns]
+
     out = {}
     for dt in (torch.bfloat16, torch.float32):
-        for B, H, N, M in OUTPUT_SHAPES:
-            q, k, v = (torch.randn(B, H, n, 64, generator=gen).to("cuda", dt) for n in (N, M, M))
-            qm, km = ((torch.arange(n)[None] < torch.randint(n // 2, n + 1, (B,), generator=gen)
-                       [:, None]).cuda() for n in (N, M))
-            out[f"{dt} {B} {H} {N} {M}"] = fused_attention(q, k, v, qm, km, 0.125).cpu()
+        for d, shapes in ((64, OUTPUT_SHAPES), (96, HD96_SHAPES)):
+            for B, H, N, M in shapes:
+                q, k, v = (torch.randn(B, H, n, d, generator=gen).to("cuda", dt)
+                           for n in (N, M, M))
+                qm, km = masks(B, N, M)
+                key = f"{dt} {B} {H} {N} {M}" + (" hd96" if d == 96 else "")
+                out[key] = (fused_attention(q, k, v, qm, km, d ** -0.5).cpu(), qm.cpu())
+        for B, H, M, N in BIDIR_SHAPES:
+            qk0, v0 = (torch.randn(B, H, M, 64, generator=gen).to("cuda", dt) for _ in range(2))
+            qk1, v1 = (torch.randn(B, H, N, 64, generator=gen).to("cuda", dt) for _ in range(2))
+            m0, m1 = masks(B, M, N)
+            o0, o1 = bidir_cross_attention(qk0, qk1, v0, v1, m0, m1)
+            out[f"{dt} bidir {B} {H} {M} {N}"] = (torch.cat([o0.flatten(), o1.flatten()]).cpu(),
+                                                 None)
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(out, path)
+
+
+def _hd96_difference(torch, a, b):
+    """The largest difference of two head-dim-96 outputs over valid rows:
+    absolute in bf16, relative to max|out| in f32."""
+    (x, rows), (y, _) = a, b
+    rows = rows[:, None, :, None].expand_as(x)
+    x, y = x.float()[rows], y.float()[rows]
+    diff = (x - y).abs().max().item()
+    return diff if a[0].dtype == torch.bfloat16 else diff / x.abs().max().item()
 
 
 def measure(src: str, names: list) -> dict:
@@ -98,9 +134,15 @@ def main() -> None:
     import torch
 
     a, b = (torch.load(_out_path(str(r / "src"))) for r in (other, ROOT))
-    same = all(torch.equal(a[k], b[k]) for k in a)
-    print(f"kernel 1 at head dim 64, bf16 and f32, {len(a)} cases: the two checkouts' outputs "
-          f"{'are equal bit for bit' if same else 'DIFFER'}", flush=True)
+    d64 = [k for k in a if not k.endswith("hd96")]
+    same = all(torch.equal(a[k][0], b[k][0]) for k in d64)
+    print(f"kernels 1 and 6 at head dim 64, bf16 and f32, {len(d64)} cases: the two checkouts' "
+          f"outputs {'are equal bit for bit' if same else 'DIFFER'}", flush=True)
+    for k in a:
+        if k.endswith("hd96"):
+            print(f"kernel 1 at head dim 96, {k}: largest difference of the two checkouts over "
+                  f"valid rows {_hd96_difference(torch, a[k], b[k]):.3e} "
+                  f"({'absolute' if 'bfloat16' in k else 'relative to max|out|'})", flush=True)
     # the mean of each checkout's two runs
     summary = {who: {name: {k: sum(r[name][k] for r in rs) / len(rs) for k in rs[0][name]}
                      for name in names} for who, rs in runs.items()}

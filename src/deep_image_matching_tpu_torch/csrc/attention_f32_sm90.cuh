@@ -1,9 +1,12 @@
 // The float32 form of the Hopper attention core, shared by kernel 1
-// (attention.cu, dim_attention_f32) and kernel 6 (bidir_attention.cu,
-// dim_bidir_attention_f32): one block computes 128 query rows of
-// softmax(Q K^T) V over every key tile of one (batch, head), with an online
-// softmax, and every product in split TF32 on the tensor cores, so the
-// result keeps f32-level accuracy where one TF32 product would not.
+// (attention.cu: dim_attention_f32 at head dim 64, dim_attention_hd96_f32 at
+// 96) and kernel 6 (bidir_attention.cu, dim_bidir_attention_f32): one block
+// computes 128 query rows of softmax(Q K^T) V over every key tile of one
+// (batch, head), with an online softmax, and every product in split TF32 on
+// the tensor cores, so the result keeps f32-level accuracy where one TF32
+// product would not. The core is a template on the head dim D (64 or 96);
+// the two differ only in the key tile (Geo<D>) and the number of 32-float
+// column boxes a row takes.
 //
 // What bounds it on the H100: tensor-core issue. Split TF32 is three TF32
 // products per multiply-add, and TF32 runs at half the bf16 rate, so a call
@@ -23,15 +26,18 @@
 //   operations either way).
 // - Block of three warpgroups: two consume (64 query rows each), one warp of
 //   the third produces. The producer loads the Q tile once (hi and lo) and
-//   keeps a ring of two stages in flight, each a 64-key tile of K and V^T in
-//   hi and lo (64 KB), by TMA: 3-D maps with 128-byte swizzle, whose box is
-//   32 floats wide, so a 64-float row takes two boxes; rows and keys past the
-//   end read as zeros.
-// - S = Q K^T is wgmma m64n64k8 with both operands in shared memory, as
+//   keeps a ring of two stages in flight, each a tile of BK keys of K and V^T
+//   in hi and lo, by TMA: 3-D maps with 128-byte swizzle, whose box is 32
+//   floats wide, so a row of D floats takes D / 32 boxes; rows and keys past
+//   the end read as zeros. D = 64: 64-key stages of 64 KB beside a 64 KB Q
+//   tile. D = 96: the Q tile is 96 KB in hi and lo, and a 64-key stage would
+//   be 96 KB, so two of them and Q exceed the 227 KB a block can have; the
+//   stages are 32 keys (48 KB) instead, and S is m64n32k8.
+// - S = Q K^T is wgmma m64nBKk8 with both operands in shared memory, as
 //   Qlo.Khi + Qhi.Klo + Qhi.Khi per 8-deep step. P stays in registers: the
 //   accumulator gives each thread keys 2c, 2c + 1 of each group of 8, which
 //   the A fragment of a k8 product takes as its k and k + 4, so P's halves
-//   go to O += P V (m64n64k8, A in registers) unpermuted, against V^T in the
+//   go to O += P V (m64nDk8, A in registers) unpermuted, against V^T in the
 //   permuted key order. The products run one after the other (S, softmax,
 //   PV): no overlap of the softmax with the tensor cores.
 // - Masks, the skip of all-masked key tiles, all-masked query tiles written
@@ -49,37 +55,57 @@
 
 namespace attn_f32 {
 
-constexpr int D = 64;          // head dim: two 32-float halves of 128 bytes
 constexpr int BQ = 128;        // query rows per block, 64 per consumer warpgroup
-constexpr int BK = 64;         // keys per tile
 constexpr int STAGES = 2;      // (K, V^T) tiles in flight
 constexpr int CONSUMERS = 256;
 constexpr int THREADS = CONSUMERS + 128;  // warpgroups 0-1 consume, warpgroup 2 produces
-constexpr int BOX = 64 * 128;  // one TMA box: 64 rows of one 32-float half, 8 KB
+constexpr int QBOX = 64 * 128; // one Q box: 64 rows of one 32-float column block, 8 KB
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// shared memory from a 1024-byte aligned base. Q: box (row half w, d half
-// h) at 2 w + h, hi then lo. A stage: K hi (2 d halves), K lo, V^T hi (2 key
-// halves), V^T lo. Stage info: 1 all keys valid, 0 not, -1 the end marker.
-constexpr int OFF_QHI = 0;
-constexpr int OFF_QLO = 4 * BOX;
-constexpr int Q_BYTES = 8 * BOX;
-constexpr int S_KHI = 0, S_KLO = 2 * BOX, S_VHI = 4 * BOX, S_VLO = 6 * BOX;
-constexpr int STAGE_BYTES = 8 * BOX;
-constexpr int OFF_STAGE = Q_BYTES;
-constexpr int OFF_BIAS = OFF_STAGE + STAGES * STAGE_BYTES;  // float [STAGES][BK]
-constexpr int OFF_INFO = OFF_BIAS + STAGES * BK * 4;        // int [STAGES]
-constexpr int OFF_BAR = OFF_INFO + 16 * STAGES;             // u64: q, full[STAGES], empty[STAGES]
-constexpr int SMEM_BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+// keys per tile at head dim D
+template <int D>
+struct Geo;
+template <>
+struct Geo<64> {
+  static constexpr int BK = 64;
+};
+template <>
+struct Geo<96> {
+  static constexpr int BK = 32;
+};
+
+// shared memory from a 1024-byte aligned base. Q: box (row half w, column
+// block h) at NDB w + h, hi then lo. A stage: K hi (NDB column blocks of BK
+// rows), K lo, V^T hi (NKB key blocks of D rows), V^T lo. Stage info: 1 all
+// keys valid, 0 not, -1 the end marker.
+template <int D>
+struct Smem {
+  static constexpr int BK = Geo<D>::BK;
+  static constexpr int NDB = D / 32;     // 32-float column blocks of a Q or K row
+  static constexpr int NKB = BK / 32;    // 32-key blocks of a V^T row
+  static constexpr int KBOX = BK * 128;  // one K box
+  static constexpr int VBOX = D * 128;   // one V^T box
+  static constexpr int OFF_QHI = 0;
+  static constexpr int OFF_QLO = 2 * NDB * QBOX;
+  static constexpr int Q_BYTES = 4 * NDB * QBOX;
+  static constexpr int S_KHI = 0, S_KLO = NDB * KBOX, S_VHI = 2 * NDB * KBOX;
+  static constexpr int S_VLO = S_VHI + NKB * VBOX;
+  static constexpr int STAGE_BYTES = S_VLO + NKB * VBOX;
+  static constexpr int OFF_STAGE = Q_BYTES;
+  static constexpr int OFF_BIAS = OFF_STAGE + STAGES * STAGE_BYTES;  // float [STAGES][BK]
+  static constexpr int OFF_INFO = OFF_BIAS + STAGES * BK * 4;        // int [STAGES]
+  static constexpr int OFF_BAR = OFF_INFO + 16 * STAGES;  // u64: q, full[STAGES], empty[STAGES]
+  static constexpr int SMEM_BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+};
 
 struct Job {
-  const CUtensorMap *qhi, *qlo;  // (64, Nq, B*H) f32: the split Q
-  const CUtensorMap *khi, *klo;  // (64, Nk, B*H) f32: the split K
-  const CUtensorMap *vhi, *vlo;  // (Nkp, 64, B*H) f32: the split, transposed V
+  const CUtensorMap *qhi, *qlo;  // (D, Nq, B*H) f32: the split Q
+  const CUtensorMap *khi, *klo;  // (D, Nk, B*H) f32: the split K
+  const CUtensorMap *vhi, *vlo;  // (Nkp, D, B*H) f32: the split, transposed V
   const uint8_t* qmask;          // (Nq) of this batch element, or null
   const uint8_t* kmask;          // (Nk) of this batch element, or null
-  float* out;                    // (Nq, 64) of this (batch, head)
+  float* out;                    // (Nq, D) of this (batch, head)
   int bh, q0, Nq, Nk;
   float scale_log2;
 };
@@ -103,22 +129,22 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// the maximum (sum) of row r's 16 values s[4 j + 2 r + {0, 1}]
-template <int R>
-__device__ __forceinline__ float row_max(const float (&s)[32]) {
+// the maximum (sum) of row r's N / 2 values s[4 j + 2 r + {0, 1}]
+template <int R, int N>
+__device__ __forceinline__ float row_max(const float (&s)[N]) {
   float a = fmaxf(s[2 * R], s[2 * R + 1]), b = fmaxf(s[4 + 2 * R], s[5 + 2 * R]);
 #pragma unroll
-  for (int j = 2; j < 8; j += 2) {
+  for (int j = 2; j < N / 4; j += 2) {
     a = fmaxf(a, fmaxf(s[4 * j + 2 * R], s[4 * j + 2 * R + 1]));
     b = fmaxf(b, fmaxf(s[4 * j + 4 + 2 * R], s[4 * j + 5 + 2 * R]));
   }
   return fmaxf(a, b);
 }
-template <int R>
-__device__ __forceinline__ float row_sum(const float (&s)[32]) {
+template <int R, int N>
+__device__ __forceinline__ float row_sum(const float (&s)[N]) {
   float a = s[2 * R] + s[2 * R + 1], b = s[4 + 2 * R] + s[5 + 2 * R];
 #pragma unroll
-  for (int j = 2; j < 8; j += 2) {
+  for (int j = 2; j < N / 4; j += 2) {
     a += s[4 * j + 2 * R] + s[4 * j + 2 * R + 1];
     b += s[4 * j + 4 + 2 * R] + s[4 * j + 5 + 2 * R];
   }
@@ -139,22 +165,22 @@ __device__ __forceinline__ void update_max(const float (&mx)[2], float (&m)[2],
   }
 }
 
-// Online softmax of one 64-key tile on the accumulator fragments: s[4 j + e]
-// is row r + 8 (e / 2), key 8 j + c + (e % 2) of the tile. ROWB adds kernel
-// 6's row biases qb. Without them a tile whose keys are all valid takes the
-// short form, as in the bf16 core.
-template <bool ROWB>
-__device__ __forceinline__ void softmax_tile(float (&s)[32], const float* bias, bool all_valid,
+// Online softmax of one tile of N / 2 keys on the accumulator fragments:
+// s[4 j + e] is row r + 8 (e / 2), key 8 j + c + (e % 2) of the tile. ROWB
+// adds kernel 6's row biases qb. Without them a tile whose keys are all
+// valid takes the short form, as in the bf16 core.
+template <bool ROWB, int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], const float* bias, bool all_valid,
                                              int c, const float (&qb)[2], float C,
                                              float (&m)[2], float (&l)[2], float (&corr)[2]) {
   if (!ROWB && all_valid) {
     update_max({row_max<0>(s) * C, row_max<1>(s) * C}, m, corr);
     const float negm[2] = {-m[0], -m[1]};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], C, negm[(i >> 1) & 1]));
+    for (int i = 0; i < N; ++i) s[i] = ex2(fmaf(s[i], C, negm[(i >> 1) & 1]));
   } else {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < N / 4; ++j) {
       const float2 kb = *reinterpret_cast<const float2*>(bias + 8 * j + c);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -165,10 +191,25 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], const float* bias, 
     }
     update_max({row_max<0>(s), row_max<1>(s)}, m, corr);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+    for (int i = 0; i < N; ++i) s[i] = ex2(s[i] - m[(i >> 1) & 1]);
   }
   l[0] = l[0] * corr[0] + row_sum<0>(s);
   l[1] = l[1] * corr[1] + row_sum<1>(s);
+}
+
+// the split-TF32 products by accumulator width: S (64 x BK) from shared
+// memory, O (64 x D) with A in registers
+__device__ __forceinline__ void mma_s(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  sm90::wgmma_tf32_n64(d, da, db, acc);
+}
+__device__ __forceinline__ void mma_s(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  sm90::wgmma_tf32_n32(d, da, db, acc);
+}
+__device__ __forceinline__ void mma_o(float (&d)[32], const uint32_t* a, uint64_t db) {
+  sm90::wgmma_tf32_n64_rs(d, a, db, 1);
+}
+__device__ __forceinline__ void mma_o(float (&d)[48], const uint32_t* a, uint64_t db) {
+  sm90::wgmma_tf32_n96_rs(d, a, db, 1);
 }
 
 // Block order as the bf16 core's: the full row tiles of every (batch, head)
@@ -186,24 +227,26 @@ __device__ __forceinline__ void block_tile(int L, int BH, int n, int& bh, int& x
 
 // The tile loop of one consumer warpgroup over its 64 rows (the thread's
 // rows r_loc and r_loc + 8, keys 8 j + c and 8 j + c + 1 of each tile).
-template <bool BIDIR>
+template <int D, bool BIDIR>
 __device__ __forceinline__ void consume(const Job& sjob, uint32_t base, const float* sbias,
                                         const int* sinfo, int wg, int r_loc, int c,
                                         const float (&qb)[2]) {
-  const uint32_t bar_q = base + OFF_BAR;
+  using L = Smem<D>;
+  constexpr int BK = L::BK;
+  const uint32_t bar_q = base + L::OFF_BAR;
   const uint32_t bar_full = bar_q + 8;               // + 8 * stage
   const uint32_t bar_empty = bar_full + 8 * STAGES;  // + 8 * stage
   const float C = sjob.scale_log2;
   float m[2] = {BIDIR ? NEG : -INFINITY, BIDIR ? NEG : -INFINITY};
   float l[2] = {0.f, 0.f};  // per-thread partial row sums
-  float o[32];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  uint64_t dqh[2], dql[2];
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  uint64_t dqh[L::NDB], dql[L::NDB];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    dqh[h] = sw128_desc(base + OFF_QHI + (2 * wg + h) * BOX, 1);
-    dql[h] = sw128_desc(base + OFF_QLO + (2 * wg + h) * BOX, 1);
+  for (int h = 0; h < L::NDB; ++h) {
+    dqh[h] = sw128_desc(base + L::OFF_QHI + (L::NDB * wg + h) * QBOX, 1);
+    dql[h] = sw128_desc(base + L::OFF_QLO + (L::NDB * wg + h) * QBOX, 1);
   }
   mbar_wait(bar_q, 0);
   int stage = 0;
@@ -212,19 +255,19 @@ __device__ __forceinline__ void consume(const Job& sjob, uint32_t base, const fl
     mbar_wait(bar_full + 8 * stage, phase);
     const int info = *reinterpret_cast<const volatile int*>(sinfo + stage);
     if (info < 0) break;
-    const uint32_t st = base + OFF_STAGE + stage * STAGE_BYTES;
-    // S = Q K^T: 8 steps of 8 along d, 32 bytes each within a 128-byte row
-    float s[32];
+    const uint32_t st = base + L::OFF_STAGE + stage * L::STAGE_BYTES;
+    // S = Q K^T: D / 8 steps of 8 along d, 32 bytes each within a 128-byte row
+    float s[BK / 2];
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) {
       const int h = kk >> 2;
       const uint32_t off = 2 * (kk & 3);
-      const uint64_t dkh = sw128_desc(st + S_KHI + h * BOX, 1) + off;
-      const uint64_t dkl = sw128_desc(st + S_KLO + h * BOX, 1) + off;
-      sm90::wgmma_tf32_n64(s, dql[h] + off, dkh, kk);
-      sm90::wgmma_tf32_n64(s, dqh[h] + off, dkl, 1);
-      sm90::wgmma_tf32_n64(s, dqh[h] + off, dkh, 1);
+      const uint64_t dkh = sw128_desc(st + L::S_KHI + h * L::KBOX, 1) + off;
+      const uint64_t dkl = sw128_desc(st + L::S_KLO + h * L::KBOX, 1) + off;
+      mma_s(s, dql[h] + off, dkh, kk);
+      mma_s(s, dqh[h] + off, dkl, 1);
+      mma_s(s, dqh[h] + off, dkh, 1);
     }
     wg_commit();
     wg_wait<0>();
@@ -232,12 +275,12 @@ __device__ __forceinline__ void consume(const Job& sjob, uint32_t base, const fl
     float corr[2];
     softmax_tile<BIDIR>(s, sbias + stage * BK, info > 0, c, qb, C, m, l, corr);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
     // P's TF32 halves as A fragments: for keys 8 j .. 8 j + 7, k = c / 2 is
     // key 8 j + c and k + 4 key 8 j + c + 1 (V^T holds them in that order)
-    uint32_t ph[32], pl[32];
+    uint32_t ph[BK / 2], pl[BK / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
       split_tf32(s[4 * j + 0], ph[4 * j + 0], pl[4 * j + 0]);
       split_tf32(s[4 * j + 2], ph[4 * j + 1], pl[4 * j + 1]);
       split_tf32(s[4 * j + 1], ph[4 * j + 2], pl[4 * j + 2]);
@@ -248,11 +291,11 @@ __device__ __forceinline__ void consume(const Job& sjob, uint32_t base, const fl
     for (int j = 0; j < BK / 8; ++j) {
       const int h = j >> 2;
       const uint32_t off = 2 * (j & 3);
-      const uint64_t dvh = sw128_desc(st + S_VHI + h * BOX, 1) + off;
-      const uint64_t dvl = sw128_desc(st + S_VLO + h * BOX, 1) + off;
-      sm90::wgmma_tf32_n64_rs(o, pl + 4 * j, dvh, 1);
-      sm90::wgmma_tf32_n64_rs(o, ph + 4 * j, dvl, 1);
-      sm90::wgmma_tf32_n64_rs(o, ph + 4 * j, dvh, 1);
+      const uint64_t dvh = sw128_desc(st + L::S_VHI + h * L::VBOX, 1) + off;
+      const uint64_t dvl = sw128_desc(st + L::S_VLO + h * L::VBOX, 1) + off;
+      mma_o(o, pl + 4 * j, dvh);
+      mma_o(o, ph + 4 * j, dvl);
+      mma_o(o, ph + 4 * j, dvh);
     }
     wg_commit();
     wg_wait<0>();
@@ -279,26 +322,30 @@ __device__ __forceinline__ void consume(const Job& sjob, uint32_t base, const fl
     if (row < sjob.Nq) {
       float* dst = sjob.out + static_cast<size_t>(row) * D + c;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<float2*>(dst + 8 * j) =
             make_float2(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
     }
   }
 }
 
-// One block of BQ query rows. BIDIR selects kernel 6's numerics (row bias,
-// maxima from -1e30, output over max(l, 1e-30)) over kernel 1's.
-template <bool BIDIR>
+// One block of BQ query rows at head dim D. BIDIR selects kernel 6's
+// numerics (row bias, maxima from -1e30, output over max(l, 1e-30)) over
+// kernel 1's.
+template <int D, bool BIDIR>
 __device__ __forceinline__ void attention_block(const Job& job) {
+  using L = Smem<D>;
+  constexpr int BK = L::BK;
+  constexpr int KPL = BK / 32;  // keys a producer lane: 2 (D = 64) or 1 (D = 96)
   extern __shared__ __align__(1024) uint8_t dyn_smem[];
   const int tid = threadIdx.x;
   uint32_t base = smem_u32(dyn_smem);
   const uint32_t pad = (1024u - (base & 1023u)) & 1023u;
   uint8_t* sm = dyn_smem + pad;
   base += pad;
-  float* sbias = reinterpret_cast<float*>(sm + OFF_BIAS);
-  int* sinfo = reinterpret_cast<int*>(sm + OFF_INFO);
-  const uint32_t bar_q = base + OFF_BAR;
+  float* sbias = reinterpret_cast<float*>(sm + L::OFF_BIAS);
+  int* sinfo = reinterpret_cast<int*>(sm + L::OFF_INFO);
+  const uint32_t bar_q = base + L::OFF_BAR;
   const uint32_t bar_full = bar_q + 8;               // + 8 * stage
   const uint32_t bar_empty = bar_full + 8 * STAGES;  // + 8 * stage
 
@@ -337,12 +384,12 @@ __device__ __forceinline__ void attention_block(const Job& job) {
     if (tid < CONSUMERS + 32) {
       const int lane = tid - CONSUMERS;
       if (lane == 0) {
-        mbar_arrive_tx(bar_q, Q_BYTES);
+        mbar_arrive_tx(bar_q, L::Q_BYTES);
         for (int w = 0; w < 2; ++w)
-          for (int h = 0; h < 2; ++h) {
-            tma_load_3d(base + OFF_QHI + (2 * w + h) * BOX, sjob.qhi, bar_q, 32 * h,
+          for (int h = 0; h < L::NDB; ++h) {
+            tma_load_3d(base + L::OFF_QHI + (L::NDB * w + h) * QBOX, sjob.qhi, bar_q, 32 * h,
                         sjob.q0 + 64 * w, sjob.bh);
-            tma_load_3d(base + OFF_QLO + (2 * w + h) * BOX, sjob.qlo, bar_q, 32 * h,
+            tma_load_3d(base + L::OFF_QLO + (L::NDB * w + h) * QBOX, sjob.qlo, bar_q, 32 * h,
                         sjob.q0 + 64 * w, sjob.bh);
           }
       }
@@ -350,30 +397,41 @@ __device__ __forceinline__ void attention_block(const Job& job) {
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < ntiles; ++t) {
-        float kb[2];
-        bool valid = false, all2 = true;
+        float kb[KPL];
+        bool valid = false, all_k = true;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = t * BK + lane * 2 + e;
+        for (int e = 0; e < KPL; ++e) {
+          const int key = t * BK + lane * KPL + e;
           const bool ok = key < sjob.Nk && (sjob.kmask == nullptr || sjob.kmask[key] != 0);
           kb[e] = key >= sjob.Nk ? -INFINITY : (ok ? 0.f : NEG);
           valid |= ok;
-          all2 &= ok;
+          all_k &= ok;
         }
         if (!__any_sync(0xffffffffu, valid) && any_k) continue;  // all masked: skip
-        const bool all_valid = __all_sync(0xffffffffu, all2);
+        const bool all_valid = __all_sync(0xffffffffu, all_k);
         mbar_wait(bar_empty + 8 * stage, phase ^ 1);
-        reinterpret_cast<float2*>(sbias + stage * BK)[lane] = make_float2(kb[0], kb[1]);
+        if constexpr (KPL == 2)
+          reinterpret_cast<float2*>(sbias + stage * BK)[lane] = make_float2(kb[0], kb[1]);
+        else
+          sbias[stage * BK + lane] = kb[0];
         if (lane == 0) {
           sinfo[stage] = all_valid;
           const uint32_t full = bar_full + 8 * stage;
-          const uint32_t st = base + OFF_STAGE + stage * STAGE_BYTES;
-          mbar_arrive_tx(full, STAGE_BYTES);
-          for (int h = 0; h < 2; ++h) {
-            tma_load_3d(st + S_KHI + h * BOX, sjob.khi, full, 32 * h, t * BK, sjob.bh);
-            tma_load_3d(st + S_KLO + h * BOX, sjob.klo, full, 32 * h, t * BK, sjob.bh);
-            tma_load_3d(st + S_VHI + h * BOX, sjob.vhi, full, t * BK + 32 * h, 0, sjob.bh);
-            tma_load_3d(st + S_VLO + h * BOX, sjob.vlo, full, t * BK + 32 * h, 0, sjob.bh);
+          const uint32_t st = base + L::OFF_STAGE + stage * L::STAGE_BYTES;
+          mbar_arrive_tx(full, L::STAGE_BYTES);
+          // K's column blocks and V^T's key blocks (two of each at D = 64)
+          constexpr int NB = L::NDB > L::NKB ? L::NDB : L::NKB;
+          for (int h = 0; h < NB; ++h) {
+            if (h < L::NDB) {
+              tma_load_3d(st + L::S_KHI + h * L::KBOX, sjob.khi, full, 32 * h, t * BK, sjob.bh);
+              tma_load_3d(st + L::S_KLO + h * L::KBOX, sjob.klo, full, 32 * h, t * BK, sjob.bh);
+            }
+            if (h < L::NKB) {
+              tma_load_3d(st + L::S_VHI + h * L::VBOX, sjob.vhi, full, t * BK + 32 * h, 0,
+                          sjob.bh);
+              tma_load_3d(st + L::S_VLO + h * L::VBOX, sjob.vlo, full, t * BK + 32 * h, 0,
+                          sjob.bh);
+            }
           }
         } else {
           mbar_arrive(bar_full + 8 * stage);
@@ -417,7 +475,7 @@ __device__ __forceinline__ void attention_block(const Job& job) {
         qb[r] = (row < sjob.Nq && sjob.qmask[row]) ? 0.f : NEG;
       }
     }
-    consume<BIDIR>(sjob, base, sbias, sinfo, wg, r_loc, c, qb);
+    consume<D, BIDIR>(sjob, base, sbias, sinfo, wg, r_loc, c, qb);
   }
 }
 
@@ -442,9 +500,10 @@ __global__ void split_rows_kernel(const float4* __restrict__ x, float4* __restri
   }
 }
 
-// v (BH, N, 64) -> hi / lo (BH, 64, Np) with Np = N rounded up to 8, keys
+// v (BH, N, D) -> hi / lo (BH, D, Np) with Np = N rounded up to 8, keys
 // past N zero; within each group of 8 keys, position p holds key 2 p (p < 4)
 // or 2 (p - 4) + 1. One block per (batch x head, 64 keys).
+template <int D>
 __global__ void split_vt_kernel(const float* __restrict__ v, float* __restrict__ hi,
                                 float* __restrict__ lo, int N, int Np) {
   __shared__ float t[64][D + 1];
@@ -481,34 +540,40 @@ inline int split_rows(const float* x, float* out, int64_t n, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// hi, lo of v (BH, N, 64) transposed into out[0, BH 64 Np) and after it
+// hi, lo of v (BH, N, D) transposed into out[0, BH D Np) and after it
+template <int D>
 inline int split_vt(const float* v, float* out, int BH, int N, cudaStream_t s) {
   const int Np = padded_keys(N);
-  split_vt_kernel<<<dim3((Np + 63) / 64, BH), 256, 0, s>>>(
+  split_vt_kernel<D><<<dim3((Np + 63) / 64, BH), 256, 0, s>>>(
       v, out, out + static_cast<size_t>(BH) * D * Np, N, Np);
   return static_cast<int>(cudaGetLastError());
 }
 
-// 3-D f32 tensor map (inner, rows, bh) in 128-byte swizzle, (32, 64, 1)
-// boxes; elements past the end read as zeros. 0 on success.
-inline int make_map(CUtensorMap* map, const float* ptr, int inner, int rows, int bh) {
+// 3-D f32 tensor map (inner, rows, bh) in 128-byte swizzle, (32, box_rows,
+// 1) boxes; elements past the end read as zeros. 0 on success.
+inline int make_map(CUtensorMap* map, const float* ptr, int inner, int rows, int bh,
+                    int box_rows) {
   const uint64_t dims[3] = {static_cast<uint64_t>(inner), static_cast<uint64_t>(rows),
                             static_cast<uint64_t>(bh)};
-  const uint32_t box[3] = {32, 64, 1};
+  const uint32_t box[3] = {32, static_cast<uint32_t>(box_rows), 1};
   return sm90::encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, 3, dims, box);
 }
 
-// the maps of a split (hi then lo) row-major operand (BH, N, 64)
-inline int make_row_maps(CUtensorMap* hi, CUtensorMap* lo, const float* split, int N, int BH) {
-  int e = make_map(hi, split, D, N, BH);
-  return e ? e : make_map(lo, split + static_cast<size_t>(BH) * N * D, D, N, BH);
+// the maps of a split (hi then lo) row-major operand (BH, N, D), read in
+// boxes of box_rows rows: 64 (a warpgroup's query rows) or the key tile
+template <int D>
+inline int make_row_maps(CUtensorMap* hi, CUtensorMap* lo, const float* split, int N, int BH,
+                         int box_rows) {
+  int e = make_map(hi, split, D, N, BH, box_rows);
+  return e ? e : make_map(lo, split + static_cast<size_t>(BH) * N * D, D, N, BH, box_rows);
 }
 
-// the maps of a split transposed V (BH, 64, Np)
+// the maps of a split transposed V (BH, D, Np), in boxes of 32 keys x D rows
+template <int D>
 inline int make_vt_maps(CUtensorMap* hi, CUtensorMap* lo, const float* split, int N, int BH) {
   const int Np = padded_keys(N);
-  int e = make_map(hi, split, Np, D, BH);
-  return e ? e : make_map(lo, split + static_cast<size_t>(BH) * D * Np, Np, D, BH);
+  int e = make_map(hi, split, Np, D, BH, D);
+  return e ? e : make_map(lo, split + static_cast<size_t>(BH) * D * Np, Np, D, BH, D);
 }
 
 }  // namespace

@@ -1,30 +1,46 @@
 // The Hopper attention core shared by kernel 1 (attention.cu, masked
-// attention) and kernel 6 (bidir_attention.cu, LightGlue's bidirectional
-// cross attention): one block computes 192 query rows of softmax(Q K^T) V
-// over every key tile of one (batch, head), with an online softmax.
+// attention at head dims 64 and 96) and kernel 6 (bidir_attention.cu,
+// LightGlue's bidirectional cross attention): one block computes 192 query
+// rows of softmax(Q K^T) V over every key tile of one (batch, head), with an
+// online softmax. The core is a template on the head dim D; D = 64 (kernels 1
+// and 6) and D = 96 (kernel 1 for LighterGlue's one head of width 96) differ
+// only in the tile geometry of Geo<D> below.
 //
 // What bounds it on the H100: tensor-core issue in principle (at LightGlue's
 // shape a call is ~4 * 2048^2 * 64 FLOP per (batch, head) against 1 MB of
 // operands, far above the card's ~295 operations per byte), but at head dim
 // 64 the softmax's exp2 on the SFUs (16 a clock per SM) needs as many cycles
-// as the two products on the tensor cores, and every 128 x 64 K or V tile is
-// read from L2 once per block. The design:
+// as the two products on the tensor cores, and every K or V tile is read from
+// L2 once per block. At head dim 96 the products are 1.5 times the work per
+// score and the exp2 the same, so the tensor cores bound it more clearly. The
+// design:
 //
 // - Block of four warpgroups. Warpgroups 0-2 consume, each owning 64 query
 //   rows, so each K/V tile serves 192 rows; one warp of warpgroup 3 produces.
 //   `setmaxnreg` moves the producer's registers to the consumers (32 / 160 a
 //   thread). A warpgroup whose rows all lie past the end only releases tiles.
 // - TMA-fed tiles. The producer loads the Q tile once and keeps a ring of
-//   STAGES (K, V) tiles of 128 keys x 64 bf16 in flight, each signalled on a
+//   STAGES (K, V) tiles of BK keys x D bf16 in flight, each signalled on a
 //   full mbarrier and released on an empty one. The tensor maps are 3-D,
-//   (64, rows, batch x head) with 128-byte swizzle, so a ragged last tile
-//   zero-fills instead of reading the next head's rows.
-// - wgmma. S = Q K^T is m64n128k16 with both operands in shared memory
-//   (K-major). The probabilities are rounded to bf16 and reused from the
-//   accumulator registers as the A operand of O += P V (m64n64k16), whose B
-//   operand is the V tile as stored, (key, d), read with the transpose bit.
-//   S of tile t is issued together with PV of tile t - 1, so the tensor cores
-//   run PV(t - 1) while tile t's maxima are taken.
+//   (D, rows, batch x head), so a ragged last tile zero-fills instead of
+//   reading the next head's rows. D = 64: one 128-byte swizzled box a row,
+//   128-key tiles. D = 96: a 192-byte row is three 64-byte swizzle atoms, so
+//   each tile is three 32-column boxes in 64-byte swizzle, stored one after
+//   the other (a 96-column row cannot be one 128-byte-swizzled operand: the
+//   second atom would be half empty and n = 96 is not a whole number of
+//   128-byte atoms for the P V product); 64-key tiles, so that O (48 f32 a
+//   thread), S (32) and P (16) fit the 160 registers with S(t) and PV(t - 1)
+//   in flight together (at 128 keys they would need 144 before addresses and
+//   maxima, and spill).
+// - wgmma. S = Q K^T is m64nBKk16 with both operands in shared memory
+//   (K-major): D / 16 k-steps of 32 bytes, each inside one swizzle atom. The
+//   probabilities are rounded to bf16 and reused from the accumulator
+//   registers as the A operand of O += P V (m64nDk16), whose B operand is the
+//   V tile as stored, (key, d), read with the transpose bit (MN-major); at
+//   D = 96 the descriptor's leading byte offset steps from one 32-column box
+//   to the next, so each k-step is one m64n96k16. S of tile t is issued
+//   together with PV of tile t - 1, so the tensor cores run PV(t - 1) while
+//   tile t's maxima are taken.
 // - Masks. The producer turns each key tile's mask into an additive bias
 //   (0 valid, -1e30 masked, -inf past the end) stored beside the tile, and
 //   skips a tile whose keys are all masked when the batch element has at
@@ -54,36 +70,61 @@
 
 namespace attn_sm90 {
 
-constexpr int D = 64;         // head dim: one 128-byte swizzle row
 constexpr int BQ = 192;       // query rows per block, 64 per consumer warpgroup
-constexpr int BK = 128;       // keys per tile
 constexpr int STAGES = 4;     // (K, V) tiles in flight
 constexpr int CONSUMERS = BQ / 64 * 128;  // threads of the consumer warpgroups
 constexpr int THREADS = CONSUMERS + 128;   // warpgroups 0-2 consume, warpgroup 3 produces
-constexpr int TILE_BYTES = BK * D * 2;     // one K or V tile: 16 KB
-constexpr int Q_BYTES = BQ * D * 2;        // the Q tile: 24 KB
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// shared memory, from a 1024-byte aligned base (the 128-byte swizzle repeats
-// every 8 rows of 128 bytes); a stage's info is 1 if all its keys are valid,
-// 0 if not, -1 for the end marker
-constexpr int OFF_Q = 0;
-constexpr int OFF_K = OFF_Q + Q_BYTES;
-constexpr int OFF_V = OFF_K + STAGES * TILE_BYTES;
-constexpr int OFF_BIAS = OFF_V + STAGES * TILE_BYTES;  // float [STAGES][BK]
-constexpr int OFF_FLAG = OFF_BIAS + STAGES * BK * 4;   // int [BQ / 16]: kernel 6's warps
-constexpr int OFF_INFO = OFF_FLAG + 4 * (BQ / 16);     // int [STAGES], below
-constexpr int OFF_BAR = OFF_INFO + 16 * STAGES;        // u64: q, full[STAGES], empty[STAGES]
-constexpr int SMEM_BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+// the tile geometry of head dim D: keys per tile, and the swizzle span in
+// bytes, which is the width of one TMA box (D = 64: one 128-byte box a row;
+// D = 96: three 64-byte boxes a row)
+template <int D>
+struct Geo;
+template <>
+struct Geo<64> {
+  static constexpr int BK = 128;
+  static constexpr int SW = 128;
+};
+template <>
+struct Geo<96> {
+  static constexpr int BK = 64;
+  static constexpr int SW = 64;
+};
+
+// shared memory, from a 1024-byte aligned base (the swizzle repeats every 8
+// rows of SW bytes); a tile of R rows is BOXES boxes of R x SW bytes, one
+// after the other; a stage's info is 1 if all its keys are valid, 0 if not,
+// -1 for the end marker
+template <int D>
+struct Smem {
+  static constexpr int BK = Geo<D>::BK;
+  static constexpr int SW = Geo<D>::SW;
+  static constexpr int BOX_COLS = SW / 2;         // bf16 columns a box
+  static constexpr int BOXES = D / BOX_COLS;      // boxes a row: 1 (D = 64) or 3 (D = 96)
+  static constexpr int TILE_BYTES = BK * D * 2;   // one K or V tile: 16 KB (64), 12 KB (96)
+  static constexpr int Q_BYTES = BQ * D * 2;      // the Q tile: 24 KB (64), 36 KB (96)
+  static constexpr int OFF_Q = 0;
+  static constexpr int OFF_K = OFF_Q + Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * TILE_BYTES;
+  static constexpr int OFF_BIAS = OFF_V + STAGES * TILE_BYTES;  // float [STAGES][BK]
+  static constexpr int OFF_FLAG = OFF_BIAS + STAGES * BK * 4;   // int [BQ / 16]: kernel 6's warps
+  static constexpr int OFF_INFO = OFF_FLAG + 4 * (BQ / 16);     // int [STAGES], below
+  static constexpr int OFF_BAR = OFF_INFO + 16 * STAGES;        // u64: q, full[STAGES], empty[STAGES]
+  static constexpr int SMEM_BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+  // the V descriptor's leading byte offset (16-byte units): the step from one
+  // box to the next along d (unused with one box)
+  static constexpr uint32_t PV_LBO16 = BOXES == 1 ? (1024 >> 4) : (BK * SW) >> 4;
+};
 
 struct Job {
-  const CUtensorMap* qmap;  // (64, Nq, B*H) bf16
-  const CUtensorMap* kmap;  // (64, Nk, B*H) bf16
-  const CUtensorMap* vmap;  // (64, Nk, B*H) bf16
+  const CUtensorMap* qmap;  // (D, Nq, B*H) bf16
+  const CUtensorMap* kmap;  // (D, Nk, B*H) bf16
+  const CUtensorMap* vmap;  // (D, Nk, B*H) bf16
   const uint8_t* qmask;     // (Nq) of this batch element, or null
   const uint8_t* kmask;     // (Nk) of this batch element, or null
-  uint16_t* out;            // (Nq, 64) of this (batch, head)
+  uint16_t* out;            // (Nq, D) of this (batch, head)
   int bh, q0, Nq, Nk;
   float scale_log2;         // the softmax scale times log2(e)
 };
@@ -95,6 +136,7 @@ using sm90::mbar_init;
 using sm90::mbar_wait;
 using sm90::smem_u32;
 using sm90::sw128_desc;
+using sm90::sw64_desc;
 using sm90::tma_load_3d;
 using sm90::wg_commit;
 using sm90::wg_fence;
@@ -128,6 +170,24 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 64 f32 fragments) (+)= A (64 x 16, shared, K-major) B^T (64 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64 f32 fragments) += A (64 x 16 bf16, registers) B (16 x 64, shared, MN-major)
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint64_t db) {
   asm volatile(
@@ -146,6 +206,29 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 96 f32 fragments) += A (64 x 16 bf16, registers) B (16 x 96, shared, MN-major)
+__device__ __forceinline__ void wgmma_pv(float (&d)[48], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %53, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -157,44 +240,64 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// S (64 x 128) = Q K^T over the head dim: 4 k-steps of 16 (32 bytes along
-// the swizzled 128-byte rows of both tiles)
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq, uint32_t k_tile) {
-  const uint64_t dk = sw128_desc(k_tile, 1);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wgmma_qk(s, dq + 2 * kk, dk + 2 * kk, kk);
+// the wgmma descriptor of a tile in head dim D's swizzle (leading byte
+// offset in 16-byte units)
+template <int D>
+__device__ __forceinline__ uint64_t tile_desc(uint32_t addr, uint32_t lbo16) {
+  return Geo<D>::SW == 128 ? sw128_desc(addr, lbo16) : sw64_desc(addr, lbo16);
 }
 
-// O (64 x 64) += P V over 128 keys: 8 k-steps of 16 keys, 2048 bytes of V each
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[32],
+// S (64 x BK) = Q K^T over the head dim: D / 16 k-steps of 16 (32 bytes
+// along the swizzled rows); k-step kk lies in box kk / (SW / 32) of both
+// tiles, at 32 (kk % (SW / 32)) bytes into its rows. dq is the descriptor of
+// this warpgroup's rows in the Q tile's first box.
+template <int D, int N>
+__device__ __forceinline__ void issue_qk(float (&s)[N], uint64_t dq, uint32_t k_tile) {
+  using L = Smem<D>;
+  constexpr int KS = L::SW / 32;  // k-steps a box
+  const uint64_t dk = tile_desc<D>(k_tile, 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int box = kk / KS, off = 2 * (kk % KS);
+    wgmma_qk(s, dq + box * ((BQ * L::SW) >> 4) + off, dk + box * ((L::BK * L::SW) >> 4) + off,
+             kk);
+  }
+}
+
+// O (64 x D) += P V over BK keys: BK / 16 k-steps of 16 keys, 16 rows of
+// SW bytes each in every box
+template <int D, int N, int P>
+__device__ __forceinline__ void issue_pv(float (&o)[N], const uint32_t (&pa)[P],
                                          uint32_t v_tile) {
-  const uint64_t dv = sw128_desc(v_tile, 1024 >> 4);
+  using L = Smem<D>;
+  const uint64_t dv = tile_desc<D>(v_tile, L::PV_LBO16);
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) wgmma_pv(o, pa + 4 * kk, dv + (2048 >> 4) * kk);
+  for (int kk = 0; kk < L::BK / 16; ++kk)
+    wgmma_pv(o, pa + 4 * kk, dv + ((16 * L::SW) >> 4) * kk);
 }
 
-// The maximum (sum) of row r's 32 values s[4 j + 2 r + {0, 1}], r = 0 for
-// the thread's first row, 1 for its second: four interleaved chains of eight,
-// so the chains stay short and few registers are live.
-template <int R>
-__device__ __forceinline__ float row_max(const float (&s)[64]) {
+// The maximum (sum) of row r's N / 2 values s[4 j + 2 r + {0, 1}], r = 0 for
+// the thread's first row, 1 for its second: four interleaved chains, so the
+// chains stay short and few registers are live.
+template <int R, int N>
+__device__ __forceinline__ float row_max(const float (&s)[N]) {
   float a[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) a[k] = fmaxf(s[2 * R + 4 * k], s[2 * R + 4 * k + 1]);
 #pragma unroll
-  for (int j = 4; j < 16; ++j) {
+  for (int j = 4; j < N / 4; ++j) {
     a[j & 3] = fmaxf(a[j & 3], s[4 * j + 2 * R]);
     a[j & 3] = fmaxf(a[j & 3], s[4 * j + 2 * R + 1]);
   }
   return fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
 }
-template <int R>
-__device__ __forceinline__ float row_sum(const float (&s)[64]) {
+template <int R, int N>
+__device__ __forceinline__ float row_sum(const float (&s)[N]) {
   float a[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) a[k] = s[2 * R + 4 * k] + s[2 * R + 4 * k + 1];
 #pragma unroll
-  for (int j = 4; j < 16; ++j) a[j & 3] += s[4 * j + 2 * R] + s[4 * j + 2 * R + 1];
+  for (int j = 4; j < N / 4; ++j) a[j & 3] += s[4 * j + 2 * R] + s[4 * j + 2 * R + 1];
   return (a[0] + a[1]) + (a[2] + a[3]);
 }
 
@@ -212,25 +315,25 @@ __device__ __forceinline__ void update_max(const float (&mx)[2], float (&m)[2],
   }
 }
 
-// Online softmax of one tile on the accumulator fragments: s[4 j + e] is
-// row r + 8 (e / 2), key 8 j + c + (e % 2) of the tile. Scales, adds the key
-// (and row) biases, updates the running maxima m and sums l, leaves the
-// probabilities in s and the factor that rescales the old sums in corr.
-// ROWB: the rows carry kernel 6's row biases qb. Without them a tile whose
-// keys are all valid (bias 0) takes the short form: the maximum of s * C is
-// C times that of s (C > 0), and exp2(s * C - m) is one FFMA.
-template <bool ROWB>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], const float* bias, bool all_valid,
+// Online softmax of one tile of N / 2 keys on the accumulator fragments:
+// s[4 j + e] is row r + 8 (e / 2), key 8 j + c + (e % 2) of the tile. Scales,
+// adds the key (and row) biases, updates the running maxima m and sums l,
+// leaves the probabilities in s and the factor that rescales the old sums in
+// corr. ROWB: the rows carry kernel 6's row biases qb. Without them a tile
+// whose keys are all valid (bias 0) takes the short form: the maximum of
+// s * C is C times that of s (C > 0), and exp2(s * C - m) is one FFMA.
+template <bool ROWB, int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], const float* bias, bool all_valid,
                                              int c, const float (&qb)[2], float C,
                                              float (&m)[2], float (&l)[2], float (&corr)[2]) {
   if (!ROWB && all_valid) {
     update_max({row_max<0>(s) * C, row_max<1>(s) * C}, m, corr);
     const float negm[2] = {-m[0], -m[1]};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = ex2(fmaf(s[i], C, negm[(i >> 1) & 1]));
+    for (int i = 0; i < N; ++i) s[i] = ex2(fmaf(s[i], C, negm[(i >> 1) & 1]));
   } else {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < N / 4; ++j) {
       const float2 kb = *reinterpret_cast<const float2*>(bias + 8 * j + c);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -241,7 +344,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], const float* bias, 
     }
     update_max({row_max<0>(s), row_max<1>(s)}, m, corr);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+    for (int i = 0; i < N; ++i) s[i] = ex2(s[i] - m[(i >> 1) & 1]);
   }
   l[0] = l[0] * corr[0] + row_sum<0>(s);
   l[1] = l[1] * corr[1] + row_sum<1>(s);
@@ -264,9 +367,10 @@ __device__ __forceinline__ void block_tile(int L, int BH, int n, int& bh, int& x
 
 // P rounded to bf16 in the A-fragment order of m64nNk16: for 16 keys kk,
 // (row, keys c..c+1), (row + 8, c..c+1), (row, 8 + c..), (row + 8, 8 + c..)
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[32], const float (&s)[64]) {
+template <int P>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[P], const float (&s)[2 * P]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+  for (int i = 0; i < P; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 }
 
 // The tile loop of one consumer warpgroup over its 64 rows (the thread's
@@ -274,23 +378,25 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[32], const float (&s)[64])
 // kernel 6's numerics (maxima from -1e30, output over max(l, 1e-30)); ROWB
 // adds its row biases qb. A warpgroup whose rows are all valid runs kernel 6
 // without them, so that loop holds no qb and takes the short softmax.
-template <bool BIDIR, bool ROWB>
+template <int D, bool BIDIR, bool ROWB>
 __device__ __forceinline__ void consume(const Job& sjob, uint32_t base, const float* sbias,
                                         const int* sinfo, int wg, int r_loc, int c,
                                         const float (&qb)[2]) {
-  const uint32_t bar_q = base + OFF_BAR;
+  using L = Smem<D>;
+  constexpr int BK = L::BK;
+  const uint32_t bar_q = base + L::OFF_BAR;
   const uint32_t bar_full = bar_q + 8;                // + 8 * stage
   const uint32_t bar_empty = bar_full + 8 * STAGES;   // + 8 * stage
   const float C = sjob.scale_log2;
   float m[2] = {BIDIR ? NEG : -INFINITY, BIDIR ? NEG : -INFINITY};
   float l[2] = {0.f, 0.f};  // per-thread partial row sums
-  float o[32];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 
-  const uint64_t dq = sw128_desc(base + OFF_Q + wg * 64 * 128, 1);
-  float s[64];      // the scores of the newest tile, then its probabilities
-  uint32_t pa[32];  // the previous tile's P as bf16 A fragments, 4 registers per 16 keys
+  const uint64_t dq = tile_desc<D>(base + L::OFF_Q + wg * 64 * L::SW, 1);
+  float s[BK / 2];      // the scores of the newest tile, then its probabilities
+  uint32_t pa[BK / 4];  // the previous tile's P as bf16 A fragments, 4 registers per 16 keys
   float corr[2];
   mbar_wait(bar_q, 0);
   int stage = 0;
@@ -300,7 +406,7 @@ __device__ __forceinline__ void consume(const Job& sjob, uint32_t base, const fl
   // some tile has a valid key): S, then its softmax
   mbar_wait(bar_full, 0);
   wg_fence();
-  issue_qk(s, dq, base + OFF_K);
+  issue_qk<D>(s, dq, base + L::OFF_K);
   wg_commit();
   wg_wait<0>();
   fence_regs(s);
@@ -320,9 +426,9 @@ __device__ __forceinline__ void consume(const Job& sjob, uint32_t base, const fl
     const int info = *reinterpret_cast<const volatile int*>(sinfo + stage);
     if (info < 0) break;
     wg_fence();
-    issue_qk(s, dq, base + OFF_K + stage * TILE_BYTES);
+    issue_qk<D>(s, dq, base + L::OFF_K + stage * L::TILE_BYTES);
     wg_commit();
-    issue_pv(o, pa, base + OFF_V + prev * TILE_BYTES);
+    issue_pv<D>(o, pa, base + L::OFF_V + prev * L::TILE_BYTES);
     wg_commit();
     wg_wait<1>();  // S(t) is done, PV(t - 1) may still run
     fence_regs(s);
@@ -332,7 +438,7 @@ __device__ __forceinline__ void consume(const Job& sjob, uint32_t base, const fl
     fence_regs(pa);  // PV(t - 1) has read them: pa may now be rewritten
     mbar_arrive(bar_empty + 8 * prev);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
     pack_p(pa, s);
     prev = stage;
     if (++stage == STAGES) {
@@ -341,7 +447,7 @@ __device__ __forceinline__ void consume(const Job& sjob, uint32_t base, const fl
     }
   }
   wg_fence();
-  issue_pv(o, pa, base + OFF_V + prev * TILE_BYTES);
+  issue_pv<D>(o, pa, base + L::OFF_V + prev * L::TILE_BYTES);
   wg_commit();
   wg_wait<0>();
   fence_regs(o);
@@ -360,26 +466,30 @@ __device__ __forceinline__ void consume(const Job& sjob, uint32_t base, const fl
     if (row < sjob.Nq) {
       uint16_t* dst = sjob.out + static_cast<size_t>(row) * D + c;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(dst + 8 * j) =
             pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
     }
   }
 }
 
-// One block of BQ query rows. BIDIR selects kernel 6's numerics (row bias,
-// maxima from -1e30, output over max(l, 1e-30)) over kernel 1's.
-template <bool BIDIR>
+// One block of BQ query rows at head dim D. BIDIR selects kernel 6's
+// numerics (row bias, maxima from -1e30, output over max(l, 1e-30)) over
+// kernel 1's.
+template <int D, bool BIDIR>
 __device__ __forceinline__ void attention_block(const Job& job) {
+  using L = Smem<D>;
+  constexpr int BK = L::BK;
+  constexpr int KPL = BK / 32;  // keys a producer lane: 4 (D = 64) or 2 (D = 96)
   extern __shared__ __align__(1024) uint8_t dyn_smem[];
   const int tid = threadIdx.x;
   uint32_t base = smem_u32(dyn_smem);
   const uint32_t pad = (1024u - (base & 1023u)) & 1023u;
   uint8_t* sm = dyn_smem + pad;
   base += pad;
-  float* sbias = reinterpret_cast<float*>(sm + OFF_BIAS);
-  int* sinfo = reinterpret_cast<int*>(sm + OFF_INFO);
-  const uint32_t bar_q = base + OFF_BAR;
+  float* sbias = reinterpret_cast<float*>(sm + L::OFF_BIAS);
+  int* sinfo = reinterpret_cast<int*>(sm + L::OFF_INFO);
+  const uint32_t bar_q = base + L::OFF_BAR;
   const uint32_t bar_full = bar_q + 8;                // + 8 * stage
   const uint32_t bar_empty = bar_full + 8 * STAGES;   // + 8 * stage
 
@@ -420,34 +530,48 @@ __device__ __forceinline__ void attention_block(const Job& job) {
     if (tid < CONSUMERS + 32) {
       const int lane = tid - CONSUMERS;
       if (lane == 0) {
-        mbar_arrive_tx(bar_q, Q_BYTES);
-        tma_load_3d(base + OFF_Q, sjob.qmap, bar_q, 0, sjob.q0, sjob.bh);
+        mbar_arrive_tx(bar_q, L::Q_BYTES);
+#pragma unroll
+        for (int b = 0; b < L::BOXES; ++b)
+          tma_load_3d(base + L::OFF_Q + b * BQ * L::SW, sjob.qmap, bar_q, b * L::BOX_COLS,
+                      sjob.q0, sjob.bh);
       }
       const int ntiles = (sjob.Nk + BK - 1) / BK;
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < ntiles; ++t) {
-        float kb[4];
-        bool valid = false, all4 = true;
+        float kb[KPL];
+        bool valid = false, all_k = true;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = t * BK + lane * 4 + e;
+        for (int e = 0; e < KPL; ++e) {
+          const int key = t * BK + lane * KPL + e;
           const bool ok = key < sjob.Nk && (sjob.kmask == nullptr || sjob.kmask[key] != 0);
           kb[e] = key >= sjob.Nk ? -INFINITY : (ok ? 0.f : NEG);
           valid |= ok;
-          all4 &= ok;
+          all_k &= ok;
         }
         if (!__any_sync(0xffffffffu, valid) && any_k) continue;  // all masked: skip
-        const bool all_valid = __all_sync(0xffffffffu, all4);
+        const bool all_valid = __all_sync(0xffffffffu, all_k);
         mbar_wait(bar_empty + 8 * stage, phase ^ 1);
-        reinterpret_cast<float4*>(sbias + stage * BK)[lane] =
-            make_float4(kb[0], kb[1], kb[2], kb[3]);
+        if constexpr (KPL == 4)
+          reinterpret_cast<float4*>(sbias + stage * BK)[lane] =
+              make_float4(kb[0], kb[1], kb[2], kb[3]);
+        else
+          reinterpret_cast<float2*>(sbias + stage * BK)[lane] = make_float2(kb[0], kb[1]);
         if (lane == 0) {
           sinfo[stage] = all_valid;
           const uint32_t full = bar_full + 8 * stage;
-          mbar_arrive_tx(full, 2 * TILE_BYTES);
-          tma_load_3d(base + OFF_K + stage * TILE_BYTES, sjob.kmap, full, 0, t * BK, sjob.bh);
-          tma_load_3d(base + OFF_V + stage * TILE_BYTES, sjob.vmap, full, 0, t * BK, sjob.bh);
+          const uint32_t k_tile = base + L::OFF_K + stage * L::TILE_BYTES;
+          const uint32_t v_tile = base + L::OFF_V + stage * L::TILE_BYTES;
+          mbar_arrive_tx(full, 2 * L::TILE_BYTES);
+#pragma unroll
+          for (int b = 0; b < L::BOXES; ++b)
+            tma_load_3d(k_tile + b * BK * L::SW, sjob.kmap, full, b * L::BOX_COLS, t * BK,
+                        sjob.bh);
+#pragma unroll
+          for (int b = 0; b < L::BOXES; ++b)
+            tma_load_3d(v_tile + b * BK * L::SW, sjob.vmap, full, b * L::BOX_COLS, t * BK,
+                        sjob.bh);
         } else {
           mbar_arrive(bar_full + 8 * stage);
         }
@@ -483,7 +607,7 @@ __device__ __forceinline__ void attention_block(const Job& job) {
     const int c = (lane % 4) * 2;                      // and columns 8 j + c, 8 j + c + 1
     const float zero[2] = {0.f, 0.f};
     if (!BIDIR) {
-      consume<false, false>(sjob, base, sbias, sinfo, wg, r_loc, c, zero);
+      consume<D, false, false>(sjob, base, sbias, sinfo, wg, r_loc, c, zero);
       return;
     }
     // kernel 6: the row biases (-1e30 for a masked row or one past the end);
@@ -496,38 +620,42 @@ __device__ __forceinline__ void attention_block(const Job& job) {
       const int row = sjob.q0 + r_loc + 8 * r;
       qb[r] = (row < sjob.Nq && sjob.qmask[row]) ? 0.f : NEG;
     }
-    int* sflag = reinterpret_cast<int*>(sm + OFF_FLAG) + wg * 4;
+    int* sflag = reinterpret_cast<int*>(sm + L::OFF_FLAG) + wg * 4;
     const bool warp_ok = __all_sync(0xffffffffu, qb[0] == 0.f && qb[1] == 0.f);
     if (lane == 0) sflag[warp] = warp_ok;
     asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
     if (sflag[0] && sflag[1] && sflag[2] && sflag[3])
-      consume<true, false>(sjob, base, sbias, sinfo, wg, r_loc, c, zero);
+      consume<D, true, false>(sjob, base, sbias, sinfo, wg, r_loc, c, zero);
     else
-      consume<true, true>(sjob, base, sbias, sinfo, wg, r_loc, c, qb);
+      consume<D, true, true>(sjob, base, sbias, sinfo, wg, r_loc, c, qb);
   }
 }
 
 // ---------------------------------------------------------------------------
-// host side: 3-D tensor maps (64, rows, batch x head) of bf16 with 128-byte
-// swizzle and (64, 128, 1) boxes; rows past the end read as zeros
+// host side: 3-D tensor maps (D, rows, batch x head) of bf16 in head dim D's
+// swizzle, read in boxes of (SW / 2, box_rows, 1); rows past the end read as
+// zeros
 
 using sm90::encode_tiled;
 using sm90::EncodeTiledFn;
 
 // 0 on success, else a CUDA runtime error code
-inline int make_map(CUtensorMap* map, const void* ptr, int rows, int bh, int box_rows = BK) {
+template <int D>
+inline int make_map(CUtensorMap* map, const void* ptr, int rows, int bh,
+                    int box_rows = Geo<D>::BK) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(rows) * D * 2};  // bytes, dims 1-2
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(D), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(Smem<D>::BOX_COLS),
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        Geo<D>::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -47,6 +47,8 @@ namespace {
 
 using namespace attn_sm90;
 
+constexpr int D = 64;  // kernel 6's head dim (LightGlue's and ALIKED's)
+
 __global__ void __launch_bounds__(THREADS, 1)
 bidir_attention_sm90(const __grid_constant__ CUtensorMap map_q0,  // qk0 in BQ-row boxes
                      const __grid_constant__ CUtensorMap map_q1,  // qk1 in BQ-row boxes
@@ -90,7 +92,7 @@ bidir_attention_sm90(const __grid_constant__ CUtensorMap map_q0,  // qk0 in BQ-r
   }
   job.bh = bh;
   job.scale_log2 = scale_log2;
-  attention_block<true>(job);
+  attention_block<D, true>(job);
 }
 
 // the float32 form: the split operands of attention_f32_sm90.cuh; a side's
@@ -125,7 +127,7 @@ bidir_attention_f32_sm90(const __grid_constant__ CUtensorMap q0hi,
     job.vlo = &v1lo;
     job.qmask = m0;
     job.kmask = m1;
-    job.out = o0 + static_cast<size_t>(bh) * M * attn_f32::D;
+    job.out = o0 + static_cast<size_t>(bh) * M * D;
     job.q0 = x * BQ;
     job.Nq = M;
     job.Nk = N;
@@ -138,14 +140,14 @@ bidir_attention_f32_sm90(const __grid_constant__ CUtensorMap q0hi,
     job.vlo = &v0lo;
     job.qmask = m1;
     job.kmask = m0;
-    job.out = o1 + static_cast<size_t>(bh) * N * attn_f32::D;
+    job.out = o1 + static_cast<size_t>(bh) * N * D;
     job.q0 = (x - tiles0) * BQ;
     job.Nq = N;
     job.Nk = M;
   }
   job.bh = bh;
   job.scale_log2 = scale_log2;
-  attn_f32::attention_block<true>(job);
+  attn_f32::attention_block<D, true>(job);
 }
 
 }  // namespace
@@ -171,15 +173,15 @@ extern "C" int dim_bidir_attention_bf16(int device, const void* qk0, const void*
   }
   CUtensorMap mq0, mq1, mk0, mk1, mv0, mv1;
   int e;
-  if ((e = make_map(&mq0, qk0, M, B * H, BQ)) || (e = make_map(&mq1, qk1, N, B * H, BQ)) ||
-      (e = make_map(&mk0, qk0, M, B * H)) || (e = make_map(&mk1, qk1, N, B * H)) ||
-      (e = make_map(&mv0, v0, M, B * H)) || (e = make_map(&mv1, v1, N, B * H)))
+  if ((e = make_map<D>(&mq0, qk0, M, B * H, BQ)) || (e = make_map<D>(&mq1, qk1, N, B * H, BQ)) ||
+      (e = make_map<D>(&mk0, qk0, M, B * H)) || (e = make_map<D>(&mk1, qk1, N, B * H)) ||
+      (e = make_map<D>(&mv0, v0, M, B * H)) || (e = make_map<D>(&mv1, v1, N, B * H)))
     return e;
   err = cudaFuncSetAttribute(bidir_attention_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BYTES);
+                             Smem<D>::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = B * H * ((M + BQ - 1) / BQ + (N + BQ - 1) / BQ);
-  bidir_attention_sm90<<<grid, THREADS, SMEM_BYTES, st>>>(
+  bidir_attention_sm90<<<grid, THREADS, Smem<D>::SMEM_BYTES, st>>>(
       mq0, mq1, mk0, mk1, mv0, mv1, static_cast<const uint8_t*>(mask0),
       static_cast<const uint8_t*>(mask1), static_cast<uint16_t*>(o0),
       static_cast<uint16_t*>(o1), H, M, N, scale * LOG2E);
@@ -208,31 +210,33 @@ extern "C" int dim_bidir_attention_f32(int device, const void* qk0, const void* 
     void* o = M == 0 ? o1 : o0;
     const size_t rows = M == 0 ? N : M;
     return static_cast<int>(
-        cudaMemsetAsync(o, 0, static_cast<size_t>(BH) * rows * af::D * 4, st));
+        cudaMemsetAsync(o, 0, static_cast<size_t>(BH) * rows * D * 4, st));
   }
   float* s0 = static_cast<float*>(split0);
   float* s1 = static_cast<float*>(split1);
   float* t0 = static_cast<float*>(vt0);
   float* t1 = static_cast<float*>(vt1);
-  const int64_t n0 = static_cast<int64_t>(BH) * M * af::D;
-  const int64_t n1 = static_cast<int64_t>(BH) * N * af::D;
+  const int64_t n0 = static_cast<int64_t>(BH) * M * D;
+  const int64_t n1 = static_cast<int64_t>(BH) * N * D;
   int e;
   if ((e = af::split_rows(static_cast<const float*>(qk0), s0, n0, st)) ||
       (e = af::split_rows(static_cast<const float*>(qk1), s1, n1, st)) ||
-      (e = af::split_vt(static_cast<const float*>(v0), t0, BH, M, st)) ||
-      (e = af::split_vt(static_cast<const float*>(v1), t1, BH, N, st)))
+      (e = af::split_vt<D>(static_cast<const float*>(v0), t0, BH, M, st)) ||
+      (e = af::split_vt<D>(static_cast<const float*>(v1), t1, BH, N, st)))
     return e;
   CUtensorMap m0h, m0l, m1h, m1l, v0h, v0l, v1h, v1l;
-  if ((e = af::make_row_maps(&m0h, &m0l, s0, M, BH)) ||
-      (e = af::make_row_maps(&m1h, &m1l, s1, N, BH)) ||
-      (e = af::make_vt_maps(&v0h, &v0l, t0, M, BH)) ||
-      (e = af::make_vt_maps(&v1h, &v1l, t1, N, BH)))
+  // 64-row boxes: a warpgroup's query rows and a key tile alike at D = 64
+  if ((e = af::make_row_maps<D>(&m0h, &m0l, s0, M, BH, 64)) ||
+      (e = af::make_row_maps<D>(&m1h, &m1l, s1, N, BH, 64)) ||
+      (e = af::make_vt_maps<D>(&v0h, &v0l, t0, M, BH)) ||
+      (e = af::make_vt_maps<D>(&v1h, &v1l, t1, N, BH)))
     return e;
   err = cudaFuncSetAttribute(bidir_attention_f32_sm90,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, af::SMEM_BYTES);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             af::Smem<D>::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = BH * ((M + af::BQ - 1) / af::BQ + (N + af::BQ - 1) / af::BQ);
-  bidir_attention_f32_sm90<<<grid, af::THREADS, af::SMEM_BYTES, st>>>(
+  bidir_attention_f32_sm90<<<grid, af::THREADS, af::Smem<D>::SMEM_BYTES, st>>>(
       m0h, m0l, m1h, m1l, v0h, v0l, v1h, v1l, static_cast<const uint8_t*>(mask0),
       static_cast<const uint8_t*>(mask1), static_cast<float*>(o0), static_cast<float*>(o1), H,
       M, N, scale * af::LOG2E);

@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the hand-written kernels, as inline PTX
 // (no CuTe): shared-memory addresses, mbarriers, TMA tensor (2-D to 4-D) and
-// 1-D bulk copies, the wgmma descriptor of a 128-byte swizzled tile, the wgmma
+// 1-D bulk copies, the wgmma descriptors of 128- and 64-byte swizzled tiles, the wgmma
 // fence / commit / wait, the bf16 m64n256k16 and m64n128k16 products, the
 // TF32 m64nNk8 products (A in shared memory or in registers) with the
 // rna_tf32 rounding that splits an f32 operand into TF32 halves, and the
@@ -109,6 +109,15 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo16) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo16) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// the same for a 64-byte swizzled tile (layout 2): the swizzle repeats every
+// 8 rows of 64 bytes, so the stride offset is 512 bytes; tiles are 512-byte
+// aligned. For an MN-major operand wider than 32 bf16 the leading offset
+// steps from one 32-wide column block to the next.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo16) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo16) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (static_cast<uint64_t>(2) << 62);
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
@@ -265,6 +274,22 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 32 f32 fragments) (+)= A (64 x 8, shared, K-major) B^T (32 x 8,
+// shared, K-major), TF32 operands in f32 words
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                               uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %18, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64 f32 fragments) (+)= A (64 x 8, TF32 in registers) B^T (64 x 8,
 // shared, K-major). The A fragment of m64nNk8 (tf32), as mma.m16n8k8's: a[0]
 // is row 16 warp + lane / 4, column lane % 4 of the warpgroup's 64 x 8 tile;
@@ -285,6 +310,31 @@ __device__ __forceinline__ void wgmma_tf32_n64_rs(float (&d)[32],
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 96 f32 fragments) (+)= A (64 x 8, TF32 in registers) B^T (96 x 8,
+// shared, K-major)
+__device__ __forceinline__ void wgmma_tf32_n96_rs(float (&d)[48],
+                                                  const uint32_t* a, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %53, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 

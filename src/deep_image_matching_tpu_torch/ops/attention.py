@@ -1,10 +1,18 @@
 """Masked multi-head attention for the matching transformer (kernel 1).
 
 ``fused_attention`` launches the CUDA kernel of ``csrc/attention.cu`` for
-CUDA tensors (its bf16 form, or its float32 form in split TF32; at head dim
-64 the ``wgmma`` core, at head dim 96, LighterGlue's, the ``mma.sync`` form
-``attention_mma``) and runs ``attention_reference`` for CPU tensors. Layouts are
-the JAX package's: (B, H, T, hd) heads, (B, T) bool padding masks.
+CUDA tensors and runs ``attention_reference`` for CPU tensors. The kernel
+replaces the JAX package's Pallas flash attention
+(``deep_image_matching_tpu/ops/attention.py::fused_attention``) in four
+forms, bf16 and float32 (split TF32), each at head dims 64 and 96, all on
+the ``wgmma`` / TMA cores of ``csrc/attention_sm90.cuh`` (bf16) and
+``csrc/attention_f32_sm90.cuh`` (float32): 192 (bf16) or 128 (float32) query
+rows a block, key tiles fed by TMA, both products on ``wgmma``. They are
+bound by tensor-core operations (at LighterGlue's (16, 1, 4096, 96) ~100
+GFLOP against 50 MB); at head dim 96 an earlier ``mma.sync`` form took 64
+rows a block and so read each (batch, head)'s keys and values from L2 three
+times as often, at 15 % of that bound. Layouts are the JAX package's:
+(B, H, T, hd) heads, (B, T) bool padding masks.
 """
 
 from __future__ import annotations
@@ -15,8 +23,9 @@ import torch
 
 from . import _lib
 
-# the head dims of the CUDA kernel: 64 on the wgmma core, 96 (LighterGlue's one
-# head of width 96) on the mma.sync form
+# the head dims of the CUDA kernel: 64, and 96 (LighterGlue's one head of
+# width 96) on the same cores in 64-byte swizzled tiles (bf16) or three
+# 32-float boxes a row (float32)
 HEAD_DIMS = (64, 96)
 
 
@@ -69,18 +78,10 @@ def fused_attention(
     out = torch.empty_like(q)
     masks = (None if q_mask is None else q_mask.data_ptr(),
              None if kv_mask is None else kv_mask.data_ptr())
-    if hd == 96:
-        form = "bf16" if dt == torch.bfloat16 else "f32"
-        _lib.launch(
-            "attention_hd96" if dt == torch.bfloat16 else "attention_hd96_f32",
-            f"dim_attention_hd96_{form}", q.device.index, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), *masks, out.data_ptr(), B, H, Tq, Tk, float(sm_scale),
-            _lib.stream_of(q),
-        )
-        return out
+    hd96 = "_hd96" if hd == 96 else ""
     if dt == torch.bfloat16:
         _lib.launch(
-            "attention", "dim_attention_bf16", q.device.index, q.data_ptr(),
+            f"attention{hd96}", f"dim_attention{hd96}_bf16", q.device.index, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), *masks,
             out.data_ptr(), B, H, Tq, Tk, float(sm_scale), _lib.stream_of(q),
         )
@@ -91,7 +92,7 @@ def fused_attention(
     ks = torch.empty((2,) + k.shape, dtype=dt, device=q.device)
     vs = torch.empty(2, B * H, hd, -(-Tk // 8) * 8, dtype=dt, device=q.device)
     _lib.launch(
-        "attention_f32", "dim_attention_f32", q.device.index, q.data_ptr(),
+        f"attention{hd96}_f32", f"dim_attention{hd96}_f32", q.device.index, q.data_ptr(),
         k.data_ptr(), v.data_ptr(), *masks, out.data_ptr(), qs.data_ptr(), ks.data_ptr(),
         vs.data_ptr(), B, H, Tq, Tk, float(sm_scale), _lib.stream_of(q),
     )

@@ -3,7 +3,8 @@ kernels 1 and 6) against the JAX package's dense references, on the CPU.
 
 The CUDA kernels run only on the card (tests/test_torch_cuda.py holds them
 against their plain versions there). What can be checked here is the
-algorithm they implement: 192-row query tiles and 128-key tiles, masks as
+algorithm they implement: 192-row query tiles and 128-key tiles (64-key
+tiles at head dim 96, LighterGlue's), masks as
 additive key (and row) biases, the scale folded into exp2, the running
 maxima from -inf (kernel 1) or -1e30 (kernel 6), P rounded to bf16 before
 the PV product, a key tile skipped when all its keys are masked and its
@@ -12,7 +13,8 @@ kernel 6 as two recomputed directions. ``tiled_attention`` below follows the
 kernel step by step in f32, one key tile at a time.
 
 The float32 form (csrc/attention_f32_sm90.cuh) runs the same algorithm on
-128-row query tiles and 64-key tiles with both products in split TF32: each
+128-row query tiles and 64-key tiles (32-key tiles at head dim 96) with both
+products in split TF32: each
 operand split into TF32 halves by bit rounding (hi = rna_tf32(x), lo =
 rna_tf32(x - hi)), each product lo.hi + hi.lo + hi.hi in f32, and P kept in
 f32. ``tiled_attention(..., form="f32")`` models it; its P fragments meet V
@@ -31,13 +33,21 @@ import jax.numpy as jnp
 from deep_image_matching_tpu.ops import attention as jattn
 from deep_image_matching_tpu.ops import pallas_bidir_attention as jbidir
 
-BQ, BK = 192, 128
+# the kernels' (query rows, keys) a tile, by form and head dim: the bf16
+# core at D = 64 and D = 96 (attention_sm90.cuh's Geo), the float32 core
+# (attention_f32_sm90.cuh's Geo; "tf32" models it with one product)
+TILES = {("bf16", 64): (192, 128), ("bf16", 96): (192, 64),
+         ("f32", 64): (128, 64), ("f32", 96): (128, 32)}
 NEG = -1e30
-# the float32 form: its tiles, and its tolerance relative to max|out| over
-# valid rows (f32 scores of |s| up to ~16 carry ~1e-6 relative rounding in
-# both versions, which exp() turns into output errors of a few 1e-6)
-BQ32, BK32 = 128, 64
+# the float32 form's tolerance relative to max|out| over valid rows (f32
+# scores of |s| up to ~16 carry ~1e-6 relative rounding in both versions,
+# which exp() turns into output errors of a few 1e-6)
 F32_TOL = 5e-5
+
+
+def tiles(form, d):
+    """The kernel's tiles for ``form`` at head dim ``d``."""
+    return TILES["bf16" if form == "bf16" else "f32", d]
 
 
 def rna_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -58,16 +68,17 @@ def split_mm(eq: str, a: torch.Tensor, b: torch.Tensor, terms: str = "split") ->
     return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + torch.einsum(eq, ah, bh)
 
 
-def tiled_attention(q, k, v, q_mask, k_mask, scale, row_bias=False, skip=True, form="bf16"):
+def tiled_attention(q, k, v, q_mask, k_mask, scale, tile, row_bias=False, skip=True,
+                    form="bf16"):
     """The kernel's arithmetic: (B, H, Nq, d) x (B, H, Nk, d) f32 tensors,
-    (B, Nq) / (B, Nk) bool masks (None: all valid). ``row_bias`` selects
+    (B, Nq) / (B, Nk) bool masks (None: all valid), ``tile`` = (query rows,
+    keys) of a tile (``tiles(form, d)``). ``row_bias`` selects
     kernel 6 (rows of masked queries get -1e30, maxima start at -1e30, the
     output is over max(l, 1e-30)); else kernel 1 (maxima from -inf, output
     times 1/l). ``skip``: leave out all-masked key tiles as the kernel does.
-    ``form``: "bf16" (192 x 128 tiles, f32 scores, P rounded to bf16), "f32"
-    (128 x 64 tiles, both products in split TF32, P in f32) or "tf32" (the
-    f32 form's tiles with one TF32 product each)."""
-    bq, bk = (BQ, BK) if form == "bf16" else (BQ32, BK32)
+    ``form``: "bf16" (f32 scores, P rounded to bf16), "f32" (both products
+    in split TF32, P in f32) or "tf32" (one TF32 product each)."""
+    bq, bk = tile
     B, H, Nq, d = q.shape
     Nk = k.shape[2]
     C = scale * math.log2(math.e)
@@ -113,16 +124,16 @@ def _bf16(rng, *shape):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16().float()
 
 
-def _masks(rng, B, N, kind):
+def _masks(rng, B, N, kind, bk=128):
     if kind == "none":
         return None
     if kind == "prefix":
         counts = rng.integers(10, N + 1, size=B)
         counts[0] = N
         m = np.arange(N)[None] < counts[:, None]
-    else:  # random, with a fully masked 128-key tile in the middle of element 0
+    else:  # random, with a fully masked bk-key tile in the middle of element 0
         m = rng.random((B, N)) < 0.7
-        m[0, BK:2 * BK] = False
+        m[0, bk:2 * bk] = False
     return torch.from_numpy(m)
 
 
@@ -143,41 +154,92 @@ ATTENTION_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(ATTENTION_CASES))
-def test_tiled_attention_matches_xla_attention(case):
+def _attention_case(case, d, H, seed, form):
+    """One case of ATTENTION_CASES through the tile model of ``form`` at
+    head dim ``d`` and through xla_attention, on the same inputs (bf16
+    values for the bf16 form): (model, reference, valid rows, query masks).
+    Element 1's keys are all masked (the uniform average of all keys),
+    element 2's queries all masked (zeros); a "middle" key mask masks one
+    whole key tile of element 0."""
     Nq, Nk, qkind, kkind = ATTENTION_CASES[case]
-    rng = np.random.default_rng(7)
-    B, H, d = 3, 2, 64
-    q, k, v = _bf16(rng, B, H, Nq, d) * 2, _bf16(rng, B, H, Nk, d) * 2, _bf16(rng, B, H, Nk, d)
-    qm, km = _masks(rng, B, Nq, qkind), _masks(rng, B, Nk, kkind)
+    rng = np.random.default_rng(seed)
+    B = 3
+    rnd = _bf16 if form == "bf16" else _f32
+    q, k, v = rnd(rng, B, H, Nq, d) * 2, rnd(rng, B, H, Nk, d) * 2, rnd(rng, B, H, Nk, d)
+    tile = tiles(form, d)
+    qm, km = _masks(rng, B, Nq, qkind), _masks(rng, B, Nk, kkind, bk=tile[1] if d != 64 else 128)
     if km is not None:
         km[1] = False  # every key masked: the uniform average of all keys
     if qm is not None:
         qm[2, :] = False  # every query masked: zeros
     scale = d ** -0.5
-    got = tiled_attention(q, k, v, qm, km, scale)
+    got = tiled_attention(q, k, v, qm, km, scale, tile, form=form)
     ref = torch.from_numpy(np.array(jattn.xla_attention(
         jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
         None if km is None else jnp.asarray(km.numpy()), scale)))
     rows = torch.ones(B, Nq, dtype=torch.bool) if qm is None else qm
+    return got, ref, rows, qm
+
+
+@pytest.mark.parametrize("case", list(ATTENTION_CASES))
+def test_tiled_attention_matches_xla_attention(case):
+    got, ref, rows, qm = _attention_case(case, 64, 2, 7, "bf16")
     assert _within_two_ulps(got, ref, rows)
     if qm is not None:
         assert bool((got[2] == 0).all())
 
 
+def _skip_is_exact(d, form):
+    """A key tile whose keys are all masked changes nothing for an element
+    with a valid key, wherever it lies (also before the first valid tile):
+    the tile model with and without the skip, on ``form``'s tiles at head
+    dim ``d``, equal bit for bit."""
+    rng = np.random.default_rng(8)
+    B, H, N, M = 2, 2, 200, 640
+    rnd = _bf16 if form == "bf16" else _f32
+    q, k, v = rnd(rng, B, H, N, d), rnd(rng, B, H, M, d), rnd(rng, B, H, M, d)
+    km = torch.from_numpy(rng.random((B, M)) < 0.5)
+    tile = tiles(form, d)
+    bk = tile[1]
+    km[0, :2 * bk] = False       # the first two tiles of element 0 masked
+    km[1, 3 * bk:4 * bk] = False  # a middle tile of element 1 masked
+    for row_bias in (False, True):
+        a = tiled_attention(q, k, v, None, km, 0.125, tile, row_bias=row_bias, skip=True,
+                            form=form)
+        b = tiled_attention(q, k, v, None, km, 0.125, tile, row_bias=row_bias, skip=False,
+                            form=form)
+        assert torch.equal(a, b)
+
+
 def test_skipping_masked_key_tiles_is_exact():
     """A key tile whose keys are all masked changes nothing for an element
     with a valid key, wherever it lies (also before the first valid tile)."""
-    rng = np.random.default_rng(8)
-    B, H, N, M, d = 2, 2, 200, 640, 64
-    q, k, v = _bf16(rng, B, H, N, d), _bf16(rng, B, H, M, d), _bf16(rng, B, H, M, d)
-    km = torch.from_numpy(rng.random((B, M)) < 0.5)
-    km[0, :2 * BK] = False       # the first two tiles of element 0 masked
-    km[1, 3 * BK:4 * BK] = False  # a middle tile of element 1 masked
-    for row_bias in (False, True):
-        a = tiled_attention(q, k, v, None, km, 0.125, row_bias=row_bias, skip=True)
-        b = tiled_attention(q, k, v, None, km, 0.125, row_bias=row_bias, skip=False)
-        assert torch.equal(a, b)
+    _skip_is_exact(64, "bf16")
+
+
+# head dim 96 (LighterGlue: one head of width 96) on the tiles of the cores
+# at D = 96: 192 x 64 in bf16, 128 x 32 in split TF32
+
+@pytest.mark.parametrize("case", list(ATTENTION_CASES))
+@pytest.mark.parametrize("form", ["bf16", "f32"])
+def test_tiled_attention_hd96_matches_xla_attention(form, case):
+    """Kernel 1's head-dim-96 forms against the JAX package's dense
+    attention: two bf16 ulps on valid rows (bf16), within 5e-5 of max|out|
+    (split TF32); all-masked query tiles give zeros."""
+    got, ref, rows, qm = _attention_case(case, 96, 1, 27, form)
+    if form == "bf16":
+        assert _within_two_ulps(got, ref, rows)
+    else:
+        assert _rel_err(got, ref, rows) <= F32_TOL
+    if qm is not None:
+        assert bool((got[2] == 0).all())
+
+
+@pytest.mark.parametrize("form", ["bf16", "f32"])
+def test_skipping_masked_key_tiles_is_exact_hd96(form):
+    """The skip of all-masked key tiles at head dim 96, on the 64-key
+    (bf16) and 32-key (split TF32) tiles."""
+    _skip_is_exact(96, form)
 
 
 BIDIR_CASES = {
@@ -203,8 +265,8 @@ def test_tiled_bidir_matches_dense_reference(case):
     m0[1, 5] = False
     m1[2] = False  # every side-1 token of element 2 masked
     scale = d ** -0.5
-    got0 = tiled_attention(qk0, qk1, v1, m0, m1, scale, row_bias=True)
-    got1 = tiled_attention(qk1, qk0, v0, m1, m0, scale, row_bias=True)
+    got0 = tiled_attention(qk0, qk1, v1, m0, m1, scale, tiles("bf16", d), row_bias=True)
+    got1 = tiled_attention(qk1, qk0, v0, m1, m0, scale, tiles("bf16", d), row_bias=True)
     ref0, ref1 = (torch.from_numpy(np.array(r, dtype=np.float32)) for r in
                   jbidir.bidir_cross_attention_reference(
                       *(jnp.asarray(t.numpy()) for t in (qk0, qk1, v0, v1, m0, m1))))
@@ -233,21 +295,7 @@ def test_tiled_attention_f32_matches_xla_attention(case):
     f32: within 5e-5 of max|out| on valid rows (the bound chip_smoke.py holds
     the kernel to on the card); all-masked query tiles of 128 rows give
     zeros."""
-    Nq, Nk, qkind, kkind = ATTENTION_CASES[case]
-    rng = np.random.default_rng(17)
-    B, H, d = 3, 2, 64
-    q, k, v = _f32(rng, B, H, Nq, d) * 2, _f32(rng, B, H, Nk, d) * 2, _f32(rng, B, H, Nk, d)
-    qm, km = _masks(rng, B, Nq, qkind), _masks(rng, B, Nk, kkind)
-    if km is not None:
-        km[1] = False  # every key masked: the uniform average of all keys
-    if qm is not None:
-        qm[2, :] = False  # every query masked: zeros
-    scale = d ** -0.5
-    got = tiled_attention(q, k, v, qm, km, scale, form="f32")
-    ref = torch.from_numpy(np.array(jattn.xla_attention(
-        jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
-        None if km is None else jnp.asarray(km.numpy()), scale)))
-    rows = torch.ones(B, Nq, dtype=torch.bool) if qm is None else qm
+    got, ref, rows, qm = _attention_case(case, 64, 2, 17, "f32")
     assert _rel_err(got, ref, rows) <= F32_TOL
     if qm is not None:
         assert bool((got[2] == 0).all())
@@ -267,8 +315,10 @@ def test_tiled_bidir_f32_matches_dense_reference(case):
     m0[1, 5] = False
     m1[2] = False  # every side-1 token of element 2 masked
     scale = d ** -0.5
-    got0 = tiled_attention(qk0, qk1, v1, m0, m1, scale, row_bias=True, form="f32")
-    got1 = tiled_attention(qk1, qk0, v0, m1, m0, scale, row_bias=True, form="f32")
+    got0 = tiled_attention(qk0, qk1, v1, m0, m1, scale, tiles("f32", d), row_bias=True,
+                           form="f32")
+    got1 = tiled_attention(qk1, qk0, v0, m1, m0, scale, tiles("f32", d), row_bias=True,
+                           form="f32")
     ref0, ref1 = (torch.from_numpy(np.array(r, dtype=np.float32)) for r in
                   jbidir.bidir_cross_attention_reference(
                       *(jnp.asarray(t.numpy()) for t in (qk0, qk1, v0, v1, m0, m1))))
@@ -293,8 +343,8 @@ def test_one_tf32_product_leaves_the_attention_tolerance(row_bias):
         ref = torch.from_numpy(np.array(jattn.xla_attention(
             jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
             jnp.asarray(m.numpy()), scale)))
-    split = tiled_attention(q, k, v, m, m, scale, row_bias=row_bias, form="f32")
-    one = tiled_attention(q, k, v, m, m, scale, row_bias=row_bias, form="tf32")
+    split = tiled_attention(q, k, v, m, m, scale, tiles("f32", d), row_bias=row_bias, form="f32")
+    one = tiled_attention(q, k, v, m, m, scale, tiles("f32", d), row_bias=row_bias, form="tf32")
     assert _rel_err(split, ref, m) <= F32_TOL
     assert _rel_err(one, ref, m) > 4 * F32_TOL
 

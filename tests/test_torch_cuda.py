@@ -64,11 +64,12 @@ def _within_f32(got, ref, tol, mask=None):
     return float((got - ref).abs().max()) <= tol * float(ref.abs().max())
 
 
-def _middle_tile_masks(gen, B, N, cuda):
-    """Random non-prefix masks; in element 0 the second 128-key tile is
-    masked whole (the kernels skip it), element 1 keeps every key."""
+def _middle_tile_masks(gen, B, N, cuda, masked=(128, 256)):
+    """Random non-prefix masks; in element 0 the keys ``masked`` (by
+    default the second 128-key tile) are masked whole (the kernels skip
+    them), element 1 keeps every key."""
     m = torch.rand(B, N, generator=gen) < 0.7
-    m[0, 128:256] = False
+    m[0, masked[0]:masked[1]] = False
     m[1] = True
     return m.to(cuda)
 
@@ -126,23 +127,29 @@ def test_attention_kernel_matches_plain(cuda, nan_shared, dtype, case):
 
 
 # head dim 96, LighterGlue's one head: (B, H, Tq, Tk, masks), ragged against
-# the 64-row blocks and the 64- (bf16) / 32-key (f32) tiles
+# the 192- (bf16) / 128-row (f32) blocks and the 64- (bf16) / 32-key (f32)
+# tiles: Nq past a whole number of blocks, fewer than 64 queries, Nk below
+# one key tile, Nk not a multiple of 8 (the f32 form's transposed V pads the
+# keys to 8), masked key tiles between valid ones (two 64-key tiles, and one)
 ATTENTION_HD96_CASES = {
     "ragged": (2, 1, 300, 131, "prefix"),
     "short": (2, 1, 40, 200, "prefix"),
+    "short_keys": (2, 1, 200, 20, "prefix"),
+    "keys_mod8": (3, 1, 385, 77, "prefix"),
     "lighterglue": (2, 1, 1024, 1024, "prefix"),
     "middle_tile": (3, 2, 300, 520, "middle"),
+    "middle_one_tile": (3, 1, 260, 300, "middle64"),
 }
 
 
 @pytest.mark.parametrize("case", list(ATTENTION_HD96_CASES))
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_attention_hd96_kernel_matches_plain(cuda, nan_shared, dtype, case):
-    """Kernel 1's head-dim-96 forms (``attention_mma``) against the plain
-    version on valid query rows: partial masks, a batch element whose keys
-    are all masked (the uniform average) and one whose queries are all
-    masked (zeros); NaN left in shared memory before each, so that padding
-    the kernel never writes would show."""
+    """Kernel 1's head-dim-96 forms (the wgmma / TMA cores at D = 96)
+    against the plain version on valid query rows: partial masks, a batch
+    element whose keys are all masked (the uniform average) and one whose
+    queries are all masked (zeros); NaN left in shared memory before each,
+    so that padding the kernel never writes would show."""
     B, H, N, M, masks = ATTENTION_HD96_CASES[case]
     gen = torch.Generator().manual_seed(3)
     dt = DTYPES[dtype]
@@ -153,7 +160,7 @@ def test_attention_hd96_kernel_matches_plain(cuda, nan_shared, dtype, case):
         km = _prefix_masks(gen, B, M, 10).to(cuda)
         km[1] = False
     else:
-        km = _middle_tile_masks(gen, B, M, cuda)
+        km = _middle_tile_masks(gen, B, M, cuda, (64, 128) if masks == "middle64" else (128, 256))
         qm[2, :] = False
     counter = "attention_hd96" if dtype == "bf16" else "attention_hd96_f32"
     nan_shared()
