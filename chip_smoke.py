@@ -23,7 +23,9 @@ Phases, each printing its own lines:
    and DINOv2's shapes), the FFN in both modes (ln_gelu at LightGlue's
    shape, relu at SuperGlue's),
    assignment (SuperPoint's and ALIKED's keypoint counts), null space,
-   nearest neighbours, the Sinkhorn iteration, the
+   nearest neighbours (SuperPoint's width 256, and LiftFeat's 64 and RIPE's
+   960 at (16, 4096, 4096), each timed against its bound), the Sinkhorn
+   iteration, the
    row logsumexp, RoMa's refiner stack (both passes' shapes), LightGlue's
    bidirectional cross attention (LightGlue's and ALIKED's lengths) and its
    fused QKV + rotary prologue (both modes, beside the path's own unfused
@@ -78,10 +80,15 @@ Phases, each printing its own lines:
      on the synthetic views (match threshold 0), keynetaffnethardnet+
      kornia_matcher on the demo images at the preset's 4000 features (DoH,
      then seeded KeyNet, AffNet and OriNet checkpoints, ``keynet_weights``),
-     and the AdaLAM matcher over sift (``adalam``, ``adalam_fast``), each
-     once more warm under ``torch.profiler`` (wall, device busy, idle share,
-     peak memory), then each against the CPU (``SPARSE_CPU_CHECKS``: shares
-     of keypoints and raw matches).
+     the AdaLAM matcher over sift (``adalam``, ``adalam_fast``), and
+     dedode+kornia_matcher (descriptor B, then G, whose DINOv2 runs kernel 1
+     in bf16), liftfeat+kornia_matcher and ripe+kornia_matcher on the
+     synthetic views with seeded checkpoints
+     (``dedode_liftfeat_ripe_weights``; kernel 5 at widths 256, 64 and
+     960), each once more warm under
+     ``torch.profiler`` (wall, device busy, idle share, peak memory), then
+     each against the CPU (``SPARSE_CPU_CHECKS``: shares of keypoints and raw
+     matches; DeDoDe at resolution 336, G's DINOv2 in f32 on both sides).
    Each run checks features.h5, raw_matches.h5 and database.db and prints
    the wall time per stage; each path checks that its kernels launched;
 6. tiled extraction and matching (``--tiling``), each counted run with the
@@ -694,7 +701,9 @@ def check_nullspace(torch, dev, card):
     # vectors written once
     extra = {"ms": _time_ms(lambda: nullspace_planes(A9)),
              "device_ms": _device_ms(lambda: nullspace_planes(A9), ("nullspace_kernel",)),
-             "plain_ms": _time_ms(lambda: nullspace_reference(A9)),
+             # the plain version (torch.linalg.qr of 32768 small systems) takes
+             # 2-4 s a call, so its median is of 3 runs, not 10
+             "plain_ms": _time_ms(lambda: nullspace_reference(A9), reps=3),
              **_bound(_nbytes(A9, got), N * (2 * 9 * 64 - 2 * 512 / 3), "f32"),
              "library_ms": _time_ms(lambda: torch.linalg.svd(A_rows))}
     dev_ms = extra["device_ms"]
@@ -757,6 +766,33 @@ def check_nn(torch, dev, card):
         exact.append(f"D={Dw} {'bitwise equal' if ok else 'DIFFERENT'}")
         if not ok:
             err = float("inf")
+    # LiftFeat's 64 and RIPE's 960 (kernel 5 at its other paths' widths),
+    # unit-norm f32 at (16, 4096, 4096) as at D = 256, each timed with its
+    # bound and plain version
+    extra["widths"] = {}
+    for Dw in (64, 960):
+        q = F.normalize(torch.randn(B, K, Dw, generator=gen), dim=-1)
+        r = F.normalize(torch.randn(B, K, Dw, generator=gen), dim=-1)
+        r[:, : K // 2] = F.normalize(q[:, : K // 2] + 0.3 * torch.randn(B, K // 2, Dw,
+                                                                       generator=gen), dim=-1)
+        q, r = (q * m0[..., None]).to(dev), (r * m1[..., None]).to(dev)
+        sq = (r ** 2).sum(-1) + torch.where(m1.to(dev), 0.0, 1e12)
+        g, rf = nn_top2(q, r, sq), nn_top2_reference(q, r, sq)
+        e = max((g[0] - rf[0]).abs().max().item(), (g[1] - rf[1]).abs().max().item())
+        same_w = g[2] == rf[2]
+        share_w = same_w.float().mean().item()
+        far_w = int((~same_w & (rf[1] - rf[0] > 1e-3)).sum().item())
+        if far_w or share_w < 0.999:
+            e = float("inf")
+        err = max(err, e)
+        extra["widths"][Dw] = {
+            "max_abs_err": e, "argmin_equal": share_w,
+            "ms": _time_ms(lambda: nn_top2(q, r, sq)),
+            "plain_ms": _time_ms(lambda: nn_top2_reference(q, r, sq)),
+            **_bound(_nbytes(q, r, sq, *g), 2.0 * B * K * K * Dw, "f32")}
+        exact.append(f"D={Dw} at ({B}, {K}, {K}) min1/min2 abs {e:.2e}, argmin equal "
+                     f"{share_w:.5f}")
+        del q, r, sq, g, rf
     what = (f"D=256 min1/min2 abs; argmin equal {equal_share:.5f}, none differs where the "
             f"gap > 1e-3; {', '.join(exact)}")
     return err, tol, what, extra
@@ -1318,6 +1354,11 @@ def phase_kernels(card: str) -> dict:
               f"{'OK' if good else 'FAIL'}; kernel {extra['ms']:.3f} ms, plain "
               f"{extra['plain_ms']:.3f} ms, bound {extra['bound_ms']:.3f} ms "
               f"({extra['bound_by']}), library call {lib} [{card}]", flush=True)
+        for Dw, w in extra.get("widths", {}).items():
+            print(f"[kernel] {name} at D = {Dw}: max_abs_err {w['max_abs_err']:.3e}; kernel "
+                  f"{w['ms']:.3f} ms, plain {w['plain_ms']:.3f} ms, bound {w['bound_ms']:.3f} ms "
+                  f"({w['bound_by']}), {100 * w['bound_ms'] / w['ms']:.1f} % of the bound "
+                  f"[{card}]", flush=True)
         if extra.get("device_ms") is not None:
             print(f"[kernel] {name}: device time of its own kernels {extra['device_ms']:.4f} ms "
                   f"a call (torch.profiler), against {extra['ms']:.4f} ms between CUDA events "
@@ -1862,12 +1903,12 @@ def _reference_roma(card: str) -> None:
     import torch
 
     from deep_image_matching_tpu_torch.models import dinov2, roma
-    from deep_image_matching_tpu_torch.utils.device import full_f32
+    from deep_image_matching_tpu_torch.utils.device import full_f32, to_device
 
     dev = torch.device("cuda", 0)
     params = roma.init_params(dinov2_depth=2)
     params = {**params, "dinov2": dinov2.prepare(params["dinov2"], torch.bfloat16)}
-    on_card = roma.to_device(params, dev)
+    on_card = to_device(params, dev)
     (a, b), (ah, bh) = _demo_pair(torch, (224, 320), "cpu")
 
     def two_passes(p, d):
@@ -1938,9 +1979,10 @@ def _full_depth_roma(card: str) -> None:
 
     from deep_image_matching_tpu_torch.models import dinov2, roma
     from deep_image_matching_tpu_torch.ops import _lib
+    from deep_image_matching_tpu_torch.utils.device import to_device
 
     dev = torch.device("cuda", 0)
-    p = roma.to_device(roma.init_params(dinov2_depth=2), dev)
+    p = to_device(roma.init_params(dinov2_depth=2), dev)
     gen = torch.Generator(device=dev).manual_seed(24)
     d = 1024
 
@@ -2061,6 +2103,18 @@ SPARSE_PATHS = {
         ("demo5", "bruteforce", "adalam", 128),), None),
     "sift+adalam_fast": ("sift+kornia_matcher", ("nullspace",), ("nn",), (
         ("demo5", "bruteforce", "adalam_fast", 128),), None),
+    # DeDoDe (B and G), LiftFeat and RIPE with seeded checkpoints
+    # (``dedode_liftfeat_ripe_weights``): kernel 5 at widths 256, 64 and
+    # 960, kernel 4, and G's DINOv2 (bf16) on kernel 1
+    "dedode+kornia_matcher": ("dedode+kornia_matcher", ("nn", "nullspace"), (), (
+        ("synthetic16", "bruteforce", "default", 256),), "dedode_liftfeat_ripe_weights"),
+    "dedode+kornia_matcher (descriptor G)": ("dedode+kornia_matcher", (
+        "nn", "nullspace", "attention"), ("attention_f32",), (
+        ("synthetic16", "bruteforce", "dedode_g", 256),), "dedode_liftfeat_ripe_weights"),
+    "liftfeat+kornia_matcher": ("liftfeat+kornia_matcher", ("nn", "nullspace"), (), (
+        ("synthetic16", "bruteforce", "default", 64),), "dedode_liftfeat_ripe_weights"),
+    "ripe+kornia_matcher": ("ripe+kornia_matcher", ("nn", "nullspace"), (), (
+        ("synthetic16", "bruteforce", "default", 960),), "dedode_liftfeat_ripe_weights"),
 }
 
 # card against CPU on the same inputs: label -> (pipeline, project, card
@@ -2083,6 +2137,18 @@ SPARSE_CPU_CHECKS = {
     "keynetaffnethardnet+kornia_matcher": ("keynetaffnethardnet+kornia_matcher", "demo5",
                                            "default", "cpu", 1.0, 0.99),
     "sift+adalam": ("sift+kornia_matcher", "demo5", "adalam", "cpu_adalam", 1.0, 0.99),
+    # DeDoDe at resolution 336 (the CPU's VGG19 at the default 784 would take
+    # most of a minute an image), G's DINOv2 in f32 on both sides. On an H100
+    # 80GB HBM3 the least shares of keypoints / raw matches were DeDoDe B
+    # 1 / 1, G 1 / 0.9951, LiftFeat 1 / 0.9985, RIPE 0.9981 / 0.9956 (RIPE's
+    # 3x3 NMS over f32 heat of other summation orders), so all are held to 99 %
+    "dedode+kornia_matcher": ("dedode+kornia_matcher", "synthetic3", "f32_dedode336",
+                              "cpu_dedode336", 0.99, 0.99),
+    "dedode+kornia_matcher (descriptor G)": ("dedode+kornia_matcher", "synthetic3",
+                                             "f32_dedode336_g", "cpu_dedode336_g", 0.99, 0.99),
+    "liftfeat+kornia_matcher": ("liftfeat+kornia_matcher", "synthetic3", "default", "cpu",
+                                0.99, 0.99),
+    "ripe+kornia_matcher": ("ripe+kornia_matcher", "synthetic3", "default", "cpu", 0.99, 0.99),
 }
 
 
@@ -2119,6 +2185,44 @@ def keynet_weights(wdir: Path, seed: int = 0) -> dict:
                     sd[f"features.{i + 1}.running_var"] = torch.ones(shape[0])
             torch.save({"state_dict": sd}, wdir / name)
     return {"DIM_TPU_WEIGHTS_DIR": str(wdir)}
+
+
+def dedode_liftfeat_ripe_weights(wdir: Path) -> dict:
+    """Seeded DeDoDe, LiftFeat and RIPE checkpoints in their files' layouts
+    (the JAX package's random trees through ``convert.py``); returns the
+    environment that points the extractors at them. DeDoDe's detector has
+    its refiners' output convolutions scaled by 0.03 and LiftFeat its normal
+    MLP's and AFT layers' last layers by 0.01: the seeded detector's logits
+    span ~1e5, so its softmax is one-hot and every other keypoint a tie at
+    zero, and the seeded booster adds terms shared by every cell, so that
+    the ratio test keeps a few matches a pair. G's DINOv2 is the seeded
+    depth-2 stack (no ``dinov2_vitl14_pretrain.pth``)."""
+    import torch
+
+    from deep_image_matching_tpu_torch import convert
+    from deep_image_matching_tpu_torch.models import dedode, liftfeat, ripe
+
+    if not (wdir / "ripe_weights.pth").exists():
+        wdir.mkdir(parents=True, exist_ok=True)
+        det = dedode.init_detector()
+        for r in det["refiners"].values():
+            r["out"]["w"] = r["out"]["w"] * 0.03
+        torch.save(convert.dedode_params_from_jax(det), wdir / "dedode_detector_L.pth")
+        torch.save(convert.dedode_params_from_jax(dedode.init_descriptor()),
+                   wdir / "dedode_descriptor_B.pth")
+        g = {k: v for k, v in dedode.init_descriptor_g().items() if k != "dinov2"}
+        torch.save(convert.dedode_params_from_jax(g), wdir / "dedode_descriptor_G.pth")
+        lf = liftfeat.init_tree()
+        boost = lf["booster"]
+        for lp in [boost["nenc"][-1]] + [a[k] for a in boost["aft"] for k in ("proj", "ffn2")]:
+            lp["w"] = lp["w"] * 0.01
+        torch.save(convert.liftfeat_params_from_jax(lf), wdir / "LiftFeat.pth")
+        torch.save(convert.ripe_params_from_jax(ripe.init_tree()), wdir / "ripe_weights.pth")
+    return {"DIM_TPU_WEIGHTS_DIR": str(wdir)}
+
+
+WEIGHT_SETS = {"keynet_weights": keynet_weights,
+               "dedode_liftfeat_ripe_weights": dedode_liftfeat_ripe_weights}
 
 
 def _profiled_run(label, pipeline, proj, strategy, cfg, outs, card) -> dict:
@@ -2166,10 +2270,13 @@ def phase_sparse_presets(projects, configs, timers, card) -> dict:
         # process; the learned run looks again in its own weights directory
         kah._KEYNET = kah._FRAMES = kah._UNSET
 
+    def weights(env):
+        return WEIGHT_SETS[env](WORK / env) if env else {}
+
     launches = {}
     for label, (pipeline, needed, banned, runs, env) in SPARSE_PATHS.items():
-        extra = keynet_weights(WORK / "keynet_weights") if env == "keynet_weights" else {}
-        if extra:
+        extra = weights(env)
+        if env == "keynet_weights":
             reload_keynet_stages()
         with _env(extra):
             launches[label], _ = _run_path(
@@ -2181,7 +2288,7 @@ def phase_sparse_presets(projects, configs, timers, card) -> dict:
             proj_name, strategy, cfg, _ = runs[0]
             _profiled_run(label, pipeline, projects[proj_name], strategy, configs[cfg],
                           WORK / "out" / f"profiled_{pipeline}_{cfg}", card)
-        if extra:
+        if env == "keynet_weights":
             if kah._KEYNET is None or None in kah._FRAMES:
                 _fail(f"{label}: the learned KeyNet, AffNet or OriNet did not load")
             reload_keynet_stages()
@@ -2189,8 +2296,10 @@ def phase_sparse_presets(projects, configs, timers, card) -> dict:
             SPARSE_CPU_CHECKS.items():
         proj = projects[proj_name]
         out = WORK / "out" / f"vs_cpu_{pipeline}_{cfg_card}"
-        gpu_dir = _run(pipeline, proj, "bruteforce", configs[cfg_card], out)
-        cpu_dir = _run(pipeline, proj, "bruteforce", configs[cfg_cpu], out.with_name(out.name + "_cpu"))
+        with _env(weights(SPARSE_PATHS[label][4] if label in SPARSE_PATHS else None)):
+            gpu_dir = _run(pipeline, proj, "bruteforce", configs[cfg_card], out)
+            cpu_dir = _run(pipeline, proj, "bruteforce", configs[cfg_cpu],
+                           out.with_name(out.name + "_cpu"))
         kp = _least_share(_feature_sets(gpu_dir), _feature_sets(cpu_dir))
         raw = _least_share(_raw_match_sets(gpu_dir), _raw_match_sets(cpu_dir))
         print(f"[main] {label} card against CPU on {proj_name}: least share of keypoints "
@@ -2269,12 +2378,18 @@ def _run_path(pipeline, needed, runs, projects, configs, timers, card, label=Non
         else:
             summary, n_verified = _check_outputs(out_dir, names, n_pairs, dim)
         if proj_name == "synthetic16" and pipeline not in ("superpoint+superglue",
-                                                           "xfeat+lighterglue"):
+                                                           "xfeat+lighterglue",
+                                                           "dedode+kornia_matcher",
+                                                           "ripe+kornia_matcher"):
             # random SuperGlue weights mix the keypoint positions into the
             # descriptors, and LighterGlue's random input projection and six
             # random layers at width 96 leave a few mutual neighbours a pair
             # (on the CPU as on the card), so only the other matchers find
-            # the shift
+            # the shift; DeDoDe squeezes every view into 784 x 784, where the
+            # planted shift is no whole pixel; RIPE reads its hypercolumns at
+            # k (Wc - 1) / (W - 1), which drifts from k / 8 across the image,
+            # so its smooth random descriptors match neighbours a few pixels
+            # off the shift (2 px median on the CPU between the two copies)
             summary += "; " + _check_shifted(out_dir, names)
         if pipeline == "sift+kornia_matcher" and n_verified == 0:
             _fail("sift+kornia_matcher verified no pair of the demo images")
@@ -2306,7 +2421,9 @@ def _main_setup():
     configs = {name: WORK / f"{name}.yaml"
                for name in ("default", "threshold0", "superglue0", "cpu", "aliked_bidir",
                             "f32_threshold0", "f32_superglue0", "f32_aliked_bidir",
-                            "cpu_threshold0", "adalam", "adalam_fast", "cpu_adalam")}
+                            "cpu_threshold0", "adalam", "adalam_fast", "cpu_adalam",
+                            "dedode_g", "f32_dedode336", "cpu_dedode336", "f32_dedode336_g",
+                            "cpu_dedode336_g")}
     configs["default"].write_text(base.format("cuda"))
     configs["aliked_bidir"].write_text(base.format("cuda") + "    attn_impl: bidir\n"
                                        "matcher:\n  filter_threshold: 0.0\n")
@@ -2322,6 +2439,15 @@ def _main_setup():
                             ("cpu_adalam", "adalam", "cpu")):
         configs[name].write_text(base.format(dev) + f"matcher:\n  name: adalam\n"
                                                     f"  match_mode: {mode}\n")
+    # DeDoDe's descriptor G (its DINOv2 in bf16 at the default dtype); the
+    # CPU comparisons at resolution 336 in f32 on both sides
+    configs["dedode_g"].write_text(base.format("cuda") + "extractor:\n  descriptor: G\n")
+    for dev in ("cuda", "cpu"):
+        for g in ("", "_g"):
+            name = f"{'f32' if dev == 'cuda' else 'cpu'}_dedode336{g}"
+            configs[name].write_text(
+                base.format(dev) + "    dtype: float32\nextractor:\n  resolution: 336\n"
+                + ("  descriptor: G\n" if g else ""))
     # the same in float32: the kernels' float32 forms
     for name in ("threshold0", "superglue0", "aliked_bidir"):
         text = configs[name].read_text().replace("    device: cuda\n",

@@ -47,6 +47,15 @@ the ``features.N`` names), which the JAX package's ``params_from_torch``
 reads back exactly and the port's loaders read as they read the released
 files. LighterGlue's tree goes through ``lightglue_params_from_jax`` at its
 own sizes.
+
+``dedode_params_from_jax`` (detector-L, descriptor B, descriptor G's VGG and
+refiners; G's DINOv2 through ``dinov2_params_from_jax``),
+``ripe_params_from_jax`` and ``liftfeat_params_from_jax`` write the released
+checkpoints' names with identity BatchNorms (a LiftFeat BaseLayer's folded
+bias as its affine-free BatchNorm's negated mean); the JAX package's
+``params_from_torch`` reads them back exactly, and the port's models fold
+them into their trees (``refiner_params_from_torch`` for the ConvRefiners
+that DeDoDe, RIPE and RoMa share).
 """
 
 from __future__ import annotations
@@ -268,6 +277,27 @@ def vgg19_params_from_torch(sd, prefix: str = "encoder.layers") -> Dict:
                        for stage in VGG19_CONV_IDX]}
 
 
+def refiner_params_from_torch(sd: Dict[str, torch.Tensor], prefix: str) -> Dict:
+    """A ConvRefiner at ``prefix`` of an f32 state dict (``_f32_state``):
+    ``block1`` and ``hidden_blocks.{h}`` (conv ``.0``, BatchNorm ``.1``
+    folded into it, conv ``.3``), ``out_conv``, and RoMa's ``disp_emb``
+    where present."""
+
+    def block(bprefix):
+        return {"conv1": _fold_bn(sd, f"{bprefix}.0", f"{bprefix}.1"),
+                "conv2": {"w": sd[f"{bprefix}.3.weight"], "b": sd[f"{bprefix}.3.bias"]}}
+
+    n_hidden = 1 + max(int(k[len(prefix) + 15:].split(".")[0])
+                       for k in sd if k.startswith(f"{prefix}.hidden_blocks."))
+    out = {"block1": block(f"{prefix}.block1"),
+           "hidden": [block(f"{prefix}.hidden_blocks.{h}") for h in range(n_hidden)],
+           "out": {"w": sd[f"{prefix}.out_conv.weight"], "b": sd[f"{prefix}.out_conv.bias"]}}
+    if f"{prefix}.disp_emb.weight" in sd:
+        out["disp_emb"] = {"w": sd[f"{prefix}.disp_emb.weight"][:, :, 0, 0],
+                           "b": sd[f"{prefix}.disp_emb.bias"]}
+    return out
+
+
 def dinov2_params_from_torch(sd) -> Dict:
     """The official DINOv2 naming (``dinov2_vitl14_pretrain.pth``); the depth
     is read from the keys."""
@@ -309,21 +339,6 @@ def roma_params_from_torch(state_dict, dinov2_state_dict: Optional[Dict] = None)
         p = _fold_bn(sd, f"{prefix}.0", f"{prefix}.1")
         return {"w": p["w"][:, :, 0, 0], "b": p["b"]}
 
-    def refiner_block(prefix):
-        return {"conv1": _fold_bn(sd, f"{prefix}.0", f"{prefix}.1"),
-                "conv2": {"w": sd[f"{prefix}.3.weight"], "b": sd[f"{prefix}.3.bias"]}}
-
-    def refiner(prefix):
-        n_hidden = 1 + max(int(k[len(prefix) + 15:].split(".")[0])
-                           for k in sd if k.startswith(f"{prefix}.hidden_blocks."))
-        out = {"block1": refiner_block(f"{prefix}.block1"),
-               "hidden": [refiner_block(f"{prefix}.hidden_blocks.{h}") for h in range(n_hidden)],
-               "out": {"w": sd[f"{prefix}.out_conv.weight"], "b": sd[f"{prefix}.out_conv.bias"]}}
-        if f"{prefix}.disp_emb.weight" in sd:
-            out["disp_emb"] = {"w": sd[f"{prefix}.disp_emb.weight"][:, :, 0, 0],
-                               "b": sd[f"{prefix}.disp_emb.bias"]}
-        return out
-
     def vit_block(prefix):
         blk = {"ln1": {"g": sd[f"{prefix}.norm1.weight"], "b": sd[f"{prefix}.norm1.bias"]},
                "qkv": lin(f"{prefix}.attn.qkv"), "proj": lin(f"{prefix}.attn.proj"),
@@ -343,7 +358,8 @@ def roma_params_from_torch(state_dict, dinov2_state_dict: Optional[Dict] = None)
                         "b": sd["decoder.gps.16.pos_conv.bias"]},
         "embed_blocks": [vit_block(f"decoder.embedding_decoder.blocks.{i}") for i in range(5)],
         "embed_out": lin("decoder.embedding_decoder.to_out"),
-        "refiners": {s: refiner(f"decoder.conv_refiner.{s}") for s in SCALES},
+        "refiners": {s: refiner_params_from_torch(sd, f"decoder.conv_refiner.{s}")
+                     for s in SCALES},
     }
     if dinov2_state_dict is not None:
         params["dinov2"] = dinov2_params_from_torch(dinov2_state_dict)
@@ -495,4 +511,123 @@ def hardnet_params_from_jax(params) -> StateDict:
         sd[f"features.{i}.weight"] = _oihw(p["w"])
         sd[f"features.{i}.bias"] = _t(p["b"])
         _identity_bn(sd, f"features.{i + 1}", np.asarray(p["b"]).shape[0])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# DeDoDe, RIPE, LiftFeat: the checkpoints' own layouts, BatchNorms identity
+# ---------------------------------------------------------------------------
+
+def _vgg19_state(sd: StateDict, prefix: str, params) -> None:
+    """The folded VGG19-bn encoder as ``{prefix}.{i}`` convolutions, each with
+    an identity affine BatchNorm at ``{prefix}.{i + 1}``."""
+    from .models.vgg_refiner import VGG19_CONV_IDX
+
+    for stage, convs in zip(VGG19_CONV_IDX, params["stages"]):
+        for i, p in zip(stage, convs):
+            sd[f"{prefix}.{i}.weight"] = _oihw(p["w"])
+            sd[f"{prefix}.{i}.bias"] = _t(p["b"])
+            _identity_bn(sd, f"{prefix}.{i + 1}", np.asarray(p["b"]).shape[0], affine=True)
+
+
+def _refiner_state(sd: StateDict, prefix: str, params) -> None:
+    """A ConvRefiner tree as ``block1`` / ``hidden_blocks.{h}`` (conv ``.0``,
+    identity affine BatchNorm ``.1``, conv ``.3``) and ``out_conv``."""
+
+    def block(bprefix, p):
+        sd[f"{bprefix}.0.weight"] = _oihw(p["conv1"]["w"])
+        sd[f"{bprefix}.0.bias"] = _t(p["conv1"]["b"])
+        _identity_bn(sd, f"{bprefix}.1", np.asarray(p["conv1"]["b"]).shape[0], affine=True)
+        sd[f"{bprefix}.3.weight"] = _oihw(p["conv2"]["w"])
+        sd[f"{bprefix}.3.bias"] = _t(p["conv2"]["b"])
+
+    block(f"{prefix}.block1", params["block1"])
+    for h, p in enumerate(params["hidden"]):
+        block(f"{prefix}.hidden_blocks.{h}", p)
+    sd[f"{prefix}.out_conv.weight"] = _oihw(params["out"]["w"])
+    sd[f"{prefix}.out_conv.bias"] = _t(params["out"]["b"])
+
+
+def dedode_params_from_jax(params) -> StateDict:
+    """The JAX package's DeDoDe detector-L, descriptor-B or descriptor-G tree
+    (G: a refiner at scale 14) -> the released checkpoint's names
+    (``encoder.layers.*`` or G's ``encoder.vgg.layers.*``,
+    ``decoder.layers.{scale}.*``). G's DINOv2 is not in that checkpoint: it
+    goes to the port's tree through ``dinov2_params_from_jax``."""
+    sd: StateDict = {}
+    prefix = "encoder.vgg.layers" if "14" in params["refiners"] else "encoder.layers"
+    _vgg19_state(sd, prefix, params["encoder"])
+    for scale, p in params["refiners"].items():
+        _refiner_state(sd, f"decoder.layers.{scale}", p)
+    return sd
+
+
+def ripe_params_from_jax(params) -> StateDict:
+    """The JAX package's RIPE tree -> ``ripe_weights.pth``'s names
+    (``net.encoder.layers.*``, ``net.decoder.layers.{scale}.*``, the optional
+    ``conv_dim_reduction_coarse_desc`` as a Conv1d (out, in, 1))."""
+    sd: StateDict = {}
+    _vgg19_state(sd, "net.encoder.layers", params["encoder"])
+    for scale, p in params["refiners"].items():
+        _refiner_state(sd, f"net.decoder.layers.{scale}", p)
+    if "dim_reduction" in params:
+        w = np.asarray(params["dim_reduction"]["w"])
+        sd["conv_dim_reduction_coarse_desc.weight"] = _t(w.T[:, :, None])
+        sd["conv_dim_reduction_coarse_desc.bias"] = _t(params["dim_reduction"]["b"])
+    return sd
+
+
+def liftfeat_params_from_jax(params) -> StateDict:
+    """The JAX package's LiftFeat tree -> ``LiftFeat.pth``'s names. A
+    BaseLayer (conv without bias + affine-free BatchNorm) carries its folded
+    bias as the BatchNorm's running mean, negated; a conv + affine BatchNorm
+    pair keeps the conv's bias and an identity BatchNorm."""
+    sd: StateDict = {}
+
+    def conv(key, p):
+        sd[f"{key}.weight"] = _oihw(p["w"])
+        sd[f"{key}.bias"] = _t(p["b"])
+
+    def base_layer(prefix, p):
+        sd[f"{prefix}.layer.0.weight"] = _oihw(p["w"])
+        b = np.asarray(p["b"])
+        sd[f"{prefix}.layer.1.running_mean"] = _t(-b)
+        sd[f"{prefix}.layer.1.running_var"] = torch.full(b.shape, 1.0 - _BN_EPS)
+        sd[f"{prefix}.layer.1.num_batches_tracked"] = torch.tensor(0)
+
+    def conv_bn(conv_key, bn_key, p):
+        conv(conv_key, p)
+        _identity_bn(sd, bn_key, np.asarray(p["b"]).shape[0], affine=True)
+
+    def lin(key, p):
+        sd[f"{key}.weight"] = _t(np.asarray(p["w"]).T)
+        sd[f"{key}.bias"] = _t(p["b"])
+
+    for name, p in params["backbone"].items():
+        conv(name, p)
+    for up in ("upsample5", "upsample4"):
+        conv_bn(f"{up}.conv", f"{up}.bn", params[up])
+    conv("conv_fusion45", params["fusion45"])
+    conv("conv_fusion34", params["fusion34"])
+    kh = params["keypoint_head"]
+    for i, p in enumerate(kh["layers"]):
+        base_layer(f"keypoint_head.layer{i + 1}", p)
+    conv_bn("keypoint_head.conv", "keypoint_head.bn", kh["out"])
+    for i, p in enumerate(params["descriptor_head"]):
+        base_layer(f"descriptor_head.layer.{i}", p)
+    dh = params["depth_head"]
+    for key, name in (("upa", "upsampleDa"), ("upb", "upsampleDb"), ("upc", "upsampleDc")):
+        conv_bn(f"depth_head.{name}.conv", f"depth_head.{name}.bn", dh[key])
+    for key, name in (("da", "a"), ("db", "b"), ("dc", "c")):
+        conv_bn(f"depth_head.convDep{name}", f"depth_head.bnDep{name}", dh[key])
+    bp = params["booster"]
+    for i, p in zip((0, 2, 4), bp["denc"]):
+        lin(f"feature_boost.denc.encoder.{i}", p)
+    for i, p in enumerate(bp["nenc"]):
+        lin(f"feature_boost.nenc.encoder.{i}", p)
+    for i, lp in enumerate(bp["aft"]):
+        pre = f"feature_boost.attn_proj.layers.{i}"
+        for key, name in (("q", "attn.query"), ("k", "attn.key"), ("v", "attn.value"),
+                          ("proj", "attn.proj"), ("ffn1", "ffn.mlp.0"), ("ffn2", "ffn.mlp.2")):
+            lin(f"{pre}.{name}", lp[key])
     return sd

@@ -31,7 +31,8 @@ from .utils.timer import Timer
 logger = logging.getLogger("dim_tpu_torch")
 
 PORTED_EXTRACTORS = ("superpoint", "superpoint_open", "aliked", "disk", "xfeat",
-                     "keynetaffnethardnet", "sift", "orb", "no_extractor")
+                     "keynetaffnethardnet", "dedode", "liftfeat", "ripe", "sift", "orb",
+                     "no_extractor")
 PORTED_MATCHERS = ("lightglue", "lighterglue", "kornia_matcher", "adalam", "superglue", "roma")
 
 

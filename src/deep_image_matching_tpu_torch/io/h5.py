@@ -11,7 +11,8 @@ Schema parity with the reference so downstream tools interoperate:
 The writers here accept the fixed-capacity padded arrays and trim
 by the validity count before writing, so the datasets stay those of the
 reference (variable-length, no padding). Files go through ``io/hdf5.py``
-(no h5py needed) and are stored uncompressed.
+(no h5py needed), which reads h5py's files, gzip included, and writes
+uncompressed.
 """
 
 from __future__ import annotations

@@ -1,40 +1,57 @@
 """A small HDF5 reader/writer in pure Python for the pipeline's files.
 
 The GPU hosts this package targets ship without ``h5py``, so features.h5,
-raw_matches.h5 and matches.h5 are written here directly, in the classic
-HDF5 layout that every HDF5 reader (h5py, libhdf5 tools, COLMAP scripts)
-understands: superblock version 0, version 1 object headers, groups as
-symbol tables (a one-level v1 B-tree over symbol-table nodes and a local
-name heap) and contiguous, uncompressed datasets of little-endian floats
-and integers.
+raw_matches.h5 and matches.h5 are written and read here directly.
+
+Writer. Files are written in the classic HDF5 layout that every HDF5
+reader (h5py, libhdf5 tools, COLMAP scripts) understands: superblock
+version 0, version 1 object headers, groups as symbol tables (a v1 B-tree
+of as many levels as the group needs over symbol-table nodes, and a local
+name heap) and contiguous, uncompressed datasets. Writes go into the file
+in place: ``create_dataset`` appends the object header and the data at the
+end of the file and keeps no copy of the array; ``del`` unlinks a name and
+leaves its space unreclaimed, as h5py does. A group's B-tree root and heap
+header never move, so no parent entry changes when a group grows; the
+group indexes that changed are written on ``close()`` (in place where they
+fit, else at the end of the file), and the superblock's end-of-file address
+last. Mode "a" on a file in another layout (h5py's ``libver="latest"``:
+superblock 2/3, v2 object headers, compact or dense link storage) first
+copies it into the classic layout, one dataset at a time, and logs that.
+
+Reader. Besides its own files it reads what h5py 3.x writes for this
+pipeline under ``libver="earliest"`` and ``"latest"``: superblocks 0, 2
+and 3; v1 and v2 object headers (with continuation blocks; checksums are
+not verified); groups as symbol tables, compact link messages or dense
+links (a fractal heap with a v2 B-tree name index); contiguous, compact and
+chunked datasets, the chunks indexed by a v1 B-tree, a single chunk, a
+fixed array (paged or not) or an extensible array; the deflate and shuffle
+filters; little-endian floats and integers and h5py's bool enum. Anything
+else raises ``NotImplementedError`` naming the structure.
+Datasets load lazily on ``np.asarray``.
 
 The API is the subset of ``h5py`` the pipeline uses: ``File`` (modes
 "r", "a", "w"; a context manager), groups with ``in``, ``[]``, ``del``,
 iteration in name order, ``create_group``, ``require_group`` and
-``create_dataset(name, data=...)``, and datasets read with
-``np.asarray``. A file opened for writing is built in memory and written on
-``close()`` (to a temporary file, then renamed over the target). The reader
-parses the layout this module writes; files from other writers (chunked,
-compressed, or with newer object headers) raise ``NotImplementedError``.
+``create_dataset(name, data=...)``, and datasets read with ``np.asarray``.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import struct
+import zlib
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Union
+from typing import Callable, Dict, Iterator, List, Optional, Union
 
 import numpy as np
 
+logger = logging.getLogger("dim_tpu_torch")
+
 _SIG = b"\x89HDF\r\n\x1a\n"
 _UNDEF = 0xFFFFFFFFFFFFFFFF
-_LEAF_K = 64        # symbol-table node capacity 2K = 128 names
-_INTERNAL_K = 64    # B-tree node capacity 2K = 128 symbol-table nodes
-_SNOD_CAP = 2 * _LEAF_K
-_BTREE_CAP = 2 * _INTERNAL_K
-_SNOD_SIZE = 8 + _SNOD_CAP * 40
-_BTREE_SIZE = 24 + (_BTREE_CAP + 1) * 8 + _BTREE_CAP * 8
+_LEAF_K = 64        # symbol-table node capacity 2K = 128 names (new files)
+_INTERNAL_K = 64    # B-tree node capacity 2K = 128 children (new files)
 _HEAP_FREE_NULL = 1  # libhdf5's on-disk "no free block" marker
 
 # numpy dtype -> (class, bit field bytes, properties)
@@ -44,6 +61,23 @@ _FLOATS = {2: (10, 5, 10, 15), 4: (23, 8, 23, 127), 8: (52, 11, 52, 1023)}
 def _pad8(n: int) -> int:
     return (n + 7) & ~7
 
+
+def _u(b: bytes) -> int:
+    return int.from_bytes(b, "little")
+
+
+def _enc_size(n: int) -> int:
+    """libhdf5's ``H5VM_limit_enc_size``: bytes that hold ``n``."""
+    return (max(n, 1).bit_length() - 1) // 8 + 1
+
+
+def _log2(n: int) -> int:
+    return n.bit_length() - 1
+
+
+# ---------------------------------------------------------------------------
+# Datatypes
+# ---------------------------------------------------------------------------
 
 def _dtype_message(dt: np.dtype) -> bytes:
     dt = np.dtype(dt)
@@ -58,59 +92,91 @@ def _dtype_message(dt: np.dtype) -> bytes:
     if dt.kind in "iu":
         bits = bytes([0x08 if dt.kind == "i" else 0x00, 0, 0])
         return bytes([0x10]) + bits + struct.pack("<I", size) + struct.pack("<HH", 0, size * 8)
-    if dt.kind == "b":
-        return _dtype_message(np.dtype(np.uint8))
+    if dt.kind == "b":  # h5py's bool: an enum over int8 with FALSE = 0, TRUE = 1
+        names = b"FALSE\0\0\0TRUE\0\0\0\0"
+        return (bytes([0x18, 2, 0, 0]) + struct.pack("<I", 1)
+                + _dtype_message(np.dtype(np.int8)) + names + bytes([0, 1]))
     raise ValueError(f"dtype {dt} is not supported")
 
 
 def _parse_dtype(msg: bytes) -> np.dtype:
-    cls = msg[0] & 0x0F
+    cls, ver = msg[0] & 0x0F, msg[0] >> 4
     size = struct.unpack_from("<I", msg, 4)[0]
-    if msg[1] & 0x01:
+    if cls in (0, 1, 8) and msg[1] & 0x01:
         raise NotImplementedError("big-endian HDF5 data")
     if cls == 1:
         return np.dtype(f"<f{size}")
     if cls == 0:
         return np.dtype(f"<{'i' if msg[1] & 0x08 else 'u'}{size}")
+    if cls == 8:
+        n = struct.unpack_from("<H", msg, 1)[0]
+        base_size = struct.unpack_from("<I", msg, 12)[0]
+        q = 16 + (12 if msg[8] & 0x0F == 1 else 4)  # past the base type's message
+        names = []
+        for _ in range(n):
+            end = msg.index(b"\0", q)
+            names.append(msg[q:end])
+            q = end + 1 if ver >= 3 else q + _pad8(end + 1 - q)
+        vals = [_u(msg[q + i * base_size:q + (i + 1) * base_size]) for i in range(n)]
+        if base_size == 1 and dict(zip(names, vals)) == {b"FALSE": 0, b"TRUE": 1}:
+            return np.dtype(np.bool_)
+        raise NotImplementedError("HDF5 enum datatype other than h5py's bool")
     raise NotImplementedError(f"HDF5 datatype class {cls}")
 
 
-class Dataset:
-    """A dataset: its array in memory, or its place in an open file."""
+# ---------------------------------------------------------------------------
+# The tree
+# ---------------------------------------------------------------------------
 
-    def __init__(self, name: str, data: Optional[np.ndarray] = None, *, file=None,
-                 offset: int = 0, shape=(), dtype=None):
+class Dataset:
+    """A dataset in an open file: its shape, dtype and how to read it."""
+
+    def __init__(self, name: str, shape, dtype, read: Callable[[], np.ndarray],
+                 addr: int = _UNDEF):
         self.name = name
-        self._data = None if data is None else np.ascontiguousarray(data)
-        if self._data is not None and self._data.dtype == np.bool_:
-            self._data = self._data.astype(np.uint8)
-        self._file, self._offset = file, offset
-        self.shape = tuple(self._data.shape) if self._data is not None else tuple(shape)
-        self.dtype = self._data.dtype if self._data is not None else np.dtype(dtype)
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = np.dtype(dtype)
+        self._read = read
+        self._addr = addr  # object header address
 
     @property
     def nbytes(self) -> int:
         return int(np.prod(self.shape, dtype=np.int64)) * self.dtype.itemsize
 
     def __array__(self, dtype=None, copy=None):
-        if self._data is None:
-            if self._file is None or self._file.closed:
-                raise ValueError(f"dataset {self.name} read after its file was closed")
-            n = self.nbytes
-            buf = b""
-            if n:  # an empty dataset has no storage address
-                self._file.seek(self._offset)
-                buf = self._file.read(n)
-            arr = np.frombuffer(buf, dtype=self.dtype).reshape(self.shape)
-        else:
-            arr = self._data
-        return arr.astype(dtype) if dtype is not None else arr.copy()
+        arr = self._read()
+        return arr.astype(dtype) if dtype is not None else arr
 
 
 class Group:
-    def __init__(self, name: str = "/"):
+    """A group; its members are read from the file when first reached."""
+
+    def __init__(self, name: str = "/", file: Optional["File"] = None):
         self.name = name
+        self._file = file
         self._items: Dict[str, Union["Group", Dataset]] = {}
+        self._links: Dict[str, int] = {}  # members not read yet: name -> header
+        self._addr = _UNDEF   # object header address
+        self._stab = None     # (B-tree root, local heap header) of a symbol-table group
+        self._index = None    # the writer's record of the group's index blocks
+
+    def _child_name(self, leaf: str) -> str:
+        return f"{self.name.rstrip('/')}/{leaf}"
+
+    def _has(self, leaf: str) -> bool:
+        return leaf in self._items or leaf in self._links
+
+    def _child(self, leaf: str):
+        if leaf not in self._items:
+            addr = self._links.pop(leaf)
+            self._items[leaf] = self._file._reader.read_object(self, leaf, addr)
+        return self._items[leaf]
+
+    def _writer(self) -> "_Writer":
+        w = self._file._w if self._file is not None else None
+        if w is None:
+            raise ValueError(f"{self.name}: the file is not open for writing")
+        return w
 
     def _walk(self, path: str, create: bool = False):
         parts = [p for p in path.split("/") if p]
@@ -118,11 +184,11 @@ class Group:
             raise KeyError("empty name")
         g = self
         for p in parts[:-1]:
-            if p not in g._items:
+            if not g._has(p):
                 if not create:
                     raise KeyError(path)
-                g._items[p] = Group(f"{g.name.rstrip('/')}/{p}")
-            g = g._items[p]
+                g._writer().new_group(g, p)
+            g = g._child(p)
             if not isinstance(g, Group):
                 raise KeyError(f"{path}: {p} is a dataset")
         return g, parts[-1]
@@ -132,33 +198,34 @@ class Group:
             g, leaf = self._walk(path)
         except KeyError:
             return False
-        return leaf in g._items
+        return g._has(leaf)
 
     def __getitem__(self, path: str):
         g, leaf = self._walk(path)
-        if leaf not in g._items:
+        if not g._has(leaf):
             raise KeyError(path)
-        return g._items[leaf]
+        return g._child(leaf)
 
     def __delitem__(self, path: str) -> None:
         g, leaf = self._walk(path)
-        del g._items[leaf]
+        if not g._has(leaf):
+            raise KeyError(path)
+        g._writer().unlink(g, leaf)
 
     def __iter__(self) -> Iterator[str]:
         return iter(self.keys())
 
     def keys(self) -> List[str]:
-        return sorted(self._items, key=lambda s: s.encode())
+        return sorted([*self._items, *self._links], key=lambda s: s.encode())
 
     def items(self):
-        return [(k, self._items[k]) for k in self.keys()]
+        return [(k, self._child(k)) for k in self.keys()]
 
     def create_group(self, path: str) -> "Group":
         g, leaf = self._walk(path, create=True)
-        if leaf in g._items:
+        if g._has(leaf):
             raise ValueError(f"{path} exists")
-        g._items[leaf] = Group(f"{g.name.rstrip('/')}/{leaf}")
-        return g._items[leaf]
+        return g._writer().new_group(g, leaf)
 
     def require_group(self, path: str) -> "Group":
         if path in self:
@@ -170,34 +237,53 @@ class Group:
 
     def create_dataset(self, path: str, data) -> Dataset:
         g, leaf = self._walk(path, create=True)
-        if leaf in g._items:
+        if g._has(leaf):
             raise ValueError(f"{path} exists")
         arr = np.asarray(data)
         if arr.ndim == 0:
             raise ValueError("scalar datasets are not supported")
-        g._items[leaf] = Dataset(f"{g.name.rstrip('/')}/{leaf}", arr)
-        return g._items[leaf]
+        return g._writer().new_dataset(g, leaf, arr)
 
 
 class File(Group):
     def __init__(self, path, mode: str = "r"):
-        super().__init__("/")
+        super().__init__("/", self)
         if mode not in ("r", "a", "w"):
             raise ValueError(f"mode {mode!r}")
         self.path = Path(path)
         self.mode = mode
         self._fh = None
-        if mode == "r" or (mode == "a" and self.path.exists()):
+        self._reader: Optional[_Reader] = None
+        self._w: Optional[_Writer] = None
+        if mode == "r":
             self._fh = open(self.path, "rb")
-            _Reader(self._fh).read_root(self)
+            self._reader = _Reader(self._fh, self)
+            self._reader.read_root(self)
+        elif mode == "w" or not self.path.exists():
+            self._fh = open(self.path, "w+b")
+            self._w = _Writer.create(self._fh, self)
+        else:
+            self._fh = open(self.path, "r+b")
+            self._reader = _Reader(self._fh, self)
+            self._reader.read_root(self)
+            if not self._reader.appendable(self):
+                self._fh.close()
+                _copy_to_classic(self.path)
+                self._items.clear()
+                self._links.clear()
+                self._fh = open(self.path, "r+b")
+                self._reader = _Reader(self._fh, self)
+                self._reader.read_root(self)
+            self._w = _Writer.append(self._fh, self._reader)
+
+    @property
+    def closed(self) -> bool:
+        return self._fh is None
 
     def close(self) -> None:
-        if self.mode in ("a", "w"):
-            tmp = self.path.with_name(f".{self.path.name}.{os.getpid()}.tmp")
-            with open(tmp, "wb") as out:
-                out.write(_serialize(self))
-            os.replace(tmp, self.path)
-            self.mode = "r"
+        if self._w is not None:
+            self._w.close()
+            self._w = None
         if self._fh is not None:
             self._fh.close()
             self._fh = None
@@ -208,6 +294,23 @@ class File(Group):
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+def _copy_to_classic(path: Path) -> None:
+    """Rewrite ``path`` in the classic layout, one dataset at a time."""
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.classic")
+
+    def copy(src: Group, dst: Group) -> None:
+        for name, obj in src.items():
+            if isinstance(obj, Group):
+                copy(obj, dst.create_group(name))
+            else:
+                dst.create_dataset(name, data=np.asarray(obj))
+
+    with File(path, "r") as src, File(tmp, "w") as dst:
+        copy(src, dst)
+    os.replace(tmp, path)
+    logger.info(f"{path}: copied into the classic HDF5 layout to append to it")
 
 
 # ---------------------------------------------------------------------------
@@ -224,191 +327,732 @@ def _object_header(messages: List[bytes]) -> bytes:
     return struct.pack("<BBHII4x", 1, 0, len(messages), 1, len(body)) + body
 
 
-def _dataset_header(ds: Dataset, data_addr: int) -> bytes:
-    rank = len(ds.shape)
-    space = struct.pack("<BBB5x", 1, rank, 0) + b"".join(struct.pack("<Q", d) for d in ds.shape)
+def _dataset_header(shape, dtype, data_addr: int, nbytes: int) -> bytes:
+    space = struct.pack("<BBB5x", 1, len(shape), 0) + b"".join(struct.pack("<Q", d) for d in shape)
     fill = struct.pack("<BBBB", 2, 2, 2, 0)
-    layout = struct.pack("<BBQQ", 3, 1, data_addr if ds.nbytes else _UNDEF, ds.nbytes)
+    layout = struct.pack("<BBQQ", 3, 1, data_addr if nbytes else _UNDEF, nbytes)
     return _object_header([
-        _message(0x0001, space), _message(0x0003, _dtype_message(ds.dtype), flags=1),
+        _message(0x0001, space), _message(0x0003, _dtype_message(dtype), flags=1),
         _message(0x0005, fill, flags=1), _message(0x0008, layout),
     ])
 
 
-def _entry(name_off: int, header: int, group: Optional[tuple] = None) -> bytes:
-    if group is None:
+def _entry(name_off: int, header: int, stab: Optional[tuple] = None) -> bytes:
+    if stab is None:
         return struct.pack("<QQI4x16x", name_off, header, 0)
-    return struct.pack("<QQI4xQQ", name_off, header, 1, *group)
+    return struct.pack("<QQI4xQQ", name_off, header, 1, *stab)
 
 
-class _Layout:
-    """Addresses of every object, assigned in one pass before emitting."""
+def _read_contiguous(fh, name: str, addr: int, shape, dtype) -> Callable[[], np.ndarray]:
+    def read() -> np.ndarray:
+        if fh.closed:
+            raise ValueError(f"dataset {name} read after its file was closed")
+        arr = np.empty(shape, dtype)
+        if arr.nbytes:  # an empty dataset has no storage address
+            fh.seek(addr)
+            if fh.readinto(memoryview(arr.reshape(-1)).cast("B")) != arr.nbytes:
+                raise ValueError(f"dataset {name}: truncated HDF5 file")
+        return arr
+    return read
 
-    def __init__(self):
-        self.pos = 96  # after the superblock
-        self.addr: Dict[int, dict] = {}
 
-    def take(self, n: int) -> int:
-        a = self.pos
-        self.pos += _pad8(n)
+class _Writer:
+    """Appends objects to an open file and keeps the groups' indexes."""
+
+    def __init__(self, fh, leaf_k: int, internal_k: int, eof: int, eof_field: int):
+        self.fh = fh
+        self.leaf_cap, self.node_cap = 2 * leaf_k, 2 * internal_k
+        self.snod_size = 8 + self.leaf_cap * 40
+        self.node_size = 24 + (self.node_cap + 1) * 8 + self.node_cap * 8
+        self.eof = _pad8(eof)
+        self.eof_field = eof_field
+        self.dirty: Dict[int, Group] = {}
+        self.reader: Optional[_Reader] = None  # of a file opened for appending
+
+    @classmethod
+    def create(cls, fh, root: File) -> "_Writer":
+        w = cls(fh, _LEAF_K, _INTERNAL_K, 96, 40)
+        w._init_group(root)
+        sb = _SIG + struct.pack("<8B", 0, 0, 0, 0, 0, 8, 8, 0)
+        sb += struct.pack("<HHI", _LEAF_K, _INTERNAL_K, 0)
+        sb += struct.pack("<QQQQ", 0, _UNDEF, w.eof, _UNDEF)
+        sb += _entry(0, root._addr, root._stab)
+        w.write(0, sb)
+        return w
+
+    @classmethod
+    def append(cls, fh, reader: "_Reader") -> "_Writer":
+        size = os.fstat(fh.fileno()).st_size
+        w = cls(fh, reader.leaf_k, reader.internal_k, max(size, reader.eof), reader.eof_field)
+        w.reader = reader
+        return w
+
+    def alloc(self, n: int) -> int:
+        a = self.eof
+        self.eof += _pad8(n)
         return a
 
-    def plan(self, obj) -> None:
-        if isinstance(obj, Dataset):
-            hdr = len(_dataset_header(obj, 0))
-            self.addr[id(obj)] = {"header": self.take(hdr), "data": self.take(obj.nbytes)}
-            return
-        names = obj.keys()
-        if len(names) > _SNOD_CAP * _BTREE_CAP:
-            raise ValueError(f"group {obj.name} holds more than {_SNOD_CAP * _BTREE_CAP} names")
-        heap, offs = bytearray(b"\0" * 8), []
+    def write(self, addr: int, data) -> None:
+        self.fh.seek(addr)
+        self.fh.write(data)
+
+    def _dirty(self, g: Group) -> None:
+        """Mark ``g``'s index for rewriting; a group read from the file first
+        records the blocks its index holds, to reuse them."""
+        if g._index is None:
+            if g._stab is None:
+                raise NotImplementedError(f"{g.name}: appending to a group that is not a "
+                                          "symbol table")
+            btree, heap = g._stab
+            _, snods, nodes = self.reader.stab_links(btree)
+            size, _, data = struct.unpack_from("<QQQ", self.reader.at(heap, 32), 8)
+            g._index = {"snods": snods, "nodes": nodes, "heap_data": data, "heap_cap": size}
+        self.dirty[id(g)] = g
+
+    def _init_group(self, g: Group) -> None:
+        body = _object_header([_message(0x0011, b"\0" * 16)])
+        hdr = self.alloc(len(body))
+        heap, heap_data, btree = self.alloc(32), self.alloc(8), self.alloc(self.node_size)
+        g._addr, g._stab = hdr, (btree, heap)
+        g._index = {"snods": [], "nodes": [], "heap_data": heap_data, "heap_cap": 8}
+        self.write(hdr, _object_header([_message(0x0011, struct.pack("<QQ", btree, heap))]))
+        self.write(heap, b"HEAP" + struct.pack("<B3xQQQ", 0, 8, _HEAP_FREE_NULL, heap_data))
+        self.write(heap_data, b"\0" * 8)
+        self._write_node(btree, 0, [], 0)
+        self._dirty(g)
+
+    def new_group(self, parent: Group, leaf: str) -> Group:
+        g = Group(parent._child_name(leaf), parent._file)
+        self._init_group(g)
+        self._dirty(parent)
+        parent._items[leaf] = g
+        return g
+
+    def new_dataset(self, parent: Group, leaf: str, arr: np.ndarray) -> Dataset:
+        arr = np.ascontiguousarray(arr)
+        if arr.dtype == np.bool_:
+            arr = arr.view(np.int8)
+            dtype = np.dtype(np.bool_)
+        else:
+            dtype = arr.dtype
+        head_len = len(_dataset_header(arr.shape, dtype, 0, arr.nbytes))
+        addr = self.alloc(head_len + arr.nbytes)
+        data = addr + head_len  # v1 headers are 8-byte multiples
+        self.write(addr, _dataset_header(arr.shape, dtype, data, arr.nbytes))
+        if arr.nbytes:
+            self.write(data, memoryview(arr.reshape(-1)).cast("B"))
+        name = parent._child_name(leaf)
+        read = _read_contiguous(self.fh, name, data, arr.shape, dtype)
+        ds = Dataset(name, arr.shape, dtype, read, addr)
+        self._dirty(parent)
+        parent._items[leaf] = ds
+        return ds
+
+    def unlink(self, parent: Group, leaf: str) -> None:
+        self._dirty(parent)
+        parent._items.pop(leaf, None)
+        parent._links.pop(leaf, None)
+
+    def _write_node(self, addr: int, level: int, children, left_key: int,
+                    left: int = _UNDEF, right: int = _UNDEF) -> None:
+        """One group B-tree node: ``children`` are (address, last name offset)."""
+        node = bytearray(b"TREE" + struct.pack("<BBHQQ", 0, level, len(children), left, right))
+        node += struct.pack("<Q", left_key)
+        for child, key in children:
+            node += struct.pack("<QQ", child, key)
+        self.write(addr, bytes(node))
+
+    def flush_group(self, g: Group) -> None:
+        names = g.keys()
+        kids = [g._child(n) for n in names]
+        heap, offs = bytearray(8), []
         for n in names:
             offs.append(len(heap))
             raw = n.encode() + b"\0"
             heap += raw + b"\0" * (_pad8(len(raw)) - len(raw))
-        n_snod = -(-len(names) // _SNOD_CAP)
-        self.addr[id(obj)] = {
-            "header": self.take(16 + 8 + 16), "heap": self.take(32),
-            "heap_data": self.take(len(heap)), "heap_bytes": bytes(heap),
-            "btree": self.take(_BTREE_SIZE),
-            "snods": [self.take(_SNOD_SIZE) for _ in range(n_snod)],
-            "offs": offs,
-        }
-        for n in names:
-            self.plan(obj._items[n])
+        idx = g._index
+        if len(heap) > idx["heap_cap"]:
+            cap = _pad8(len(heap) + len(heap) // 2)
+            idx["heap_data"], idx["heap_cap"] = self.alloc(cap), cap
+        self.write(idx["heap_data"], bytes(heap))
+        btree, heap_hdr = g._stab
+        self.write(heap_hdr, b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap), _HEAP_FREE_NULL,
+                                                   idx["heap_data"]))
+        snods = idx["snods"]
+        n_snod = -(-len(names) // self.leaf_cap)
+        while len(snods) < n_snod:
+            snods.append(self.alloc(self.snod_size))
+        children = []
+        for i in range(n_snod):
+            chunk = range(i * self.leaf_cap, min(len(names), (i + 1) * self.leaf_cap))
+            entries = b"".join(
+                _entry(offs[j], kids[j]._addr,
+                       kids[j]._stab if isinstance(kids[j], Group) else None) for j in chunk)
+            self.write(snods[i], b"SNOD" + struct.pack("<BBH", 1, 0, len(chunk)) + entries)
+            children.append((snods[i], offs[chunk[-1]]))
+        level, used = 0, 0
+        nodes = idx["nodes"]
+        while len(children) > self.node_cap:  # levels below the root
+            runs = [children[k:k + self.node_cap] for k in range(0, len(children), self.node_cap)]
+            while len(nodes) < used + len(runs):
+                nodes.append(self.alloc(self.node_size))
+            addrs = nodes[used:used + len(runs)]
+            used += len(runs)
+            left_key, parents = 0, []
+            for i, run in enumerate(runs):
+                self._write_node(addrs[i], level, run, left_key,
+                                 addrs[i - 1] if i else _UNDEF,
+                                 addrs[i + 1] if i + 1 < len(runs) else _UNDEF)
+                left_key = run[-1][1]
+                parents.append((addrs[i], left_key))
+            children, level = parents, level + 1
+        self._write_node(btree, level, children, 0)
 
-
-def _serialize(root: File) -> bytes:
-    lay = _Layout()
-    lay.plan(root)
-    out = bytearray(lay.pos)
-
-    def put(addr: int, data: bytes) -> None:
-        out[addr:addr + len(data)] = data
-
-    def emit(obj) -> None:
-        a = lay.addr[id(obj)]
-        if isinstance(obj, Dataset):
-            put(a["header"], _dataset_header(obj, a["data"]))
-            if obj.nbytes:
-                put(a["data"], np.asarray(obj).tobytes())
-            return
-        put(a["header"], _object_header([_message(0x0011, struct.pack("<QQ", a["btree"], a["heap"]))]))
-        put(a["heap"], b"HEAP" + struct.pack("<B3xQQQ", 0, len(a["heap_bytes"]),
-                                              _HEAP_FREE_NULL, a["heap_data"]))
-        put(a["heap_data"], a["heap_bytes"])
-        names = obj.keys()
-        btree = bytearray(b"TREE" + struct.pack("<BBHQQ", 0, 0, len(a["snods"]), _UNDEF, _UNDEF))
-        btree += struct.pack("<Q", 0)
-        for i, snod in enumerate(a["snods"]):
-            chunk = list(range(i * _SNOD_CAP, min(len(names), (i + 1) * _SNOD_CAP)))
-            entries = b""
-            for j in chunk:
-                child = obj._items[names[j]]
-                ca = lay.addr[id(child)]
-                grp = (ca["btree"], ca["heap"]) if isinstance(child, Group) else None
-                entries += _entry(a["offs"][j], ca["header"], grp)
-            put(snod, b"SNOD" + struct.pack("<BBH", 1, 0, len(chunk)) + entries)
-            btree += struct.pack("<QQ", snod, a["offs"][chunk[-1]])
-        put(a["btree"], bytes(btree))
-        for n in names:
-            emit(obj._items[n])
-
-    emit(root)
-    ra = lay.addr[id(root)]
-    sb = _SIG + struct.pack("<8B", 0, 0, 0, 0, 0, 8, 8, 0)
-    sb += struct.pack("<HHI", _LEAF_K, _INTERNAL_K, 0)
-    sb += struct.pack("<QQQQ", 0, _UNDEF, len(out), _UNDEF)
-    sb += _entry(0, ra["header"], (ra["btree"], ra["heap"]))
-    put(0, sb)
-    return bytes(out)
+    def close(self) -> None:
+        for g in self.dirty.values():
+            self.flush_group(g)
+        self.dirty.clear()
+        self.fh.seek(0, os.SEEK_END)
+        if self.fh.tell() < self.eof:
+            self.fh.truncate(self.eof)
+        self.write(self.eof_field, struct.pack("<Q", self.eof))
+        self.fh.flush()
 
 
 # ---------------------------------------------------------------------------
-# Reader (the layout above)
+# Reader
 # ---------------------------------------------------------------------------
+
+def _unfilter(raw: bytes, filters, mask: int, itemsize: int) -> bytes:
+    for i in reversed(range(len(filters))):
+        if mask & (1 << i):
+            continue
+        fid = filters[i]
+        if fid == 1:
+            raw = zlib.decompress(raw)
+        elif fid == 2:
+            n = len(raw) // itemsize
+            body = np.frombuffer(raw, np.uint8, n * itemsize).reshape(itemsize, n)
+            raw = body.T.tobytes() + raw[n * itemsize:]
+        else:
+            raise NotImplementedError(f"HDF5 filter {fid}")
+    return raw
+
 
 class _Reader:
-    def __init__(self, fh):
+    def __init__(self, fh, file: Optional[File] = None):
         self.fh = fh
+        self.file = file
+        sb = self.at(0, 48)
+        if sb[:8] != _SIG:
+            raise ValueError("not an HDF5 file")
+        self.version = sb[8]
+        self.leaf_k = self.internal_k = 0
+        if self.version == 0:
+            if sb[13] != 8 or sb[14] != 8:
+                raise NotImplementedError("HDF5 superblock with offsets or lengths not of 8 bytes")
+            self.leaf_k, self.internal_k = struct.unpack_from("<HH", sb, 16)
+            base_addr = struct.unpack_from("<Q", sb, 24)[0]
+            self.eof_field = 40
+            self.root = struct.unpack_from("<Q", self.at(56, 40), 8)[0]
+        elif self.version in (2, 3):
+            if sb[9] != 8 or sb[10] != 8:
+                raise NotImplementedError("HDF5 superblock with offsets or lengths not of 8 bytes")
+            base_addr, _, _, self.root = struct.unpack_from("<QQQQ", sb, 12)
+            self.eof_field = 28
+        else:
+            raise NotImplementedError(f"HDF5 superblock version {self.version}")
+        if base_addr != 0:
+            raise NotImplementedError("HDF5 file with a user block")
+        self.eof = struct.unpack_from("<Q", self.at(self.eof_field, 8))[0]
 
-    def _at(self, addr: int, n: int) -> bytes:
+    def at(self, addr: int, n: int) -> bytes:
         self.fh.seek(addr)
         b = self.fh.read(n)
         if len(b) != n:
             raise ValueError("truncated HDF5 file")
         return b
 
-    def read_root(self, root: File) -> None:
-        sb = self._at(0, 96)
-        if sb[:8] != _SIG:
-            raise ValueError("not an HDF5 file")
-        if sb[8] != 0 or sb[13] != 8 or sb[14] != 8:
-            raise NotImplementedError(
-                "HDF5 file from another writer (superblock version "
-                f"{sb[8]}); reading it needs h5py")
-        header = struct.unpack_from("<Q", sb, 56 + 8)[0]
-        self._read_group(header, root)
+    # -- object headers ----------------------------------------------------
 
-    def _messages(self, addr: int):
-        ver, _, n, _, size = struct.unpack_from("<BBHII", self._at(addr, 16))
+    def messages(self, addr: int):
+        """[(type, flags, data)] of the object header at ``addr``."""
+        out = []
+        if self.at(addr, 4) == b"OHDR":
+            pre = self.at(addr, 6)
+            if pre[4] != 2:
+                raise NotImplementedError(f"object header version {pre[4]}")
+            flags = pre[5]
+            p = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+            width = 1 << (flags & 3)
+            size = _u(self.at(addr + p, width))
+            blocks = [(addr + p + width, size)]
+            hlen = 6 if flags & 0x04 else 4
+            while blocks:
+                start, size = blocks.pop(0)
+                body = self.at(start, size)
+                q = 0
+                while q + hlen <= len(body):
+                    mtype, msize, mflags = struct.unpack_from("<BHB", body, q)
+                    data = body[q + hlen:q + hlen + msize]
+                    q += hlen + msize
+                    if mtype == 0x10:
+                        off, length = struct.unpack_from("<QQ", data)
+                        if self.at(off, 4) != b"OCHK":
+                            raise ValueError("bad object header continuation block")
+                        blocks.append((off + 4, length - 8))
+                    elif mtype:
+                        out.append((mtype, mflags, data))
+            return out
+        ver, _, n, _, size = struct.unpack_from("<BBHII", self.at(addr, 16))
         if ver != 1:
-            raise NotImplementedError(f"object header version {ver}; reading it needs h5py")
-        body = self._at(addr + 16, size)
-        pos, out = 0, []
-        while pos + 8 <= len(body) and len(out) < n:
-            mtype, msize = struct.unpack_from("<HH", body, pos)
-            out.append((mtype, body[pos + 8:pos + 8 + msize]))
-            pos += 8 + msize
+            raise NotImplementedError(f"object header version {ver}")
+        blocks = [(addr + 16, size)]
+        while blocks:
+            start, size = blocks.pop(0)
+            body = self.at(start, size)
+            q = 0
+            while q + 8 <= len(body):
+                mtype, msize, mflags = struct.unpack_from("<HHB", body, q)
+                data = body[q + 8:q + 8 + msize]
+                q += 8 + msize
+                if mtype == 0x10:
+                    blocks.append(struct.unpack_from("<QQ", data))
+                elif mtype:
+                    out.append((mtype, mflags, data))
         return out
 
-    def _read_group(self, header: int, group: Group) -> None:
-        msgs = dict(self._messages(header))
-        if 0x0011 not in msgs:
-            raise NotImplementedError("group without a symbol table; reading it needs h5py")
-        btree, heap = struct.unpack_from("<QQ", msgs[0x0011])
-        hdr = self._at(heap, 32)
-        if hdr[:4] != b"HEAP":
-            raise ValueError("bad local heap")
-        size, _, data_addr = struct.unpack_from("<QQQ", hdr, 8)
-        names = self._at(data_addr, size)
-        for name_off, child in self._entries(btree):
-            name = names[name_off:names.index(b"\0", name_off)].decode()
-            full = f"{group.name.rstrip('/')}/{name}"
-            cm = dict(self._messages(child))
-            if 0x0011 in cm:
-                sub = Group(full)
-                self._read_group(child, sub)
-                group._items[name] = sub
+    # -- groups ------------------------------------------------------------
+
+    def read_root(self, root: File) -> None:
+        root._addr = self.root
+        self._read_group(self.root, root, self.messages(self.root))
+
+    def appendable(self, root: Group) -> bool:
+        """Whether the writer can append to this file in place: superblock 0,
+        whose writers (libhdf5 under ``libver="earliest"``, this module) make
+        every group a symbol table."""
+        return self.version == 0 and root._stab is not None
+
+    def read_object(self, parent: Group, name: str, addr: int):
+        """The group or dataset whose object header is at ``addr``."""
+        msgs = self.messages(addr)
+        types = {m[0] for m in msgs}
+        if 0x0008 in types:
+            return self._dataset(parent._child_name(name), msgs, addr)
+        if types & {0x0011, 0x0002, 0x0006, 0x000A}:
+            sub = Group(parent._child_name(name), self.file)
+            sub._addr = addr
+            self._read_group(addr, sub, msgs)
+            return sub
+        raise NotImplementedError(f"{parent._child_name(name)}: HDF5 object that is neither "
+                                  "a group nor a dataset")
+
+    def _read_group(self, addr: int, group: Group, msgs) -> None:
+        links = []
+        for mtype, _, data in msgs:
+            if mtype == 0x0011:
+                group._stab = struct.unpack_from("<QQ", data)
+                links += self.stab_links(group._stab[0], group._stab[1])[0]
+            elif mtype == 0x0006:
+                links.append(self._link(data))
+            elif mtype == 0x0002:
+                flags = data[1]
+                heap, name_index = struct.unpack_from("<QQ", data, 2 + (8 if flags & 1 else 0))
+                if heap != _UNDEF:
+                    links += self._dense_links(heap, name_index)
+        group._links.update(links)
+
+    def stab_links(self, btree: int, heap: Optional[int] = None):
+        """A symbol-table group's (name, header) links, and the addresses of
+        its symbol-table nodes and non-root B-tree nodes."""
+        names = b""
+        if heap is not None:
+            hdr = self.at(heap, 32)
+            if hdr[:4] != b"HEAP":
+                raise ValueError("bad local heap")
+            size, _, data_addr = struct.unpack_from("<QQQ", hdr, 8)
+            names = self.at(data_addr, size)
+        links, snods, nodes = [], [], []
+
+        def walk(addr: int, root: bool) -> None:
+            hdr = self.at(addr, 24)
+            if hdr[:4] != b"TREE" or hdr[4] != 0:
+                raise ValueError("bad group B-tree")
+            if not root:
+                nodes.append(addr)
+            level, used = hdr[5], struct.unpack_from("<H", hdr, 6)[0]
+            body = self.at(addr + 24, 8 + used * 16)
+            for i in range(used):
+                child = struct.unpack_from("<Q", body, 8 + 16 * i)[0]
+                if level > 0:
+                    walk(child, False)
+                    continue
+                snods.append(child)
+                snod = self.at(child, 8)
+                if snod[:4] != b"SNOD":
+                    raise ValueError("bad symbol-table node")
+                count = struct.unpack_from("<H", snod, 6)[0]
+                raw = self.at(child + 8, 40 * count)
+                for j in range(count):
+                    name_off, header = struct.unpack_from("<QQ", raw, 40 * j)
+                    if heap is not None:
+                        links.append((names[name_off:names.index(b"\0", name_off)].decode(),
+                                      header))
+
+        walk(btree, True)
+        return links, snods, nodes
+
+    @staticmethod
+    def _link(data: bytes):
+        flags = data[1]
+        p = 2
+        ltype = 0
+        if flags & 0x08:
+            ltype, p = data[p], p + 1
+        p += (8 if flags & 0x04 else 0) + (1 if flags & 0x10 else 0)
+        width = 1 << (flags & 3)
+        n = _u(data[p:p + width])
+        name = data[p + width:p + width + n].decode()
+        if ltype != 0:
+            raise NotImplementedError(f"{name}: HDF5 soft or external link")
+        return name, struct.unpack_from("<Q", data, p + width + n)[0]
+
+    def _dense_links(self, heap_addr: int, btree_addr: int):
+        heap = _FractalHeap(self, heap_addr)
+        return [self._link(heap.get(rec[4:])) for rec in self._v2_records(btree_addr)]
+
+    def _v2_records(self, addr: int) -> List[bytes]:
+        """Every record of a v2 B-tree."""
+        hdr = self.at(addr, 38)
+        if hdr[:4] != b"BTHD":
+            raise ValueError("bad v2 B-tree header")
+        node_size, rec, depth = struct.unpack_from("<IHH", hdr, 6)
+        root, root_n = struct.unpack_from("<QH", hdr, 16)
+        max_n = [(node_size - 10) // rec]
+        nrec_size = _enc_size(max_n[0])
+        cum, cum_size = [max_n[0]], [0]
+        for d in range(1, depth + 1):
+            ptr = 8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+            max_n.append((node_size - (10 + ptr)) // (rec + ptr))
+            cum.append((max_n[d] + 1) * cum[d - 1] + max_n[d])
+            cum_size.append(_enc_size(cum[d]))
+        out: List[bytes] = []
+
+        def walk(node: int, n: int, d: int) -> None:
+            if node == _UNDEF or n == 0:
+                return
+            if d == 0:
+                body = self.at(node + 6, n * rec)
+                out.extend(body[i * rec:(i + 1) * rec] for i in range(n))
+                return
+            ptr = 8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+            body = self.at(node + 6, n * rec + (n + 1) * ptr)
+            out.extend(body[i * rec:(i + 1) * rec] for i in range(n))
+            for i in range(n + 1):
+                p = n * rec + i * ptr
+                child = struct.unpack_from("<Q", body, p)[0]
+                walk(child, _u(body[p + 8:p + 8 + nrec_size]), d - 1)
+
+        walk(root, root_n, depth)
+        return out
+
+    # -- datasets ----------------------------------------------------------
+
+    def _dataset(self, name: str, msgs, addr: int) -> Dataset:
+        by = {}
+        for mtype, mflags, data in msgs:
+            if mtype in (0x0003,) and mflags & 0x02:
+                raise NotImplementedError(f"{name}: shared (committed) HDF5 datatype")
+            by.setdefault(mtype, data)
+        space, dtype_msg, layout = by.get(0x0001), by.get(0x0003), by.get(0x0008)
+        if space is None or dtype_msg is None:
+            raise NotImplementedError(f"{name}: dataset without a dataspace or datatype")
+        rank, sflags = space[1], space[2]
+        if space[0] == 2 and space[3] == 2:
+            raise NotImplementedError(f"{name}: null dataspace")
+        p = 8 if space[0] == 1 else 4
+        shape = struct.unpack_from(f"<{rank}Q", space, p)
+        maxshape = (struct.unpack_from(f"<{rank}Q", space, p + 8 * rank) if sflags & 1
+                    else shape)
+        dtype = _parse_dtype(dtype_msg)
+        filters = self._filters(by.get(0x000B))
+        fh = self.fh
+        if layout[0] not in (3, 4):
+            raise NotImplementedError(f"{name}: HDF5 data layout message version {layout[0]}")
+        cls = layout[1]
+        if cls == 1:
+            data_addr = struct.unpack_from("<Q", layout, 2)[0]
+            return Dataset(name, shape, dtype,
+                           _read_contiguous(fh, name, data_addr, shape, dtype), addr)
+        if cls == 0:
+            n = struct.unpack_from("<H", layout, 2)[0]
+            raw = bytes(layout[4:4 + n])
+            count = int(np.prod(shape))
+            return Dataset(name, shape, dtype,
+                           lambda: np.frombuffer(raw, dtype, count).reshape(shape).copy(), addr)
+        if cls != 2:
+            raise NotImplementedError(f"{name}: HDF5 layout class {cls}")
+        chunks = _ChunkIndex(self, name, layout, shape, maxshape, dtype.itemsize, filters)
+        file = self.file
+
+        def read() -> np.ndarray:
+            if file is not None and file.closed:
+                raise ValueError(f"dataset {name} read after its file was closed")
+            return chunks.assemble(dtype, filters)
+        return Dataset(name, shape, dtype, read, addr)
+
+    @staticmethod
+    def _filters(msg: Optional[bytes]) -> List[int]:
+        if msg is None:
+            return []
+        ver, n = msg[0], msg[1]
+        p = 8 if ver == 1 else 2
+        ids = []
+        for _ in range(n):
+            fid = struct.unpack_from("<H", msg, p)[0]
+            if ver == 1 or fid >= 256:
+                name_len, _, nvals = struct.unpack_from("<HHH", msg, p + 2)
+                p += 8
             else:
-                group._items[name] = self._dataset(full, cm)
+                name_len, (_, nvals) = 0, struct.unpack_from("<HH", msg, p + 2)
+                p += 6
+            p += name_len + 4 * nvals + (4 if ver == 1 and nvals % 2 else 0)
+            ids.append(fid)
+        return ids
 
-    def _entries(self, btree: int):
-        hdr = self._at(btree, 24)
-        if hdr[:4] != b"TREE" or hdr[4] != 0:
-            raise ValueError("bad group B-tree")
+
+class _FractalHeap:
+    """Managed objects of a fractal heap (dense link storage)."""
+
+    def __init__(self, r: _Reader, addr: int):
+        h = r.at(addr, 146)
+        if h[:4] != b"FRHP":
+            raise ValueError("bad fractal heap header")
+        self.r = r
+        self.id_len, filt_len, self.flags = struct.unpack_from("<HHB", h, 5)
+        if filt_len:
+            raise NotImplementedError("filtered fractal heap")
+        self.max_man = struct.unpack_from("<I", h, 10)[0]
+        self.width = struct.unpack_from("<H", h, 110)[0]
+        self.start, self.max_direct = struct.unpack_from("<QQ", h, 112)
+        self.max_bits, _, self.root, self.rows = struct.unpack_from("<HHQH", h, 128)
+        self.off_size = (self.max_bits + 7) // 8
+        self.len_size = min((_log2(self.max_direct) + 7) // 8, _enc_size(self.max_man))
+        self.direct_rows = _log2(self.max_direct) - _log2(self.start) + 2
+
+    def _row_size(self, row: int) -> int:
+        return self.start if row == 0 else self.start << (row - 1)
+
+    def get(self, hid: bytes) -> bytes:
+        if (hid[0] >> 4) & 3:  # a link message never fits a tiny object's ID
+            raise NotImplementedError("huge or tiny object in a fractal heap")
+        off = _u(hid[1:1 + self.off_size])
+        n = _u(hid[1 + self.off_size:1 + self.off_size + self.len_size])
+        if self.rows == 0:
+            return self.r.at(self.root + off, n)
+        return self._from_indirect(self.root, self.rows, 0, off, n)
+
+    def _from_indirect(self, addr: int, rows: int, block_off: int, off: int, n: int) -> bytes:
+        head = 4 + 1 + 8 + self.off_size
+        n_direct = min(rows, self.direct_rows)
+        pos = block_off
+        for row in range(rows):
+            size = self._row_size(row)
+            for col in range(self.width):
+                if pos <= off < pos + size:
+                    if row < self.direct_rows:
+                        slot = head + 8 * (row * self.width + col)
+                    else:
+                        slot = head + 8 * (n_direct * self.width
+                                           + (row - n_direct) * self.width + col)
+                    child = struct.unpack_from("<Q", self.r.at(addr + slot, 8))[0]
+                    if row < self.direct_rows:
+                        return self.r.at(child + off - pos, n)
+                    child_rows = _log2(size) - (_log2(self.start) + _log2(self.width)) + 1
+                    return self._from_indirect(child, child_rows, pos, off, n)
+                pos += size
+        raise ValueError("fractal heap offset out of range")
+
+
+class _ChunkIndex:
+    """The chunks of a chunked dataset: (offset, address, size, filter mask)."""
+
+    def __init__(self, r: _Reader, name: str, layout: bytes, shape, maxshape, itemsize: int,
+                 filters):
+        self.r, self.name, self.shape = r, name, tuple(shape)
+        self.itemsize = itemsize
+        self.filtered = bool(filters)
+        ver = layout[0]
+        if ver == 3:
+            nd = layout[2]
+            self.index_addr = struct.unpack_from("<Q", layout, 3)[0]
+            self.chunk = struct.unpack_from(f"<{nd}I", layout, 11)[:-1]
+            self.kind, self.params = 0, None
+        else:
+            flags, nd, enc = layout[2], layout[3], layout[4]
+            p = 5
+            dims = [_u(layout[p + i * enc:p + (i + 1) * enc]) for i in range(nd)]
+            self.chunk = tuple(dims[:-1])
+            p += nd * enc
+            self.kind = layout[p]
+            p += 1
+            if self.kind == 1:
+                if flags & 0x02:
+                    fsize, fmask = struct.unpack_from("<QI", layout, p)
+                    p += 12
+                else:
+                    fsize, fmask = None, 0
+                self.params = (fsize, fmask)
+            elif self.kind == 3:
+                self.params = layout[p]
+                p += 1
+            elif self.kind == 4:
+                self.params = tuple(layout[p:p + 5])
+                p += 5
+            else:
+                raise NotImplementedError(f"{name}: HDF5 chunk index type {self.kind} "
+                                          "(implicit or v2 B-tree)")
+            self.index_addr = struct.unpack_from("<Q", layout, p)[0]
+        unlimited = [i for i, m in enumerate(maxshape) if m == _UNDEF]
+        if unlimited and unlimited != [0] and self.kind in (3, 4):
+            raise NotImplementedError(f"{name}: unlimited dimension other than the first")
+        # chunk counts over the maximal dims, which order the linear chunk index
+        self.grid = [-(-(m if m != _UNDEF else s) // c) if c else 0
+                     for m, s, c in zip(maxshape, self.shape, self.chunk)]
+        self.nbytes = int(np.prod(self.chunk, dtype=np.int64)) * itemsize
+
+    def _coords(self, idx: int):
+        out = []
+        for g in reversed(self.grid[1:]):
+            out.append(idx % g)
+            idx //= g
+        out.append(idx)
+        return tuple(c * s for c, s in zip(reversed(out), self.chunk))
+
+    def chunks(self):
+        if self.index_addr == _UNDEF:
+            return
+        if self.kind == 0:
+            yield from self._btree(self.index_addr)
+        elif self.kind == 1:
+            fsize, fmask = self.params
+            yield (0,) * len(self.chunk), self.index_addr, fsize or self.nbytes, fmask
+        elif self.kind == 3:
+            yield from self._fixed_array()
+        else:
+            yield from self._extensible_array()
+
+    def _element(self, raw: bytes):
+        addr = struct.unpack_from("<Q", raw)[0]
+        if not self.filtered:
+            return addr, self.nbytes, 0
+        return addr, _u(raw[8:-4]), struct.unpack_from("<I", raw, len(raw) - 4)[0]
+
+    def _btree(self, addr: int):
+        r = self.r
+        hdr = r.at(addr, 24)
+        if hdr[:4] != b"TREE" or hdr[4] != 1:
+            raise ValueError(f"{self.name}: bad chunk B-tree")
         level, used = hdr[5], struct.unpack_from("<H", hdr, 6)[0]
-        body = self._at(btree + 24, 8 + used * 16)
+        nd = len(self.chunk) + 1
+        ksize = 8 + 8 * nd
+        body = r.at(addr + 24, used * (ksize + 8) + ksize)
         for i in range(used):
-            child = struct.unpack_from("<Q", body, 8 + 16 * i)[0]
+            p = i * (ksize + 8)
+            size, mask = struct.unpack_from("<II", body, p)
+            offset = struct.unpack_from(f"<{nd}Q", body, p + 8)[:-1]
+            child = struct.unpack_from("<Q", body, p + ksize)[0]
             if level > 0:
-                yield from self._entries(child)
-                continue
-            snod = self._at(child, 8)
-            if snod[:4] != b"SNOD":
-                raise ValueError("bad symbol-table node")
-            count = struct.unpack_from("<H", snod, 6)[0]
-            raw = self._at(child + 8, 40 * count)
-            for j in range(count):
-                yield struct.unpack_from("<QQ", raw, 40 * j)
+                yield from self._btree(child)
+            else:
+                yield offset, child, size, mask
 
-    def _dataset(self, name: str, msgs: dict) -> Dataset:
-        space, dtype, layout = msgs.get(0x0001), msgs.get(0x0003), msgs.get(0x0008)
-        if space is None or dtype is None or layout is None:
-            raise NotImplementedError(f"{name}: not a plain dataset")
-        rank = space[1]
-        shape = struct.unpack_from(f"<{rank}Q", space, 8)
-        if layout[0] != 3 or layout[1] != 1:
-            raise NotImplementedError(f"{name}: chunked or compact layout; reading it needs h5py")
-        addr, _ = struct.unpack_from("<QQ", layout, 2)
-        return Dataset(name, file=self.fh, offset=addr, shape=shape, dtype=_parse_dtype(dtype))
+    def _fixed_array(self):
+        r = self.r
+        h = r.at(self.index_addr, 28)
+        if h[:4] != b"FAHD":
+            raise ValueError(f"{self.name}: bad fixed array header")
+        esize, page_bits = h[6], h[7]
+        n, dblk = struct.unpack_from("<QQ", h, 8)
+        page_n = 1 << page_bits
+        if n <= page_n:
+            body = r.at(dblk + 14, n * esize)
+            for i in range(n):
+                a, s, m = self._element(body[i * esize:(i + 1) * esize])
+                yield self._coords(i), a, s, m
+            return
+        npages = -(-n // page_n)
+        bitmap = r.at(dblk + 14, (npages + 7) // 8)
+        first = dblk + 14 + len(bitmap) + 4
+        for pg in range(npages):
+            if not bitmap[pg // 8] & (0x80 >> (pg % 8)):
+                continue
+            k = min(page_n, n - pg * page_n)
+            body = r.at(first + pg * (page_n * esize + 4), k * esize)
+            for j in range(k):
+                a, s, m = self._element(body[j * esize:(j + 1) * esize])
+                yield self._coords(pg * page_n + j), a, s, m
+
+    def _extensible_array(self):
+        r = self.r
+        h = r.at(self.index_addr, 72)
+        if h[:4] != b"EAHD":
+            raise ValueError(f"{self.name}: bad extensible array header")
+        esize, max_bits, iblk_n, dblk_min, sblk_min_ptrs, page_bits = h[6:12]
+        n_set = struct.unpack_from("<Q", h, 44)[0]
+        iblock = struct.unpack_from("<Q", h, 60)[0]
+        nsblks = 1 + max_bits - _log2(dblk_min)
+        info, start_idx, start_dblk = [], 0, 0
+        for u in range(nsblks):
+            ndblks, dn = 1 << (u // 2), (1 << ((u + 1) // 2)) * dblk_min
+            info.append((ndblks, dn, start_idx, start_dblk))
+            start_idx += ndblks * dn
+            start_dblk += ndblks
+        ib_nsblks = 2 * _log2(sblk_min_ptrs)
+        n_dblk_addrs = 2 * (sblk_min_ptrs - 1)
+        n_sblk_addrs = nsblks - ib_nsblks
+        off_size = (max_bits + 7) // 8
+        page_n = 1 << page_bits
+        ib = r.at(iblock + 14, iblk_n * esize + 8 * (n_dblk_addrs + n_sblk_addrs))
+        dblk_addrs = struct.unpack_from(f"<{n_dblk_addrs}Q", ib, iblk_n * esize)
+        sblk_addrs = struct.unpack_from(f"<{n_sblk_addrs}Q", ib, iblk_n * esize + 8 * n_dblk_addrs)
+
+        prefix = 4 + 1 + 1 + 8 + off_size  # a data block's header
+        for i in range(min(iblk_n, n_set)):
+            yield (self._coords(i),) + self._element(ib[i * esize:(i + 1) * esize])
+        for u, (ndblks, dn, s_idx, s_dblk) in enumerate(info):
+            base = iblk_n + s_idx
+            if base >= n_set:
+                break
+            if dn > page_n:  # past 131056 chunks
+                raise NotImplementedError(f"{self.name}: paged extensible-array data block")
+            if u < ib_nsblks:
+                addrs = dblk_addrs[s_dblk:s_dblk + ndblks]
+            else:
+                sb = sblk_addrs[u - ib_nsblks]
+                if sb == _UNDEF:
+                    continue
+                addrs = struct.unpack_from(f"<{ndblks}Q", r.at(sb + 14 + off_size, 8 * ndblks))
+            for d, addr in enumerate(addrs):
+                first = base + d * dn
+                if first >= n_set or addr == _UNDEF:
+                    continue
+                count = min(dn, n_set - first)
+                body = r.at(addr + prefix, count * esize)
+                for j in range(count):
+                    raw = body[j * esize:(j + 1) * esize]
+                    yield (self._coords(first + j),) + self._element(raw)
+
+    def assemble(self, dtype: np.dtype, filters) -> np.ndarray:
+        out = np.zeros(self.shape, dtype)
+        if out.size == 0:
+            return out
+        for offset, addr, size, mask in self.chunks():
+            if addr == _UNDEF or any(o >= s for o, s in zip(offset, self.shape)):
+                continue
+            raw = _unfilter(self.r.at(addr, size), filters, mask, self.itemsize)
+            block = np.frombuffer(raw, dtype, int(np.prod(self.chunk))).reshape(self.chunk)
+            dst = tuple(slice(o, min(o + c, s)) for o, c, s in zip(offset, self.chunk, self.shape))
+            out[dst] = block[tuple(slice(0, d.stop - d.start) for d in dst)]
+        return out

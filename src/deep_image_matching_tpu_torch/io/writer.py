@@ -3,8 +3,8 @@
 ``MatchWriter`` keeps raw_matches.h5 and matches.h5 open for a whole match
 stage; ``AsyncFeatureWriter`` moves features.h5 writes to one background
 thread so extraction batches overlap the host-side file work. Both write
-through ``io/hdf5.py``, which builds a file in memory and writes it once on
-close.
+through ``io/hdf5.py``, which appends each dataset to the file as it is
+created and writes the group indexes on close.
 """
 
 from __future__ import annotations
@@ -26,9 +26,9 @@ logger = logging.getLogger("dim_tpu_torch")
 class MatchWriter:
     """Persistent-handle writer for ``raw_matches.h5`` + ``matches.h5``.
 
-    ``save_matches`` opens, rebuilds and closes the file per call; this
-    writer keeps both files open for the duration of a match stage
-    (single-threaded) and writes each once at the end. The per-pair dataset
+    ``save_matches`` opens and closes the file per call; this writer keeps
+    both files open for the duration of a match stage (single-threaded), so
+    their group indexes are written once, at the end. The per-pair dataset
     semantics are identical to ``save_matches`` (group per first image,
     overwrite-on-rewrite)."""
 
@@ -74,7 +74,7 @@ class MatchWriter:
 
 class AsyncFeatureWriter:
     """features.h5 writes on one background thread; ``close()`` joins it,
-    writes the file and re-raises any error of the thread."""
+    closes the file and re-raises any error of the thread."""
 
     def __init__(self, feature_path, maxsize: int = 32):
         self.feature_path = feature_path

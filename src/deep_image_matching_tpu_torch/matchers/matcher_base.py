@@ -544,9 +544,10 @@ class DetectorFreeMatcher(MatcherBase):
     host verification and writes overlap the next chunks' device work.
 
     Durability: features.h5, raw_matches.h5 and matches.h5 stay open for the
-    whole stage and are written when it ends (``io/hdf5.py`` builds a file in
-    memory); each image's appended keypoints replace its ``keypoints``
-    dataset once, by their concatenation. A run killed mid-stage keeps
+    whole stage and their group indexes are written when it ends
+    (``io/hdf5.py`` appends the datasets as they come); each image's
+    appended keypoints replace its ``keypoints`` dataset once, by their
+    concatenation. A run killed mid-stage keeps
     features.h5 as the extractor wrote it and no match files, so
     ``--resume`` matches every pair again; a stage that ends in an exception
     writes what it finished, the keypoints and the matches of the same

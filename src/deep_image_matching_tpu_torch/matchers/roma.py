@@ -28,6 +28,7 @@ import torch
 
 from ..models import dinov2
 from ..models import roma as roma_model
+from ..utils.device import to_device
 from ..utils.image import read_image, resize_image
 from .matcher_base import DetectorFreeMatcher
 
@@ -109,7 +110,7 @@ class RomaMatcher(DetectorFreeMatcher):
         # bf16 halves the local-correlation gather payload; opt-in
         self.corr_dtype = _dtype(self.conf.get("corr_dtype"))
         self.attenuate = bool(self.conf.get("attenuate_cert", True))
-        params = roma_model.to_device(load_params(), self.device)
+        params = to_device(load_params(), self.device)
         # DINOv2's blocks cast once, not per pair
         self.params = {**params, "dinov2": dinov2.prepare(params["dinov2"], self.encoder_dtype)}
         self._key = 0

@@ -109,14 +109,6 @@ def init_params(dinov2_depth: int = 2) -> Params:
     return roma_params_from_jax(init_tree(dinov2_depth))
 
 
-def to_device(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [to_device(v, device) for v in tree]
-    return tree.to(device)
-
-
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------

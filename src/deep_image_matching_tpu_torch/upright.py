@@ -283,7 +283,8 @@ def rotate_upright_images(image_list, output_dir, config) -> Dict[str, dict]:
 def rotate_back_features(feature_path, rotated: Dict[str, dict]) -> None:
     """Move the keypoints in features.h5 back into the original frames, in
     their order and dtype, and swap ``image_size`` (int64 (w, h)) at 90 and
-    270 degrees. ``io/hdf5.py`` rewrites the file on close."""
+    270 degrees, in place: the old datasets are unlinked, the new ones
+    appended."""
     from .io import hdf5
 
     with hdf5.File(feature_path, "a") as fd:

@@ -53,3 +53,12 @@ def full_f32():
     finally:
         torch.backends.cudnn.allow_tf32 = conv
         torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+def to_device(tree, device: torch.device):
+    """A parameter tree (dicts, lists of tensors) moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
