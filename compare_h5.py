@@ -3,9 +3,10 @@
     python3 compare_h5.py OTHER_ROOT [--views N]
 
 OTHER_ROOT is another checkout of this repository (for example the parent
-commit unpacked with ``git archive``). Each run is its own process, in the
-order other, this, this, other, with that checkout's package first on the
-path: ``run_matching --pipeline superpoint+lightglue`` (random weights, match
+commit unpacked with ``git archive``). Each run is its own process, five of
+each checkout in the order other, this, this, other, other, this, ..., with
+that checkout's package first on the path:
+``run_matching --pipeline superpoint+lightglue`` (random weights, match
 threshold 0, ``bruteforce``, --skip_reconstruction) on ``chip_smoke.py``'s
 synthetic views (16 of 1024 x 1024 by default, made once under
 ``build/compare_h5/``), after one warm-up run. Every call into the
@@ -14,13 +15,15 @@ checkout's ``io/hdf5.py`` (``File`` open and close, ``create_dataset``,
 the background feature writer's; a run reports the sum (``h5_s``: the h5
 write wall), its calls, the run's wall and stage walls, the three files'
 sizes and the process's peak resident memory. Prints one JSON line a run,
-then each checkout's mean of its two runs as the last line.
+then as the last line each checkout's median, least and greatest of its
+runs.
 """
 
 from __future__ import annotations
 
 import json
 import resource
+import statistics
 import subprocess
 import sys
 import threading
@@ -29,6 +32,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "compare_h5"
+RUNS = 5  # of each checkout: two runs a tree could not resolve the h5 wall
 
 
 def measure(src: str, views: int) -> dict:
@@ -111,7 +115,8 @@ def main() -> None:
         "general:\n  allow_random_weights: true\n  tpu:\n    device: cuda\n"
         "matcher:\n  filter_threshold: 0.0\n")
     runs = {"other": [], "this": []}
-    for who in ("other", "this", "this", "other"):
+    order = [("other", "this", "this", "other")[i % 4] for i in range(2 * RUNS)]
+    for who in order:
         src = (other if who == "other" else ROOT) / "src"
         res = subprocess.run([sys.executable, __file__, "--measure", str(src), "--views",
                               str(views)], capture_output=True, text=True)
@@ -121,8 +126,9 @@ def main() -> None:
         print(json.dumps({"run": who, **line}), flush=True)
         runs[who].append(line)
     keys = ("h5_s", "h5_calls", "wall_s", "peak_rss_gib")
-    print(json.dumps({who: {k: sum(r[k] for r in rs) / len(rs) for k in keys}
-                      for who, rs in runs.items()}), flush=True)
+    print(json.dumps({who: {k: {"median": statistics.median(r[k] for r in rs),
+                                "min": min(r[k] for r in rs), "max": max(r[k] for r in rs)}
+                            for k in keys} for who, rs in runs.items()}), flush=True)
 
 
 if __name__ == "__main__":

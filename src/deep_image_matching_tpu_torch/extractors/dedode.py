@@ -5,9 +5,11 @@ The reference's config surface (``n_features``, ``resolution``, and
 ``resolution`` x ``resolution`` (a multiple of 56 for G: its DINOv2 tokens
 are 1/14 and its pyramid 1/8), the detector keeps ``n_features`` rounded up
 to 128 keypoints, all valid, and the descriptor reads them; keypoints go
-back to the image's pixels. Descriptor G's DINOv2 runs in bf16, or in f32
-where ``general.tpu.dtype`` is ``float32`` (on CUDA its attention is kernel
-1's bf16 or f32 form).
+back to the image's pixels. The convolutions run in full f32
+(``utils/device.full_f32``: under cuDNN's default TF32 the card's top-k at
+784 px no longer matched the CPU's). Descriptor G's DINOv2 runs in bf16, or
+in f32 where ``general.tpu.dtype`` is ``float32`` (on CUDA its attention is
+kernel 1's bf16 or f32 form).
 
 Weights: ``dedode_detector_L.pth`` (or ``_v2``), ``dedode_descriptor_B.pth``,
 ``dedode_descriptor_G.pth`` with ``dinov2_vitl14_pretrain.pth`` in
@@ -28,7 +30,7 @@ import torch
 
 from ..models import dedode as dd
 from ..models import dinov2
-from ..utils.device import check_matcher_dtype, resolve_device, to_device
+from ..utils.device import check_matcher_dtype, full_f32, resolve_device, to_device
 from ..utils.image import resize_image
 from .extractor_base import ExtractorBase, FeaturesDict
 
@@ -130,11 +132,12 @@ class DeDoDeExtractor(ExtractorBase):
         work = resize_image(image.astype(np.float32), (res, res))
         batch = torch.from_numpy(np.ascontiguousarray(work[None])).to(self.device)
         cap = -(-self.n_features // 128) * 128
-        kpts, conf, valid = dd.detect(self.det_params, batch, num_keypoints=cap)
-        if self.descriptor_variant == "G":
-            descs = dd.describe_g(self.desc_params, batch, kpts, dino_dtype=self.dino_dtype)
-        else:
-            descs = dd.describe(self.desc_params, batch, kpts)
+        with full_f32():
+            kpts, conf, valid = dd.detect(self.det_params, batch, num_keypoints=cap)
+            if self.descriptor_variant == "G":
+                descs = dd.describe_g(self.desc_params, batch, kpts, dino_dtype=self.dino_dtype)
+            else:
+                descs = dd.describe(self.desc_params, batch, kpts)
         kpts, conf, valid, descs = (t[0].cpu().numpy() for t in (kpts, conf, valid, descs))
         kpts = kpts[valid] * np.array([w / res, h / res], np.float32)
         return {"keypoints": kpts, "scores": conf[valid], "descriptors": descs[valid]}

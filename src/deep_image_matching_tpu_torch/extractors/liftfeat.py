@@ -4,7 +4,9 @@ The reference's config surface (``max_keypoints``, ``detect_threshold``).
 Each grey image (RGB averaged) is padded to multiples of 32 and run through
 ``models/liftfeat.py`` on the configured device with a capacity of
 ``max_keypoints`` (at most 8192) rounded up to 128; keypoints, scores and
-64-d descriptors are trimmed to the valid rows. Weights: ``LiftFeat.pth`` or
+64-d descriptors are trimmed to the valid rows. The convolutions and
+products run in full f32 (``utils/device.full_f32``), not cuDNN's default
+TF32. Weights: ``LiftFeat.pth`` or
 ``liftfeat.pth`` in DIM_TPU_WEIGHTS_DIR or ~/.cache/dim_tpu (the state dict
 under ``state_dict`` or at the top), else the JAX package's seeded random
 weights under the weights policy.
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from ..models import liftfeat as lf_model
-from ..utils.device import resolve_device, to_device
+from ..utils.device import full_f32, resolve_device, to_device
 from .extractor_base import ExtractorBase, FeaturesDict
 
 logger = logging.getLogger("dim_tpu_torch")
@@ -82,11 +84,12 @@ class LiftFeatExtractor(ExtractorBase):
         ph, pw = -(-h // 32) * 32, -(-w // 32) * 32
         batch = np.zeros((1, ph, pw, 1), np.float32)
         batch[0, :h, :w, 0] = image
-        out = lf_model.extract(
-            self.params, torch.from_numpy(batch).to(self.device),
-            torch.tensor([[h, w]], device=self.device),
-            top_k=-(-min(self.max_keypoints, 8192) // 128) * 128,
-            detection_threshold=self.threshold)
+        with full_f32():
+            out = lf_model.extract(
+                self.params, torch.from_numpy(batch).to(self.device),
+                torch.tensor([[h, w]], device=self.device),
+                top_k=-(-min(self.max_keypoints, 8192) // 128) * 128,
+                detection_threshold=self.threshold)
         out = {k: v[0].cpu().numpy() for k, v in out.items()}
         m = out["mask"]
         return {"keypoints": out["keypoints"][m], "scores": out["scores"][m],

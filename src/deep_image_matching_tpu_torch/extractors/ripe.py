@@ -5,10 +5,12 @@ Each image (RGB in [0, 1]) is padded to multiples of 8 and run through
 ``models/ripe.py`` on the configured device with a capacity of
 ``max_keypoints`` rounded up to 128; its keypoints, scores and 960-d
 hypercolumn descriptors (fewer where the checkpoint has the 1x1 reduction)
-are trimmed to the valid rows. Weights: ``ripe_weights.pth`` in
-DIM_TPU_WEIGHTS_DIR, ~/.cache/dim_tpu or the temporary directory (where the
-upstream factory downloads it), else the JAX package's seeded random
-weights under the weights policy.
+are trimmed to the valid rows. The convolutions run in full f32
+(``utils/device.full_f32``: under cuDNN's default TF32 a fifth of the
+card's local maxima at 1024 px differed from the CPU's). Weights:
+``ripe_weights.pth`` in DIM_TPU_WEIGHTS_DIR, ~/.cache/dim_tpu or the
+temporary directory (where the upstream factory downloads it), else the JAX
+package's seeded random weights under the weights policy.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from ..models import ripe as ripe_model
-from ..utils.device import resolve_device, to_device
+from ..utils.device import full_f32, resolve_device, to_device
 from .extractor_base import ExtractorBase, FeaturesDict
 
 logger = logging.getLogger("dim_tpu_torch")
@@ -83,10 +85,11 @@ class RIPEExtractor(ExtractorBase):
         ph, pw = -(-h // 8) * 8, -(-w // 8) * 8
         batch = np.zeros((1, ph, pw, 3), np.float32)
         batch[0, :h, :w] = image
-        out = ripe_model.extract(
-            self.params, torch.from_numpy(batch).to(self.device),
-            torch.tensor([[h, w]], device=self.device),
-            max_keypoints=-(-self.max_keypoints // 128) * 128, threshold=self.threshold)
+        with full_f32():
+            out = ripe_model.extract(
+                self.params, torch.from_numpy(batch).to(self.device),
+                torch.tensor([[h, w]], device=self.device),
+                max_keypoints=-(-self.max_keypoints // 128) * 128, threshold=self.threshold)
         out = {k: v[0].cpu().numpy() for k, v in out.items()}
         m = out["mask"]
         return {"keypoints": out["keypoints"][m], "scores": out["scores"][m],

@@ -156,6 +156,9 @@ class Group:
         self._file = file
         self._items: Dict[str, Union["Group", Dataset]] = {}
         self._links: Dict[str, int] = {}  # members not read yet: name -> header
+        # the cached (B-tree, heap) of those that are symbol-table groups, as
+        # their entries in this group's index hold it
+        self._link_stab: Dict[str, tuple] = {}
         self._addr = _UNDEF   # object header address
         self._stab = None     # (B-tree root, local heap header) of a symbol-table group
         self._index = None    # the writer's record of the group's index blocks
@@ -169,6 +172,7 @@ class Group:
     def _child(self, leaf: str):
         if leaf not in self._items:
             addr = self._links.pop(leaf)
+            self._link_stab.pop(leaf, None)
             self._items[leaf] = self._file._reader.read_object(self, leaf, addr)
         return self._items[leaf]
 
@@ -271,6 +275,7 @@ class File(Group):
                 _copy_to_classic(self.path)
                 self._items.clear()
                 self._links.clear()
+                self._link_stab.clear()
                 self._fh = open(self.path, "r+b")
                 self._reader = _Reader(self._fh, self)
                 self._reader.read_root(self)
@@ -452,6 +457,7 @@ class _Writer:
         self._dirty(parent)
         parent._items.pop(leaf, None)
         parent._links.pop(leaf, None)
+        parent._link_stab.pop(leaf, None)
 
     def _write_node(self, addr: int, level: int, children, left_key: int,
                     left: int = _UNDEF, right: int = _UNDEF) -> None:
@@ -462,9 +468,16 @@ class _Writer:
             node += struct.pack("<QQ", child, key)
         self.write(addr, bytes(node))
 
+    def _entry_of(self, g: Group, leaf: str, name_off: int) -> bytes:
+        """``leaf``'s symbol-table entry; a member not read yet keeps the
+        header and cache its old entry held, so it is not read now."""
+        kid = g._items.get(leaf)
+        if kid is None:
+            return _entry(name_off, g._links[leaf], g._link_stab.get(leaf))
+        return _entry(name_off, kid._addr, kid._stab if isinstance(kid, Group) else None)
+
     def flush_group(self, g: Group) -> None:
         names = g.keys()
-        kids = [g._child(n) for n in names]
         heap, offs = bytearray(8), []
         for n in names:
             offs.append(len(heap))
@@ -485,9 +498,7 @@ class _Writer:
         children = []
         for i in range(n_snod):
             chunk = range(i * self.leaf_cap, min(len(names), (i + 1) * self.leaf_cap))
-            entries = b"".join(
-                _entry(offs[j], kids[j]._addr,
-                       kids[j]._stab if isinstance(kids[j], Group) else None) for j in chunk)
+            entries = b"".join(self._entry_of(g, names[j], offs[j]) for j in chunk)
             self.write(snods[i], b"SNOD" + struct.pack("<BBH", 1, 0, len(chunk)) + entries)
             children.append((snods[i], offs[chunk[-1]]))
         level, used = 0, 0
@@ -653,7 +664,9 @@ class _Reader:
         for mtype, _, data in msgs:
             if mtype == 0x0011:
                 group._stab = struct.unpack_from("<QQ", data)
-                links += self.stab_links(group._stab[0], group._stab[1])[0]
+                entries = self.stab_links(group._stab[0], group._stab[1])[0]
+                links += [(name, header) for name, header, _ in entries]
+                group._link_stab.update((name, stab) for name, _, stab in entries if stab)
             elif mtype == 0x0006:
                 links.append(self._link(data))
             elif mtype == 0x0002:
@@ -664,8 +677,9 @@ class _Reader:
         group._links.update(links)
 
     def stab_links(self, btree: int, heap: Optional[int] = None):
-        """A symbol-table group's (name, header) links, and the addresses of
-        its symbol-table nodes and non-root B-tree nodes."""
+        """A symbol-table group's (name, header, cached (B-tree, heap) or
+        None) links, and the addresses of its symbol-table nodes and non-root
+        B-tree nodes."""
         names = b""
         if heap is not None:
             hdr = self.at(heap, 32)
@@ -695,10 +709,11 @@ class _Reader:
                 count = struct.unpack_from("<H", snod, 6)[0]
                 raw = self.at(child + 8, 40 * count)
                 for j in range(count):
-                    name_off, header = struct.unpack_from("<QQ", raw, 40 * j)
+                    name_off, header, cache = struct.unpack_from("<QQI", raw, 40 * j)
                     if heap is not None:
+                        stab = struct.unpack_from("<QQ", raw, 40 * j + 24) if cache == 1 else None
                         links.append((names[name_off:names.index(b"\0", name_off)].decode(),
-                                      header))
+                                      header, stab))
 
         walk(btree, True)
         return links, snods, nodes

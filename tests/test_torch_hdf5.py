@@ -255,6 +255,43 @@ def test_append_to_h5py_files(tmp_path, libver):
     assert (os.path.getsize(path) >= size0) or libver == "latest"
 
 
+@pytest.mark.parametrize("writer", ["port", "h5py"])
+def test_append_reads_no_member_it_does_not_touch(tmp_path, monkeypatch, writer):
+    """Adding one image to a features file of 50 reads none of the other 50
+    image groups, also when the index is rewritten on close; their entries
+    keep the header and cached (B-tree, heap) that they held."""
+    rng = np.random.default_rng(11)
+    path = tmp_path / "features.h5"
+    feats = {f"im{i:02d}.jpg": rng.random((20 + i, 2), dtype=np.float32) for i in range(50)}
+    if writer == "port":
+        with hdf5.File(path, "w") as fd:
+            for name, kp in feats.items():
+                write_features(fd, name, keypoints=kp)
+    else:
+        with h5py.File(path, "w", libver="earliest") as f:
+            for name, kp in feats.items():
+                f.create_dataset(f"{name}/keypoints", data=kp)
+    reads = []
+    real = hdf5._Reader.read_object
+
+    def counted(self, parent, name, addr):
+        reads.append(parent._child_name(name))
+        return real(self, parent, name, addr)
+
+    monkeypatch.setattr(hdf5._Reader, "read_object", counted)
+    added = rng.random((7, 2), dtype=np.float32)
+    save_features(path, "new.jpg", keypoints=added)
+    assert reads == [], reads
+    monkeypatch.setattr(hdf5._Reader, "read_object", real)
+    with h5py.File(path, "r") as f:
+        assert len(f) == 51
+        for name, kp in feats.items():
+            np.testing.assert_array_equal(f[name]["keypoints"][()], kp)
+        np.testing.assert_array_equal(f["new.jpg/keypoints"][()], added)
+    for name, kp in list(feats.items())[::7] + [("new.jpg", added)]:
+        np.testing.assert_array_equal(get_features(path, name)["keypoints"], kp)
+
+
 def test_resume_completes_a_jax_package_output(tmp_path, monkeypatch):
     """The JAX package's sift+kornia_matcher output on three demo images at a
     quarter of their size (h5py, ``libver="latest"``, gzip 9), then the
