@@ -89,7 +89,20 @@ Phases, each printing its own lines:
      ``torch.profiler`` (wall, device busy, idle share, peak memory), then
      each against the CPU (``SPARSE_CPU_CHECKS``: shares of keypoints and raw
      matches; DeDoDe and RIPE at their rows' sizes on view 0 of the synthetic
-     views and its shifted copy, G's DINOv2 in f32 on both sides).
+     views and its shifted copy, G's DINOv2 in f32 on both sides, and the
+     timed bf16 G against the CPU's f32; DISK, XFeat, ALIKED and SuperPoint
+     (open or not) at 1024 x 1024 on the same two views and the seeded
+     KeyNet / AffNet / OriNet on the demo images, each share printed beside
+     its bound);
+   - the LoFTR family (``phase_loftr``, seeded checkpoints
+     ``loftr_weights``, match threshold 0, no kernel may launch): loftr on
+     the synthetic views (held to the planted shifts, once more warm under
+     ``torch.profiler``), loftr dense and with ``coarse_impl: blocked`` on 6
+     of them (the same coarse matches but for near-ties, which are printed),
+     se2loftr on its SE2 backbone on the 6 views, srif on the demo images,
+     then loftr and se2loftr on the card against the CPU on view 0 and its
+     shifted copy at 1024 x 1024 (the share of each pair's coarse matches
+     held by both, the largest difference of the fine coordinates).
    Each run checks features.h5, raw_matches.h5 and database.db and prints
    the wall time per stage; each path checks that its kernels launched;
 6. tiled extraction and matching (``--tiling``), each counted run with the
@@ -104,9 +117,9 @@ Phases, each printing its own lines:
      no pair holds a query keypoint twice; the tile-pair jobs per pair;
    - ``--tiling grid`` on the 5 demo images at tiles (400, 300) with
      sift+kornia_matcher and superpoint+lightglue;
-   - 3 views of 4800 x 3200 (4 tiles an image, view 2 a shifted copy) on the
-     card and on the CPU: equal tile-pair jobs on the shifted pair (the
-     share of equal jobs over all pairs printed), at least 90 % of the
+   - 2 views of 4800 x 3200 (4 tiles an image, view 1 a shifted copy of
+     view 0) on the card and on the CPU: equal tile-pair jobs on the shifted
+     pair, at least 90 % of the
      keypoints shared, and LightGlue on the CPU run's tile-pair jobs as one
      batch gathered from a tiled store on each device, card against CPU in
      float32 (the reference phase's float32 rule) and in bf16 (against the
@@ -761,6 +774,13 @@ def check_nn(torch, dev, card):
     extra = {"ms": _time_ms(lambda: nn_top2(d0, d1, sq1)),
              "plain_ms": _time_ms(lambda: nn_top2_reference(d0, d1, sq1)),
              **_bound(_nbytes(d0, d1, sq1, *got), 2.0 * B * K * K * D, "f32"),
+             # the bound of the redesign ROADMAP's device queue names: the
+             # product as three TF32 products on the tensor cores, as kernel
+             # 3 runs it
+             "tf32_bound_ms": _bound(_nbytes(d0, d1, sq1, *got), 3 * 2.0 * B * K * K * D,
+                                     "tf32")["bound_ms"],
+             "bound_note": "bound_ms: one f32 product at 67 TFLOP/s (FFMA, the kernel's "
+                           "design); tf32_bound_ms: as three TF32 products at 495 TFLOP/s",
              "library_ms": None,
              "library_note": "none: the top-2 of the distances needs two calls "
                              "(torch.cdist, then topk)"}
@@ -806,12 +826,18 @@ def check_nn(torch, dev, card):
             "max_abs_err": e, "argmin_equal": share_w,
             "ms": _time_ms(lambda: nn_top2(q, r, sq)),
             "plain_ms": _time_ms(lambda: nn_top2_reference(q, r, sq)),
-            **_bound(_nbytes(q, r, sq, *g), 2.0 * B * K * K * Dw, "f32")}
+            **_bound(_nbytes(q, r, sq, *g), 2.0 * B * K * K * Dw, "f32"),
+            "tf32_bound_ms": _bound(_nbytes(q, r, sq, *g), 3 * 2.0 * B * K * K * Dw,
+                                    "tf32")["bound_ms"]}
+        wd = extra["widths"][Dw]
         exact.append(f"D={Dw} at ({B}, {K}, {K}) min1/min2 abs {e:.2e}, argmin equal "
-                     f"{share_w:.5f}")
+                     f"{share_w:.5f}, kernel {wd['ms']:.3f} ms, FFMA bound {wd['bound_ms']:.3f} "
+                     f"ms ({100 * wd['bound_ms'] / wd['ms']:.1f} %), three-TF32 bound "
+                     f"{wd['tf32_bound_ms']:.3f} ms ({100 * wd['tf32_bound_ms'] / wd['ms']:.1f} %)")
         del q, r, sq, g, rf
     what = (f"D=256 min1/min2 abs; argmin equal {equal_share:.5f}, none differs where the "
-            f"gap > 1e-3; {', '.join(exact)}")
+            f"gap > 1e-3; three-TF32 bound at 256 {extra['tf32_bound_ms']:.3f} ms "
+            f"({100 * extra['tf32_bound_ms'] / extra['ms']:.1f} %); {', '.join(exact)}")
     return err, tol, what, extra
 
 
@@ -1345,10 +1371,18 @@ def check_qkv_f32(torch, dev, card):
 
 
 def phase_kernels(card: str) -> dict:
+    """Each kernel against its plain version, the plain versions' products and
+    convolutions in full f32 (``utils/device.full_f32``, which restores the
+    default settings after: the paths run as a user's run does)."""
+    from deep_image_matching_tpu_torch.utils.device import full_f32
+
+    with full_f32():
+        return _phase_kernels(card)
+
+
+def _phase_kernels(card: str) -> dict:
     import torch
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     checks = {"attention": check_attention, "ffn": check_ffn,
               "assignment": check_assignment, "nullspace": check_nullspace,
@@ -2136,24 +2170,25 @@ SPARSE_PATHS = {
 
 # card against CPU on the same inputs: label -> (pipeline, project, card
 # config, CPU config, least share of each image's keypoints and of each
-# pair's raw matches common to both runs). The learned extractors and
-# matchers run in f32 on both sides on three views of 320 x 320 (view 0 and
-# two shifted copies), and the keypoints must be equal: on an H100 80GB HBM3
-# every keypoint and every raw match came out equal for DISK, XFeat +
-# LighterGlue, DoH + HardNet and AdaLAM; a match may still flip between
-# near-tied neighbours, so the raw matches are held to 99 %. SuperPoint's
-# convolutions run in bf16 on the card (98.3 % of the keypoints, 95.6 % of
-# the matches shared there), so the open SuperPoint is held to 95 % and 90 %
+# pair's raw matches common to both runs, the weights' environment:
+# ``weights_env``). The learned extractors and matchers run in f32 on both
+# sides on three views of 320 x 320 (view 0 and two shifted copies), and the
+# keypoints must be equal: on an H100 80GB HBM3 every keypoint and every raw
+# match came out equal for DISK, XFeat + LighterGlue, DoH + HardNet and
+# AdaLAM; a match may still flip between near-tied neighbours, so the raw
+# matches are held to 99 %. SuperPoint's convolutions run in bf16 on the card
+# (98.3 % of the keypoints, 95.6 % of the matches shared there), so the open
+# SuperPoint is held to 95 % and 90 %
 SPARSE_CPU_CHECKS = {
     "disk+lightglue": ("disk+lightglue", "synthetic3", "f32_threshold0", "cpu_threshold0",
-                       1.0, 0.99),
+                       1.0, 0.99, None),
     "xfeat+lighterglue": ("xfeat+lighterglue", "synthetic3", "f32_threshold0", "cpu_threshold0",
-                          1.0, 0.99),
+                          1.0, 0.99, None),
     "superpoint_open+kornia_matcher": ("superpoint_open+kornia_matcher", "synthetic3",
-                                       "f32_threshold0", "cpu_threshold0", 0.95, 0.9),
+                                       "f32_threshold0", "cpu_threshold0", 0.95, 0.9, None),
     "keynetaffnethardnet+kornia_matcher": ("keynetaffnethardnet+kornia_matcher", "demo5",
-                                           "default", "cpu", 1.0, 0.99),
-    "sift+adalam": ("sift+kornia_matcher", "demo5", "adalam", "cpu_adalam", 1.0, 0.99),
+                                           "default", "cpu", 1.0, 0.99, None),
+    "sift+adalam": ("sift+kornia_matcher", "demo5", "adalam", "cpu_adalam", 1.0, 0.99, None),
     # DeDoDe and RIPE at the size their timed rows run (DeDoDe at its default
     # 784 x 784, RIPE at 1024 x 1024), on view 0 of the synthetic views and
     # its shifted copy (``shifted2``): their verified matches cannot be held
@@ -2165,13 +2200,55 @@ SPARSE_CPU_CHECKS = {
     # default TF32 they were 0.9932 / 0.7891 and 0.7945 / 0.6629), and
     # LiftFeat's on synthetic3 1 / 0.9985, so all are held to 99 %
     "dedode+kornia_matcher": ("dedode+kornia_matcher", "shifted2", "default", "cpu",
-                              0.99, 0.99),
+                              0.99, 0.99, "dedode_liftfeat_ripe_weights"),
     "dedode+kornia_matcher (descriptor G)": ("dedode+kornia_matcher", "shifted2",
-                                             "f32_dedode_g", "cpu_dedode_g", 0.99, 0.99),
+                                             "f32_dedode_g", "cpu_dedode_g", 0.99, 0.99,
+                                             "dedode_liftfeat_ripe_weights"),
     "liftfeat+kornia_matcher": ("liftfeat+kornia_matcher", "synthetic3", "default", "cpu",
-                                0.99, 0.99),
-    "ripe+kornia_matcher": ("ripe+kornia_matcher", "shifted2", "default", "cpu", 0.99, 0.99),
+                                0.99, 0.99, "dedode_liftfeat_ripe_weights"),
+    "ripe+kornia_matcher": ("ripe+kornia_matcher", "shifted2", "default", "cpu", 0.99, 0.99,
+                            "dedode_liftfeat_ripe_weights"),
+    # the timed bf16 DeDoDe-G (its DINOv2 on kernel 1 in bf16) against the
+    # CPU's f32 run: on an H100 80GB HBM3 the keypoints were all shared (the
+    # detector has no bf16 part) and 0.4375 of the raw matches (the seeded
+    # descriptors' nearest neighbours are near-ties, which bf16 rounding
+    # moves), so they are held to 99 % and 35 %
+    "dedode+kornia_matcher (descriptor G, bf16)": (
+        "dedode+kornia_matcher", "shifted2", "dedode_g", "cpu_dedode_g", 0.99, 0.35,
+        "dedode_liftfeat_ripe_weights"),
+    # the earlier extractors at their timed rows' sizes (1024 x 1024, the
+    # demo images for KeyNet), on view 0 and its shifted copy, the matchers
+    # in f32 on both sides. DISK, XFeat and the seeded KeyNet / AffNet /
+    # OriNet run their convolutions in f32. On an H100 80GB HBM3 under cuDNN's
+    # default TF32 the least shares of keypoints / raw matches were DISK
+    # 0.9903 / 0.9839, XFeat 0.9990 / 1 and KeyNet 0.9835 / 0.8495, with
+    # TF32 off 1 / 1, 1 / 1 and 0.9980 / 0.9913: the three now run in
+    # ``full_f32`` (XFeat too, so that its 320 px row stays equal). SuperPoint
+    # (open or not) and ALIKED run their convolutions in bf16 on the card in
+    # every ``tpu.dtype`` (as the JAX package does on an accelerator), so TF32
+    # never reaches them and bf16 against the CPU's f32 bounds their shares:
+    # SuperPoint 0.9422 / 0.9556, the open one 0.9711 / 0.9683, both held to
+    # 90 %; ALIKED's keypoints are sub-pixel, so its rows pair within
+    # ``CPU_CHECK_TOL_PX`` instead of comparing equal: 0.8454 / 0.8089, held
+    # to 80 % and 75 %
+    "disk+lightglue (1024)": ("disk+lightglue", "shifted2", "f32_threshold0", "cpu_threshold0",
+                              0.99, 0.99, None),
+    "xfeat+lighterglue (1024)": ("xfeat+lighterglue", "shifted2", "f32_threshold0",
+                                 "cpu_threshold0", 0.99, 0.99, None),
+    "keynetaffnethardnet+kornia_matcher (KeyNet, AffNet, OriNet)": (
+        "keynetaffnethardnet+kornia_matcher", "demo5", "default", "cpu", 0.99, 0.98,
+        "keynet_weights"),
+    "aliked+lightglue (1024)": ("aliked+lightglue", "shifted2", "f32_aliked_bidir",
+                                "cpu_aliked_bidir", 0.8, 0.75, "aliked"),
+    "superpoint+lightglue (float32, 1024)": ("superpoint+lightglue", "shifted2",
+                                             "f32_threshold0", "cpu_threshold0", 0.9, 0.9, None),
+    "superpoint_open+kornia_matcher (float32, 1024)": (
+        "superpoint_open+kornia_matcher", "shifted2", "f32_threshold0", "cpu_threshold0",
+        0.9, 0.9, None),
 }
+# rows whose keypoints are sub-pixel: keypoints and raw-match rows pair one
+# to one within this many pixels (max norm) instead of comparing equal
+CPU_CHECK_TOL_PX = {"aliked+lightglue (1024)": 0.25}
 
 
 def keynet_weights(wdir: Path, seed: int = 0) -> dict:
@@ -2243,8 +2320,40 @@ def dedode_liftfeat_ripe_weights(wdir: Path) -> dict:
     return {"DIM_TPU_WEIGHTS_DIR": str(wdir)}
 
 
+def loftr_weights(wdir: Path, seed: int = 0) -> dict:
+    """Seeded LoFTR (``loftr_outdoor.ckpt``) and exported SE2-LoFTR
+    (``se2loftr_8rot_exported.pth``) checkpoints in the original names, from
+    the port's random trees; returns the environment that points the matchers
+    at them. Random weights leave the coarse features a large shared part
+    (logits ~500: a one-hot dual softmax sends every row to one cell and a
+    pair keeps one match), so the coarse output projection (``l3_out``,
+    SE2's ``l3_triv``) is scaled by 0.2; the fine stage's input projection and
+    layer norms by 0.1, so that its soft-argmax is not pinned to a window
+    corner. On the CPU this gave 472 matches on a 1024 x 1024 shifted pair,
+    469 within 4 px of the shift (median 0.28 px)."""
+    import torch
+
+    from deep_image_matching_tpu_torch.convert import loftr_state_dict
+    from deep_image_matching_tpu_torch.models import loftr, se2loftr
+
+    if not (wdir / "se2loftr_8rot_exported.pth").exists():
+        wdir.mkdir(parents=True, exist_ok=True)
+        for init, coarse, name in ((loftr.init_params, "l3_out", "loftr_outdoor.ckpt"),
+                                   (se2loftr.init_params, "l3_triv",
+                                    "se2loftr_8rot_exported.pth")):
+            p = init(torch.Generator().manual_seed(seed))
+            p["backbone"][coarse]["w"] = p["backbone"][coarse]["w"] * 0.2
+            p["fine_pre"]["merge_feat"]["w"] = p["fine_pre"]["merge_feat"]["w"] * 0.1
+            for lp in p["fine"]:
+                for ln in ("ln1", "ln2"):
+                    lp[ln]["g"] = lp[ln]["g"] * 0.1
+            torch.save(loftr_state_dict(p), wdir / name)
+    return {"DIM_TPU_WEIGHTS_DIR": str(wdir)}
+
+
 WEIGHT_SETS = {"keynet_weights": keynet_weights,
-               "dedode_liftfeat_ripe_weights": dedode_liftfeat_ripe_weights}
+               "dedode_liftfeat_ripe_weights": dedode_liftfeat_ripe_weights,
+               "loftr_weights": loftr_weights}
 
 
 def _profiled_run(label, pipeline, proj, strategy, cfg, outs, card) -> dict:
@@ -2274,32 +2383,63 @@ def _feature_sets(out_dir: Path) -> dict:
         return {n: {tuple(k) for k in np.asarray(f[n]["keypoints"])} for n in f}
 
 
-def _least_share(a: dict, b: dict) -> float:
-    """The least |a & b| / |a | b| over the keys (1 where both are empty)."""
+def _paired_count(a: set, b: set, tol: float) -> int:
+    """How many rows of ``a`` pair one to one with a row of ``b`` within
+    ``tol`` (max norm; equal rows where ``tol`` is 0)."""
+    if tol == 0.0:
+        return len(a & b)
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    if not a or not b:
+        return 0
+    pa, pb = np.array(sorted(a), np.float64), np.array(sorted(b), np.float64)
+    dist, idx = cKDTree(pb).query(pa, distance_upper_bound=tol, p=np.inf)
+    return len(set(idx[np.isfinite(dist)].tolist()))
+
+
+def _least_share(a: dict, b: dict, tol: float = 0.0) -> float:
+    """The least |a & b| / |a | b| over the keys (1 where both are empty),
+    rows paired within ``tol`` pixels."""
     if a.keys() != b.keys():
         return 0.0
-    return min((len(a[k] & b[k]) / len(a[k] | b[k]) if a[k] | b[k] else 1.0) for k in a)
+    least = 1.0
+    for k in a:
+        n = _paired_count(a[k], b[k], tol)
+        union = len(a[k]) + len(b[k]) - n
+        if union:
+            least = min(least, n / union)
+    return least
+
+
+def _weights_env(env) -> dict:
+    """The environment of a weights set: ``WEIGHT_SETS``' seeded checkpoints
+    (written once under WORK), ``aliked`` for the aliked path's, or none."""
+    if env == "aliked":
+        return _path_env("aliked+lightglue")
+    return WEIGHT_SETS[env](WORK / env) if env else {}
+
+
+def _reload_keynet_stages():
+    """The KeyNet extractor keeps the stages it found (or their absence) per
+    process; a run with another weights directory looks again."""
+    from deep_image_matching_tpu_torch.extractors import keynetaffnethardnet as kah
+
+    kah._KEYNET = kah._FRAMES = kah._UNSET
 
 
 def phase_sparse_presets(projects, configs, timers, card) -> dict:
     """The slice's presets through ``run_matching`` on the card, each with the
     launch counts set to 0 just before it and read just after, then one warm
-    run under ``torch.profiler``; then each against the CPU."""
+    run under ``torch.profiler``; then each against the CPU (a CPU run
+    shared by two rows runs once)."""
     from deep_image_matching_tpu_torch.extractors import keynetaffnethardnet as kah
-
-    def reload_keynet_stages():
-        # the extractor keeps the stages it found (or their absence) per
-        # process; the learned run looks again in its own weights directory
-        kah._KEYNET = kah._FRAMES = kah._UNSET
-
-    def weights(env):
-        return WEIGHT_SETS[env](WORK / env) if env else {}
 
     launches = {}
     for label, (pipeline, needed, banned, runs, env) in SPARSE_PATHS.items():
-        extra = weights(env)
+        extra = _weights_env(env)
         if env == "keynet_weights":
-            reload_keynet_stages()
+            _reload_keynet_stages()
         with _env(extra):
             launches[label], _ = _run_path(
                 pipeline, needed, [run + (False,) for run in runs], projects, configs, timers,
@@ -2313,22 +2453,143 @@ def phase_sparse_presets(projects, configs, timers, card) -> dict:
         if env == "keynet_weights":
             if kah._KEYNET is None or None in kah._FRAMES:
                 _fail(f"{label}: the learned KeyNet, AffNet or OriNet did not load")
-            reload_keynet_stages()
-    for label, (pipeline, proj_name, cfg_card, cfg_cpu, kp_min, raw_min) in \
+            _reload_keynet_stages()
+    cpu_runs = {}
+    for label, (pipeline, proj_name, cfg_card, cfg_cpu, kp_min, raw_min, env) in \
             SPARSE_CPU_CHECKS.items():
         proj = projects[proj_name]
-        out = WORK / "out" / f"vs_cpu_{pipeline}_{cfg_card}"
-        with _env(weights(SPARSE_PATHS[label][4] if label in SPARSE_PATHS else None)):
+        out = WORK / "out" / f"vs_cpu_{label}"
+        t0 = time.perf_counter()
+        if env == "keynet_weights":
+            _reload_keynet_stages()
+        with _env(_weights_env(env)):
             gpu_dir = _run(pipeline, proj, "bruteforce", configs[cfg_card], out)
-            cpu_dir = _run(pipeline, proj, "bruteforce", configs[cfg_cpu],
-                           out.with_name(out.name + "_cpu"))
-        kp = _least_share(_feature_sets(gpu_dir), _feature_sets(cpu_dir))
-        raw = _least_share(_raw_match_sets(gpu_dir), _raw_match_sets(cpu_dir))
+            key = (pipeline, proj_name, cfg_cpu, env)
+            if key not in cpu_runs:
+                cpu_runs[key] = _run(pipeline, proj, "bruteforce", configs[cfg_cpu],
+                                     out.with_name(out.name + "_cpu"))
+        if env == "keynet_weights":
+            _reload_keynet_stages()
+        cpu_dir = cpu_runs[key]
+        tol = CPU_CHECK_TOL_PX.get(label, 0.0)
+        kp = _least_share(_feature_sets(gpu_dir), _feature_sets(cpu_dir), tol)
+        raw = _least_share(_raw_match_sets(gpu_dir), _raw_match_sets(cpu_dir), tol)
         print(f"[main] {label} card against CPU on {proj_name}: least share of keypoints "
-              f"{kp:.4f} (at least {kp_min}), of raw matches {raw:.4f} (at least {raw_min}) "
-              f"[{card}]", flush=True)
+              f"{kp:.4f} (at least {kp_min}), of raw matches {raw:.4f} (at least {raw_min}); "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
         if kp < kp_min or raw < raw_min:
             _fail(f"{label}: the card and the CPU disagree beyond the stated shares")
+    return launches
+
+
+# the LoFTR family through ``run_matching`` (detector-free, seeded
+# checkpoints ``loftr_weights``, match threshold 0): label -> (pipeline,
+# project, config). None of it reaches a hand-written kernel (the JAX package
+# runs it outside Pallas, and detector-free matches are verified on the
+# host), so each path must launch none of the ten kernels. synthetic16's
+# loftr row is timed and profiled and held to the planted shifts; the dense
+# and blocked rows on synthetic6 are held to each other
+LOFTR_PATHS = {
+    "loftr": ("loftr", "synthetic16", "loftr0"),
+    "loftr (synthetic6)": ("loftr", "synthetic6", "loftr0"),
+    "loftr (coarse_impl: blocked)": ("loftr", "synthetic6", "loftr_blocked"),
+    "se2loftr": ("se2loftr", "synthetic6", "loftr0"),
+    "srif": ("srif", "demo5", "loftr0"),
+}
+# the blocked coarse matching against the dense one on the card: the least
+# share of each pair's coarse cell pairs both hold (a mutual argmax can flip
+# between near-tied cells, as the two take the maxima of differently rounded
+# confidences) and the largest difference of a shared match's fine
+# coordinates, in pixels. On an H100 80GB HBM3: share 1, difference 0
+BLOCKED_MIN_SHARE, BLOCKED_MAX_FINE = 0.995, 1e-3
+# card against CPU in f32 on view 0 and its shifted copy at 1024 x 1024:
+# label -> (pipeline, least share of each pair's coarse cell pairs held by
+# both runs, largest difference of a shared match's fine coordinates, px).
+# On an H100 80GB HBM3 both shared every coarse match (466 and 789) with
+# fine coordinates within 6.1e-05 px
+LOFTR_CPU_CHECKS = {"loftr": ("loftr", 0.99, 0.01), "se2loftr": ("se2loftr", 0.99, 0.01)}
+
+
+def _coarse_matches(out_dir: Path) -> dict:
+    """Each pair's raw matches of a LoFTR run as {(x0, y0, cell x1, cell y1):
+    (x1, y1)}: image 0's keypoint is a coarse cell's corner, image 1's its
+    cell's corner plus a fine offset of less than half a cell (the
+    projects' images are matched at full resolution)."""
+    return {pair: {(r[0], r[1], round(float(r[2]) / 8), round(float(r[3]) / 8)): (r[2], r[3])
+                   for r in rows}
+            for pair, rows in _raw_match_sets(out_dir).items()}
+
+
+def _coarse_agreement(a: dict, b: dict) -> tuple:
+    """(the least share |A & B| / |A | B| of a pair's coarse cell pairs, the
+    largest difference of the fine coordinates over the shared ones, the
+    cell pairs held by one run only, by pair)."""
+    least, worst, differ = 1.0, 0.0, {}
+    for pair in sorted(a.keys() | b.keys()):
+        ka, kb = a.get(pair, {}), b.get(pair, {})
+        union, shared = ka.keys() | kb.keys(), ka.keys() & kb.keys()
+        if union:
+            least = min(least, len(shared) / len(union))
+        if shared != union:
+            differ[pair] = sorted(union - shared)
+        for k in shared:
+            worst = max(worst, abs(float(ka[k][0] - kb[k][0])), abs(float(ka[k][1] - kb[k][1])))
+    return least, worst, differ
+
+
+def phase_loftr(projects, configs, timers, card) -> dict:
+    """loftr, se2loftr (its SE2 backbone) and srif through ``run_matching``
+    on the card, each with the launch counts set to 0 just before it and read
+    just after; loftr on synthetic16 once more warm under ``torch.profiler``;
+    the blocked coarse matching against the dense one; loftr and se2loftr
+    against the CPU at full size."""
+    import torch
+
+    launches, dirs = {}, {}
+    with _env(_weights_env("loftr_weights")):
+        for label, (pipeline, proj_name, cfg) in LOFTR_PATHS.items():
+            allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+            launches[label], runs = _run_path(
+                pipeline, (), [(proj_name, "bruteforce", cfg, None, True)], projects, configs,
+                timers, card, label)
+            ran = [k for k, n in launches[label].items() if n]
+            if ran:
+                _fail(f"{label}: kernels {ran} launched, which its path must not run")
+            if torch.cuda.memory_stats().get("allocation.all.allocated", 0) == allocs:
+                _fail(f"{label}: nothing was allocated on the card")
+            dirs[label] = runs[0][2]
+            if label == "loftr":
+                _profiled_run(label, pipeline, projects[proj_name], "bruteforce", configs[cfg],
+                              WORK / "out" / f"profiled_{pipeline}_{cfg}", card)
+        share, fine, differ = _coarse_agreement(
+            _coarse_matches(dirs["loftr (synthetic6)"]),
+            _coarse_matches(dirs["loftr (coarse_impl: blocked)"]))
+        print(f"[main] loftr blocked against dense on synthetic6: least share of coarse matches "
+              f"{share:.4f} (at least {BLOCKED_MIN_SHARE}), largest fine difference {fine:.2e} "
+              f"px (at most {BLOCKED_MAX_FINE}) [{card}]", flush=True)
+        for pair, cells in differ.items():
+            print(f"[main]   near-tie: {pair[0]}-{pair[1]} mutual argmax differs at "
+                  f"{cells[:6]}", flush=True)
+        if share < BLOCKED_MIN_SHARE or fine > BLOCKED_MAX_FINE:
+            _fail("loftr: the blocked coarse matching disagrees with the dense one")
+        for label, (pipeline, min_share, max_fine) in LOFTR_CPU_CHECKS.items():
+            t0 = time.perf_counter()
+            out = WORK / "out" / f"vs_cpu_{label}"
+            gpu_dir = _run(pipeline, projects["shifted2"], "bruteforce", configs["loftr0"], out)
+            cpu_dir = _run(pipeline, projects["shifted2"], "bruteforce", configs["cpu_loftr0"],
+                           out.with_name(out.name + "_cpu"))
+            gpu, cpu = _coarse_matches(gpu_dir), _coarse_matches(cpu_dir)
+            share, fine, differ = _coarse_agreement(gpu, cpu)
+            n = sorted(len(v) for v in cpu.values())
+            print(f"[main] {label} card against CPU on shifted2 ({n} coarse matches): least share "
+                  f"of coarse matches {share:.4f} (at least {min_share}), largest fine "
+                  f"difference {fine:.2e} px (at most {max_fine}); "
+                  f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+            for pair, cells in differ.items():
+                print(f"[main]   near-tie: {pair[0]}-{pair[1]} held by one run only: "
+                      f"{cells[:6]}", flush=True)
+            if not n or n[0] == 0 or share < min_share or fine > max_fine:
+                _fail(f"{label}: the card and the CPU disagree beyond the stated bounds")
     return launches
 
 
@@ -2448,7 +2709,8 @@ def _main_setup():
                for name in ("default", "threshold0", "superglue0", "cpu", "aliked_bidir",
                             "f32_threshold0", "f32_superglue0", "f32_aliked_bidir",
                             "cpu_threshold0", "adalam", "adalam_fast", "cpu_adalam",
-                            "dedode_g", "f32_dedode_g", "cpu_dedode_g")}
+                            "dedode_g", "f32_dedode_g", "cpu_dedode_g", "cpu_aliked_bidir",
+                            "loftr0", "loftr_blocked", "cpu_loftr0")}
     configs["default"].write_text(base.format("cuda"))
     configs["aliked_bidir"].write_text(base.format("cuda") + "    attn_impl: bidir\n"
                                        "matcher:\n  filter_threshold: 0.0\n")
@@ -2470,6 +2732,14 @@ def _main_setup():
     for name, dev in (("f32_dedode_g", "cuda"), ("cpu_dedode_g", "cpu")):
         configs[name].write_text(base.format(dev) + "    dtype: float32\n"
                                  "extractor:\n  descriptor: G\n")
+    configs["cpu_aliked_bidir"].write_text(base.format("cpu") + "    dtype: float32\n"
+                                           "    attn_impl: bidir\nmatcher:\n"
+                                           "  filter_threshold: 0.0\n")
+    # the LoFTR family at match threshold 0 (the seeded weights' confidences
+    # stay below the default 0.2), dense and blocked coarse matching
+    for name, dev, extra in (("loftr0", "cuda", ""), ("cpu_loftr0", "cpu", ""),
+                             ("loftr_blocked", "cuda", "  coarse_impl: blocked\n")):
+        configs[name].write_text(base.format(dev) + "matcher:\n  match_threshold: 0.0\n" + extra)
     # the same in float32: the kernels' float32 forms
     for name in ("threshold0", "superglue0", "aliked_bidir"):
         text = configs[name].read_text().replace("    device: cuda\n",
@@ -2509,6 +2779,7 @@ def _run_main_paths(projects, configs, timers, card, launches) -> dict:
             launches[label], _ = _run_path(pipeline, needed, runs, projects, configs, timers,
                                            card, label)
     launches.update(phase_sparse_presets(projects, configs, timers, card))
+    launches.update(phase_loftr(projects, configs, timers, card))
     return launches
 
 
@@ -2609,7 +2880,7 @@ def _tiled_run(label, pipeline, proj, cfg, outs, tiling, needed, timers, card, d
 
 
 def _tiled_card_vs_cpu(proj, cfg_card, cfg_cpu, timers, card) -> dict:
-    """The 3-view 4800 x 3200 project (view 2 a shifted copy of view 0) on
+    """The 2-view 4800 x 3200 project (view 1 a shifted copy of view 0) on
     the card and on the CPU: equal tile-pair jobs on the shifted pair and the
     share of equal jobs over all pairs; SuperPoint in bf16 on the card and in
     f32 on the CPU keeping at least 90 % of the same keypoints; then
@@ -2808,7 +3079,7 @@ def phase_tiled(card: str) -> dict:
     preselection on 6 synthetic 24 MP views at 2048 and 8192 keypoints (a
     warm run of the first under torch.profiler), --tiling grid on the demo
     images with sift and with superpoint+lightglue, the card against the
-    CPU on a 3-view 4800 x 3200 project, the tile cut and the merge bitwise,
+    CPU on a 2-view 4800 x 3200 project, the tile cut and the merge bitwise,
     and kernels 1 and 3 on tile-masked batches. Returns the counted runs'
     launches."""
     import torch
@@ -2829,10 +3100,10 @@ def phase_tiled(card: str) -> dict:
         cfgs[name].write_text(text)
     t0 = time.perf_counter()
     p24 = _synthetic_project(root / "p24", n=6, size=(6000, 4000), shifts=TILED_SHIFTS)
-    p15 = _synthetic_project(root / "p15", n=3, size=(4800, 3200), shifts={-1: TILED_SHIFTS[-1]})
+    p15 = _synthetic_project(root / "p15", n=2, size=(4800, 3200), shifts={-1: TILED_SHIFTS[-1]})
     demo = WORK / "demo5"
     print(f"[tiled] projects: 6 views of 6000 x 4000 (views 4 and 5 view 0 shifted by "
-          f"{TILED_SHIFTS[-2]} and {TILED_SHIFTS[-1]} px), 3 of 4800 x 3200, written in "
+          f"{TILED_SHIFTS[-2]} and {TILED_SHIFTS[-1]} px), 2 of 4800 x 3200, written in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     timers = _TimerLog()
     lg = ("attention", "ffn", "assignment", "nullspace", "nn")

@@ -1,7 +1,7 @@
 """Device profile of warm ``run_matching`` runs of the port on one GPU.
 
     python3 profile_paths.py [--paths superpoint+superglue orb+kornia_matcher] [--warm 3]
-                             [--dtype float32]
+                             [--dtype float32] [--src build/parent/src]
 
 For each ported path: ``--warm`` untraced runs of ``run_matching`` (their
 wall times; the first also builds the kernels and loads the libraries), then
@@ -28,8 +28,16 @@ float32 forms of kernels 1, 2, 6 and 10). Two reconstruction rows (stage 5):
 without ``--skip_reconstruction`` (the mapper's bundle adjustment on the
 card), and ``mapper60``, ``native_incremental_mapping`` alone on
 ``chip_smoke.mapper_scene``'s 60 images (the JAX package's mapper profile
-size). ``--cpu`` also times ``--warm`` runs of each path with the CPU as its
-device (walls only), the baseline the card's walls are read against. The
+size). disk+lightglue, xfeat+lighterglue and superpoint_open+kornia_matcher
+run on the synthetic views as ``chip_smoke.py``'s rows do,
+``keynetaffnethardnet+kornia_matcher@learned`` on the demo images with
+``chip_smoke.keynet_weights``' seeded KeyNet / AffNet / OriNet, loftr and
+se2loftr on the synthetic views with ``chip_smoke.loftr_weights``' seeded
+checkpoints (match threshold 0). ``--cpu`` also times ``--warm`` runs of
+each path with the CPU as its device (walls only), the baseline the card's
+walls are read against. ``--src`` takes the port package from another
+checkout's ``src`` (e.g. the parent's, unpacked with ``git archive``), so
+that two trees are profiled by the same paths in one call. The
 card's name and power limit are printed first; the summary is also written
 to ``build/profile/profile_<dtype>.json``. Exits non-zero without a CUDA
 device.
@@ -109,7 +117,19 @@ PATHS = {
         "tiled24mp", "matcher:\n  filter_threshold: 0.0\nextractor:\n  max_keypoints: 8192\n",
         "preselection"),
     "mapper60": ("60 synthetic views", mapper, False),
+    # DISK, XFeat and the open SuperPoint at their chip_smoke rows'
+    # settings, the seeded KeyNet / AffNet / OriNet on the demo images, and
+    # the LoFTR family with its seeded checkpoints (``PATH_WEIGHTS``)
+    "disk+lightglue": matching("synthetic16", "matcher:\n  filter_threshold: 0.0\n"),
+    "xfeat+lighterglue": matching("synthetic16", "matcher:\n  filter_threshold: 0.0\n"),
+    "superpoint_open+kornia_matcher": matching("synthetic16"),
+    "keynetaffnethardnet+kornia_matcher@learned": matching("demo5"),
+    "loftr": matching("synthetic16", "matcher:\n  match_threshold: 0.0\n"),
+    "se2loftr": matching("synthetic16", "matcher:\n  match_threshold: 0.0\n"),
 }
+# paths that read seeded checkpoints: path -> ``chip_smoke.WEIGHT_SETS`` key
+PATH_WEIGHTS = {"keynetaffnethardnet+kornia_matcher@learned": "keynet_weights",
+                "loftr": "loftr_weights", "se2loftr": "loftr_weights"}
 
 # the __global__ functions of csrc/*.cu -> the kernel they belong to; a name
 # matches where no letter or underscore precedes it (attention_sm90 is not
@@ -183,10 +203,13 @@ def main() -> None:
                         help="general.tpu.dtype of the learned matchers")
     parser.add_argument("--cpu", action="store_true",
                         help="also time --warm runs of each path on the CPU (walls only)")
+    parser.add_argument("--src", default=str(ROOT / "src"),
+                        help="the directory that holds the port package (another checkout's "
+                             "src times that tree with this script's paths)")
     opts = parser.parse_args()
     base = BASE + (f"    dtype: {opts.dtype}\n" if opts.dtype != "bfloat16" else "")
 
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(opts.src).resolve()))
     import torch
 
     import chip_smoke
@@ -198,6 +221,7 @@ def main() -> None:
                          capture_output=True, text=True)
     card = smi.stdout.strip()
     print(card, flush=True)
+    print(f"port package from {opts.src}", flush=True)
 
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
@@ -216,7 +240,11 @@ def main() -> None:
     results = []
     for pipeline in opts.paths:
         project, make, host_events = PATHS[pipeline]
-        with chip_smoke._env(chip_smoke._path_env(pipeline)):
+        env = chip_smoke._path_env(pipeline)
+        if pipeline in PATH_WEIGHTS:
+            chip_smoke._reload_keynet_stages()
+            env = chip_smoke._weights_env(PATH_WEIGHTS[pipeline])
+        with chip_smoke._env(env):
             r = profile_path(pipeline, make(pipeline, projects.get(project), base, "cuda"),
                              opts.warm, opts.top, host_events)
             if opts.cpu:

@@ -79,8 +79,8 @@ conf_general: Dict[str, Any] = {
     "try_match_full_images": False,
     "preselection_pipeline": "superpoint+lightglue",
     # SfM backend: "auto" = pycolmap when installed, else the native
-    # mapper; or force "pycolmap" / "native" (reconstruction is not ported
-    # yet, see ROADMAP.md queue 1)
+    # mapper (``sfm/incremental.py``, bundle adjustment on
+    # ``general.tpu.device``); or force "pycolmap" / "native"
     "sfm_backend": "auto",
     # native-mapper options (sfm.MapperOptions fields), e.g. {"ba_global_every": 0}
     "sfm_options": None,

@@ -631,3 +631,179 @@ def liftfeat_params_from_jax(params) -> StateDict:
                           ("proj", "attn.proj"), ("ffn1", "ffn.mlp.0"), ("ffn2", "ffn.mlp.2")):
             lin(f"{pre}.{name}", lp[key])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# LoFTR and SE2-LoFTR: the port keeps the JAX package's tree (convolutions
+# OIHW, linear layers (out, in)); the checkpoints' own names are read by
+# ``loftr_params_from_torch`` (BatchNorm folded in numpy f32, the JAX
+# package's arithmetic, so both hold the same bits) and written by
+# ``loftr_state_dict`` (identity BatchNorms, which fold back bit for bit)
+# ---------------------------------------------------------------------------
+
+def loftr_params_from_jax(params) -> Dict:
+    """The JAX package's LoFTR or SE2-LoFTR tree in the port's layouts:
+    4-d convolution weights HWIO -> OIHW, 2-d dense weights (in, out) ->
+    (out, in), everything else as it is."""
+    if isinstance(params, dict):
+        out = {}
+        for k, v in params.items():
+            if k == "w" and np.ndim(v) == 4:
+                out[k] = _t(np.asarray(v).transpose(3, 2, 0, 1))
+            elif k == "w" and np.ndim(v) == 2:
+                out[k] = _t(np.asarray(v).T)
+            else:
+                out[k] = loftr_params_from_jax(v)
+        return out
+    if isinstance(params, (list, tuple)):
+        return [loftr_params_from_jax(v) for v in params]
+    return _t(params)
+
+
+# backbone entries (name in the tree -> checkpoint prefix, its BatchNorm or
+# None, whether the checkpoint's convolution has a bias)
+_LOFTR_FPN = {
+    "l3_out": ("backbone.layer3_outconv", None, False),
+    "l3_triv": ("backbone.layer3triv", None, False),
+    "l2_out": ("backbone.layer2_outconv", None, False),
+    "l2_out2a": ("backbone.layer2_outconv2.0", "backbone.layer2_outconv2.1", False),
+    "l2_out2b": ("backbone.layer2_outconv2.3", None, True),
+    "l1_out": ("backbone.layer1_outconv", None, False),
+    "l1_out2a": ("backbone.layer1_outconv2.0", "backbone.layer1_outconv2.1", False),
+    "l1_out2b": ("backbone.layer1_outconv2.3", None, True),
+}
+_LOFTR_ENC = (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("merge", "merge"),
+              ("mlp1", "mlp.0"), ("mlp2", "mlp.2"))
+
+
+def _loftr_backbone_entries(bp: Dict):
+    """(tree entry, conv prefix, BatchNorm prefix or None, conv bias) of a
+    LoFTR backbone tree, in the checkpoint's order."""
+    yield bp["conv1"], "backbone.conv1", "backbone.bn1", False
+    for s in (1, 2, 3):
+        for i, blk in enumerate(bp[f"layer{s}"]):
+            pre = f"backbone.layer{s}.{i}"
+            yield blk["conv1"], f"{pre}.conv1", f"{pre}.bn1", False
+            yield blk["conv2"], f"{pre}.conv2", f"{pre}.bn2", False
+            if "down" in blk:
+                yield blk["down"], f"{pre}.downsample.0", f"{pre}.downsample.1", False
+    for name, (conv, bn, bias) in _LOFTR_FPN.items():
+        if name in bp:
+            yield bp[name], conv, bn, bias
+
+
+def loftr_state_dict(params) -> StateDict:
+    """The port's LoFTR (or SE2-LoFTR exported-form) tree -> the checkpoint's
+    names (``backbone.*``, ``loftr_coarse.layers.{i}.*``,
+    ``fine_preprocess.*``, ``loftr_fine.layers.{i}.*``); a folded convolution
+    is written bias-free with an identity BatchNorm carrying its bias."""
+    sd: StateDict = {}
+    for p, conv, bn, bias in _loftr_backbone_entries(params["backbone"]):
+        sd[f"{conv}.weight"] = p["w"].detach().float().cpu().clone()
+        if bn is not None:
+            _identity_bn(sd, bn, p["w"].shape[0], affine=True)
+            sd[f"{bn}.bias"] = p["b"].detach().float().cpu().clone()
+        elif bias:
+            sd[f"{conv}.bias"] = p["b"].detach().float().cpu().clone()
+
+    def lin(key, p):
+        sd[f"{key}.weight"] = p["w"].detach().float().cpu().clone()
+        if "b" in p:
+            sd[f"{key}.bias"] = p["b"].detach().float().cpu().clone()
+
+    for stage, layers in (("loftr_coarse", params["coarse"]), ("loftr_fine", params["fine"])):
+        for i, lp in enumerate(layers):
+            pre = f"{stage}.layers.{i}"
+            for key, name in _LOFTR_ENC:
+                lin(f"{pre}.{name}", lp[key])
+            for ln in ("ln1", "ln2"):
+                sd[f"{pre}.norm{ln[-1]}.weight"] = lp[ln]["g"].detach().float().cpu().clone()
+                sd[f"{pre}.norm{ln[-1]}.bias"] = lp[ln]["b"].detach().float().cpu().clone()
+    for key in ("down_proj", "merge_feat"):
+        lin(f"fine_preprocess.{key}", params["fine_pre"][key])
+    return sd
+
+
+def _np_state(state_dict) -> Dict[str, np.ndarray]:
+    """A state dict as numpy arrays, the lightning wrapper's ``matcher.``
+    prefix dropped."""
+    out = {}
+    for k, v in state_dict.items():
+        k = k[len("matcher."):] if k.startswith("matcher.") else k
+        out[k] = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+    return out
+
+
+def _np_folded(sd: Dict[str, np.ndarray], conv: str, bn: str) -> Dict[str, torch.Tensor]:
+    """Convolution ``conv`` with the inference BatchNorm ``bn`` folded in,
+    in numpy f32 as the JAX package's ``params_from_torch`` folds it."""
+    w = sd[f"{conv}.weight"]
+    b = sd.get(f"{conv}.bias")
+    g, beta = sd[f"{bn}.weight"], sd[f"{bn}.bias"]
+    mean, var = sd[f"{bn}.running_mean"], sd[f"{bn}.running_var"]
+    s = g / np.sqrt(var + 1e-5)
+    wf = w * s[:, None, None, None]
+    bf = ((b if b is not None else 0.0) - mean) * s + beta
+    return {"w": _t(np.asarray(wf, np.float32)), "b": _t(np.asarray(bf, np.float32))}
+
+
+def loftr_backbone_from_torch(sd: Dict[str, np.ndarray], fpn_keys) -> Dict:
+    """A LoFTR-layout backbone (stem, three stages of two blocks, the FPN
+    entries ``fpn_keys``) from a numpy state dict, BatchNorm folded."""
+    def block(pre):
+        p = {"conv1": _np_folded(sd, f"{pre}.conv1", f"{pre}.bn1"),
+             "conv2": _np_folded(sd, f"{pre}.conv2", f"{pre}.bn2")}
+        if f"{pre}.downsample.0.weight" in sd:
+            p["down"] = _np_folded(sd, f"{pre}.downsample.0", f"{pre}.downsample.1")
+        return p
+
+    bp = {"conv1": _np_folded(sd, "backbone.conv1", "backbone.bn1")}
+    for s in (1, 2, 3):
+        bp[f"layer{s}"] = [block(f"backbone.layer{s}.{i}") for i in range(2)]
+    for name in fpn_keys:
+        conv, bn, bias = _LOFTR_FPN[name]
+        if bn is not None:
+            bp[name] = _np_folded(sd, conv, bn)
+        else:
+            bp[name] = {"w": _t(sd[f"{conv}.weight"])}
+            if bias and f"{conv}.bias" in sd:
+                bp[name]["b"] = _t(sd[f"{conv}.bias"])
+    return bp
+
+
+def loftr_transformer_from_torch(sd: Dict[str, np.ndarray]) -> Dict:
+    """The coarse and fine layers and the fine preprocessing of a LoFTR
+    state dict (as many layers as it holds)."""
+    def lin(key):
+        out = {"w": _t(sd[f"{key}.weight"])}
+        if f"{key}.bias" in sd:
+            out["b"] = _t(sd[f"{key}.bias"])
+        return out
+
+    def layers(stage):
+        n = 1 + max((int(k.split(".")[2]) for k in sd if k.startswith(f"{stage}.layers.")),
+                    default=-1)
+        out = []
+        for i in range(n):
+            pre = f"{stage}.layers.{i}"
+            lp = {key: lin(f"{pre}.{name}") for key, name in _LOFTR_ENC}
+            for ln in ("ln1", "ln2"):
+                lp[ln] = {"g": _t(sd[f"{pre}.norm{ln[-1]}.weight"]),
+                          "b": _t(sd[f"{pre}.norm{ln[-1]}.bias"])}
+            out.append(lp)
+        return out
+
+    return {"coarse": layers("loftr_coarse"),
+            "fine_pre": {"down_proj": lin("fine_preprocess.down_proj"),
+                         "merge_feat": lin("fine_preprocess.merge_feat")},
+            "fine": layers("loftr_fine")}
+
+
+def loftr_params_from_torch(state_dict, temp_bug_fix: bool = False) -> Dict:
+    """An original LoFTR checkpoint (``outdoor_ds.ckpt``'s names, with or
+    without the lightning wrapper's ``matcher.`` prefix) in the port's tree.
+    ``temp_bug_fix`` changes no weight (the position encoding is made at
+    match time); it is taken as the JAX package's converter takes it."""
+    sd = _np_state(state_dict)
+    fpn = [k for k in _LOFTR_FPN if k != "l3_triv"]
+    return {"backbone": loftr_backbone_from_torch(sd, fpn), **loftr_transformer_from_torch(sd)}

@@ -7,10 +7,10 @@ raw_matches.h5 / matches.h5, with verification and gating inside the
 matcher. With ``general.upright`` the images are rotated upright before
 extraction and the keypoints in features.h5 rotated back after matching
 (``upright.py``). This package carries the superpoint, superpoint_open,
-aliked, disk, xfeat, keynetaffnethardnet, sift, orb and no_extractor
-extractors and the lightglue, lighterglue, kornia_matcher, adalam, superglue
-and roma matchers; other presets are not ported yet (ROADMAP.md, queue 1)
-and fail at construction.
+aliked, disk, xfeat, keynetaffnethardnet, dedode, liftfeat, ripe, sift, orb
+and no_extractor extractors and the lightglue, lighterglue, kornia_matcher,
+adalam, superglue, roma, loftr, se2loftr and srif matchers; other presets
+are not ported yet (ROADMAP.md, queue 1) and fail at construction.
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ logger = logging.getLogger("dim_tpu_torch")
 PORTED_EXTRACTORS = ("superpoint", "superpoint_open", "aliked", "disk", "xfeat",
                      "keynetaffnethardnet", "dedode", "liftfeat", "ripe", "sift", "orb",
                      "no_extractor")
-PORTED_MATCHERS = ("lightglue", "lighterglue", "kornia_matcher", "adalam", "superglue", "roma")
+PORTED_MATCHERS = ("lightglue", "lighterglue", "kornia_matcher", "adalam", "superglue", "roma",
+                   "loftr", "se2loftr", "srif")
 
 
 class ImageMatcher:

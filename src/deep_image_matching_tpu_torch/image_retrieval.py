@@ -26,7 +26,6 @@ checkpoints read with ``torch.load``, their BatchNorm folded in numpy.
 from __future__ import annotations
 
 import logging
-import os
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -36,7 +35,7 @@ import torch
 from .models import retrieval as R
 from .utils.device import full_f32, resolve_device
 from .utils.image import ImageList, read_image, resize_image
-from .utils.weights import classical_fallback, missing_weights
+from .utils.weights import classical_fallback, find_checkpoint, missing_weights
 
 # appended to the abort message at every retrieval checkpoint-miss site
 _TINY_NOTE = (
@@ -107,15 +106,6 @@ def compute_global_descriptors(
     return np.concatenate(descs, axis=0)
 
 
-def _find(names) -> Optional[Path]:
-    wdir = os.environ.get("DIM_TPU_WEIGHTS_DIR")
-    for base in ([Path(wdir)] if wdir else []) + [Path.home() / ".cache/dim_tpu"]:
-        for name in names:
-            if (base / name).exists():
-                return base / name
-    return None
-
-
 def _torch_checkpoint(path: Path) -> dict:
     ckpt = torch.load(str(path), map_location="cpu")
     return ckpt.get("state_dict", ckpt)
@@ -141,7 +131,7 @@ def netvlad_tree_from_npz(data) -> dict:
 def _load_netvlad():
     from .convert import retrieval_params_from_jax
 
-    path = _find(["netvlad.npz"])
+    path = find_checkpoint(["netvlad.npz"])
     if path is None:
         return _missing("NetVLAD", ["netvlad.npz"])
     with np.load(path) as data:
@@ -152,7 +142,7 @@ def _load_netvlad():
 
 def _load_openibl():
     names = ["vgg16_netvlad.pth", "openibl.pth"]
-    path = _find(names)
+    path = find_checkpoint(names)
     if path is None:
         return _missing("OpenIBL", names)
     logger.info(f"Loaded OpenIBL weights from {path}")
@@ -161,7 +151,7 @@ def _load_openibl():
 
 def _load_cosplace():
     names = ["cosplace_resnet18.pth", "cosplace.pth"]
-    path = _find(names)
+    path = find_checkpoint(names)
     if path is None:
         return _missing("CosPlace", names)
     logger.info(f"Loaded CosPlace weights from {path}")
@@ -171,7 +161,7 @@ def _load_cosplace():
 
 def _load_dir():
     names = ["Resnet101-AP-GeM-LM18.pt", "dir_resnet101_gem.pth"]
-    path = _find(names)
+    path = find_checkpoint(names)
     if path is None:
         return _missing("DIR", names)
     logger.info(f"Loaded DIR weights from {path}")

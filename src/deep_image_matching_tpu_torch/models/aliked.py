@@ -35,6 +35,7 @@ from ..ops.deform import (
     upsample_bilinear_align,
 )
 from ..ops.detect import bilinear_sample, select_topk, simple_nms
+from ..utils.device import full_f32
 
 Params = Dict
 
@@ -258,7 +259,10 @@ def extract(params: Params, images: torch.Tensor, valid_hw: torch.Tensor,
     32, with the unpadded (h, w) per image. Keypoints are in pixels of the
     padded input; ``descriptors`` are zero on invalid rows."""
     _, _, _, _, dim, K, M = CFGS[model_name]
-    feature_map, score_map = dense_forward(params, images, compute_dtype)
+    # an f32 backbone (the probes', the CPU's) in full f32, not cuDNN's
+    # default TF32; a bf16 one is unaffected
+    with full_f32():
+        feature_map, score_map = dense_forward(params, images, compute_dtype)
     kpts, scores, _, valid = dkd_detect(score_map, valid_hw, max_keypoints,
                                         detection_threshold, nms_radius)
     descs = torch.stack([sddh_describe(params["sddh"], f, k, kernel_size=K, n_pos=M)

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ..ops.deform import bilinear_sample_zeropad
 from ..ops.detect import max_pool_same
+from ..utils.device import full_f32
 
 # (kind, in, out, kernel, stride, padding) per layer: "bl" a BasicLayer
 # (conv + folded BN + ReLU), "conv" a plain convolution
@@ -174,7 +175,10 @@ def extract(
     (B, K, 64)`` L2-normalised and ``mask (B, K)``, valid rows first in
     descending score order; invalid rows are zero."""
     B, H, W, _ = images.shape
-    feats, kpt_logits, heatmap = dense_forward(model, images)
+    # full f32: under cuDNN's default TF32 the card shared 0.9990 of the
+    # CPU's keypoints at 1024 px
+    with full_f32():
+        feats, kpt_logits, heatmap = dense_forward(model, images)
     feats = feats / torch.linalg.norm(feats, dim=-1, keepdim=True).clamp(min=1e-12)
     k1h = get_kpts_heatmap(kpt_logits)
     dev = k1h.device

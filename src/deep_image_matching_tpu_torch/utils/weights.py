@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import logging
 import os
+from pathlib import Path
 from typing import Optional, Sequence
 
 logger = logging.getLogger("dim_tpu_torch")
@@ -30,6 +31,17 @@ _ALLOW: Optional[bool] = None
 class MissingWeightsError(RuntimeError):
     """A learned model has no pretrained checkpoint and random-init execution
     was not explicitly allowed."""
+
+
+def find_checkpoint(names: Sequence[str]) -> Optional[Path]:
+    """The first of ``names`` found in DIM_TPU_WEIGHTS_DIR, then in
+    ~/.cache/dim_tpu; None where there is none."""
+    wdir = os.environ.get("DIM_TPU_WEIGHTS_DIR")
+    for base in ([Path(wdir)] if wdir else []) + [Path.home() / ".cache/dim_tpu"]:
+        for name in names:
+            if (base / name).exists():
+                return base / name
+    return None
 
 
 def set_allow_random_weights(value: Optional[bool]) -> None:
