@@ -392,9 +392,9 @@ def phase_build() -> None:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {line.strip()}", flush=True)
-    # the attention core, the FFN, the assignment and the QKV prologue must
-    # have compiled to Hopper's warpgroup products, the refiner's 1x1 mix to
-    # tensor-core products
+    # the attention core, the FFN, the assignment, the nearest-neighbour
+    # top-2 and the QKV prologue must have compiled to Hopper's warpgroup
+    # products, the refiner's 1x1 mix to tensor-core products
     for kernel, count in _sass_mma(so).items():
         op = MMA_KERNELS[kernel][1]
         print(f"[build] {kernel}: {count} {op} instructions in its SASS", flush=True)
@@ -412,7 +412,8 @@ MMA_KERNELS = {"attention": ("attention_sm90", "HGMMA"),
                "bidir_attention_f32": ("bidir_attention_f32_sm90", "HGMMA"),
                "ffn_f32": ("ffn_f32_sm90", "HGMMA"), "qkv_f32": ("qkv_f32_sm90", "HGMMA"),
                "attention_hd96": ("attention_hd96_sm90", "HGMMA"),
-               "attention_hd96_f32": ("attention_hd96_f32_sm90", "HGMMA")}
+               "attention_hd96_f32": ("attention_hd96_f32_sm90", "HGMMA"),
+               "nn": ("nn_top2_sm90", "HGMMA")}
 
 
 def _ptxas(name: str) -> dict:
@@ -742,6 +743,16 @@ def check_nullspace(torch, dev, card):
     return err, tol, what, extra
 
 
+def _nn_bounds(nbytes: float, B: int, K0: int, K1: int, D: int) -> dict:
+    """Kernel 5's bound: the product as three TF32 products at 495 TFLOP/s
+    (the design's arithmetic) or the bytes, whichever is larger; and, as a
+    note on the f32 FMA design it replaced, one f32 product at 67
+    TFLOP/s."""
+    flops = 2.0 * B * K0 * K1 * D
+    return {**_bound(nbytes, 3 * flops, "tf32"),
+            "ffma_bound_ms": _bound(nbytes, flops, "f32")["bound_ms"]}
+
+
 def check_nn(torch, dev, card):
     from deep_image_matching_tpu_torch.ops.nn import nn_top2, nn_top2_reference
 
@@ -770,23 +781,21 @@ def check_nn(torch, dev, card):
     far = int((~same & (gap > 1e-3)).sum().item())
     if far or equal_share < 0.999:
         err = float("inf")
-    tol = 1e-4  # f32 FMA sums over D = 256 in another order
+    tol = 1e-4  # split-TF32 products (~2^-22 relative) summed in another order over D = 256
     extra = {"ms": _time_ms(lambda: nn_top2(d0, d1, sq1)),
              "plain_ms": _time_ms(lambda: nn_top2_reference(d0, d1, sq1)),
-             **_bound(_nbytes(d0, d1, sq1, *got), 2.0 * B * K * K * D, "f32"),
-             # the bound of the redesign ROADMAP's device queue names: the
-             # product as three TF32 products on the tensor cores, as kernel
-             # 3 runs it
-             "tf32_bound_ms": _bound(_nbytes(d0, d1, sq1, *got), 3 * 2.0 * B * K * K * D,
-                                     "tf32")["bound_ms"],
-             "bound_note": "bound_ms: one f32 product at 67 TFLOP/s (FFMA, the kernel's "
-                           "design); tf32_bound_ms: as three TF32 products at 495 TFLOP/s",
+             **_nn_bounds(_nbytes(d0, d1, sq1, *got), B, K, K, D),
+             "bound_note": "bound_ms: the product as three TF32 products at 495 TFLOP/s (the "
+                           "kernel's split-TF32 wgmma); ffma_bound_ms: one f32 product at 67 "
+                           "TFLOP/s, the bound of the f32 FMA design it replaced",
              "library_ms": None,
              "library_note": "none: the top-2 of the distances needs two calls "
-                             "(torch.cdist, then topk)"}
+                             "(torch.cdist, then topk)",
+             "ptxas": _ptxas("nn_top2_sm90")}
     # SIFT (128) and ORB (32) widths: byte-valued descriptors at capacity
     # 4000 with exact neighbours, double minima and duplicated columns; the
-    # f32 arithmetic is exact, so every output must be bitwise equal
+    # split-TF32 arithmetic is exact on them, so every output must be bitwise
+    # equal
     exact = []
     for Dw in (128, 32):
         Bi, Ki = 4, 4000
@@ -826,18 +835,16 @@ def check_nn(torch, dev, card):
             "max_abs_err": e, "argmin_equal": share_w,
             "ms": _time_ms(lambda: nn_top2(q, r, sq)),
             "plain_ms": _time_ms(lambda: nn_top2_reference(q, r, sq)),
-            **_bound(_nbytes(q, r, sq, *g), 2.0 * B * K * K * Dw, "f32"),
-            "tf32_bound_ms": _bound(_nbytes(q, r, sq, *g), 3 * 2.0 * B * K * K * Dw,
-                                    "tf32")["bound_ms"]}
+            **_nn_bounds(_nbytes(q, r, sq, *g), B, K, K, Dw)}
         wd = extra["widths"][Dw]
         exact.append(f"D={Dw} at ({B}, {K}, {K}) min1/min2 abs {e:.2e}, argmin equal "
-                     f"{share_w:.5f}, kernel {wd['ms']:.3f} ms, FFMA bound {wd['bound_ms']:.3f} "
-                     f"ms ({100 * wd['bound_ms'] / wd['ms']:.1f} %), three-TF32 bound "
-                     f"{wd['tf32_bound_ms']:.3f} ms ({100 * wd['tf32_bound_ms'] / wd['ms']:.1f} %)")
+                     f"{share_w:.5f}, kernel {wd['ms']:.3f} ms, three-TF32 bound "
+                     f"{wd['bound_ms']:.3f} ms ({100 * wd['bound_ms'] / wd['ms']:.1f} %), FFMA "
+                     f"bound {wd['ffma_bound_ms']:.3f} ms")
         del q, r, sq, g, rf
     what = (f"D=256 min1/min2 abs; argmin equal {equal_share:.5f}, none differs where the "
-            f"gap > 1e-3; three-TF32 bound at 256 {extra['tf32_bound_ms']:.3f} ms "
-            f"({100 * extra['tf32_bound_ms'] / extra['ms']:.1f} %); {', '.join(exact)}")
+            f"gap > 1e-3; bound: three TF32 products; FFMA bound at 256 "
+            f"{extra['ffma_bound_ms']:.3f} ms; {', '.join(exact)}")
     return err, tol, what, extra
 
 
@@ -3837,7 +3844,7 @@ def _probe_kernel_check(card: str) -> dict:
     (4, 512, 128) (ALIKED), valid rows 30-100 % of the capacity as prefixes:
     ``nn_top2`` against its plain version (values within 1e-4, argmins equal
     away from near-ties) and ``nn_match_fused``'s matches against the dense
-    plain route, with both times."""
+    plain route, with both times and both bounds."""
     import torch
 
     from deep_image_matching_tpu_torch.ops.nn import nn_match_fused, nn_top2, nn_top2_reference
@@ -3872,13 +3879,21 @@ def _probe_kernel_check(card: str) -> dict:
             _fail(f"kernel 5 at the probe's (4, 512, {D}): matches equal on {share:.4f}")
         ms = _time_ms(lambda: nn_top2(d0, d1, sq1))
         plain = _time_ms(lambda: nn_top2_reference(d0, d1, sq1))
-        out[f"4x512x{D}"] = {"max_abs_err": err, "matches_equal": share, "ms": ms,
-                             "plain_ms": plain,
-                             **_bound(_nbytes(d0, d1, sq1, *got), 2.0 * B * K * K * D, "f32")}
+        # at this size the host's dispatch of the split, the kernel and the
+        # merge sets the time between CUDA events; the device's own time of
+        # the three
+        dev_ms = _device_ms(lambda: nn_top2(d0, d1, sq1),
+                            ("nn_top2_sm90", "nn_split_kernel", "nn_merge_kernel"))
+        row = out[f"4x512x{D}"] = {
+            "max_abs_err": err, "matches_equal": share, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain, **_nn_bounds(_nbytes(d0, d1, sq1, *got), B, K, K, D)}
         print(f"[upright] kernel 5 at the probe's (4, 512, {D}): max_abs_err {err:.3e} (tol "
               f"1.0e-04), nn_match_fused's matches equal to the plain route on {share:.4f} "
-              f"(>= 0.995); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{out[f'4x512x{D}']['bound_ms']:.5f} ms [{card}]", flush=True)
+              f"(>= 0.995); kernel {ms:.4f} ms (device alone "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), plain "
+              f"{plain:.4f} ms, three-TF32 bound "
+              f"{row['bound_ms']:.5f} ms ({100 * row['bound_ms'] / ms:.1f} %), FFMA bound "
+              f"{row['ffma_bound_ms']:.5f} ms [{card}]", flush=True)
     return out
 
 

@@ -5,13 +5,15 @@
 OTHER_ROOT is another checkout of this repository (for example the parent
 commit unpacked with ``git archive``). KERNEL names checks of
 ``chip_smoke.py`` (``attention``, ``ffn``, ``sinkhorn``, ``bidir_attention``,
-any key of its kernel phase); the default is the two attention kernels. Each
+any key of its kernel phase, or ``nn_probe``: kernel 5 at the upright
+probe's shapes); the default is the two attention kernels. Each
 measurement runs in its own process, in the order other, this, this, other,
 and calls each checkout's own ``chip_smoke.py`` check of each kernel with its
 package first on the path: the inputs, tolerances and timings of that
 checkout's kernel phase (runs of back-to-back calls), the same in both unless
 a check changed its inputs with its path. Prints one JSON line per run with
-every time the check reports (its keys ending in ``ms``), then the mean of
+every time the check reports (its keys ending in ``ms``, those of nested
+reports as ``outer.inner``, e.g. kernel 5's ``widths.960.ms``), then the mean of
 each checkout's two runs as the last line. Each run also writes, from one
 seed with partial masks, the head-dim-64 outputs of kernel 1 (three shapes)
 and of kernel 6 (two shapes), both in bf16 and f32, and kernel 1's
@@ -92,6 +94,18 @@ def _hd96_difference(torch, a, b):
     return diff if a[0].dtype == torch.bfloat16 else diff / x.abs().max().item()
 
 
+def _times(report: dict, prefix: str = "") -> dict:
+    """The times of a check's report (keys ending in ``ms``), nested reports
+    flattened as ``outer.inner``."""
+    out = {}
+    for k, v in report.items():
+        if isinstance(v, dict):
+            out.update(_times(v, f"{prefix}{k}."))
+        elif str(k).endswith("ms") and isinstance(v, (int, float)):
+            out[f"{prefix}{k}"] = v
+    return out
+
+
 def measure(src: str, names: list) -> dict:
     sys.path.insert(0, src)
     sys.path.insert(1, str(Path(src).parent))
@@ -106,11 +120,13 @@ def measure(src: str, names: list) -> dict:
                           capture_output=True, text=True).stdout.strip()
     out = {"src": src, "card": card}
     for name in names:
+        if name == "nn_probe":  # fails the run itself on a disagreement
+            out[name] = _times(chip_smoke._probe_kernel_check(card))
+            continue
         err, tol, _, extra = getattr(chip_smoke, f"check_{name}")(torch, dev, card)
         if not err <= tol:
             raise SystemExit(f"{name} from {src} disagrees with its plain version")
-        out[name] = {k: v for k, v in extra.items()
-                     if k.endswith("ms") and isinstance(v, (int, float))}
+        out[name] = _times(extra)
         torch.cuda.empty_cache()
     return out
 

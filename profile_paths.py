@@ -31,7 +31,9 @@ card), and ``mapper60``, ``native_incremental_mapping`` alone on
 size). disk+lightglue, xfeat+lighterglue and superpoint_open+kornia_matcher
 run on the synthetic views as ``chip_smoke.py``'s rows do,
 ``keynetaffnethardnet+kornia_matcher@learned`` on the demo images with
-``chip_smoke.keynet_weights``' seeded KeyNet / AffNet / OriNet, loftr and
+``chip_smoke.keynet_weights``' seeded KeyNet / AffNet / OriNet,
+ripe+kornia_matcher on the synthetic views with
+``chip_smoke.dedode_liftfeat_ripe_weights``' seeded checkpoint, loftr and
 se2loftr on the synthetic views with ``chip_smoke.loftr_weights``' seeded
 checkpoints (match threshold 0). ``--cpu`` also times ``--warm`` runs of
 each path with the CPU as its device (walls only), the baseline the card's
@@ -124,11 +126,14 @@ PATHS = {
     "xfeat+lighterglue": matching("synthetic16", "matcher:\n  filter_threshold: 0.0\n"),
     "superpoint_open+kornia_matcher": matching("synthetic16"),
     "keynetaffnethardnet+kornia_matcher@learned": matching("demo5"),
+    # RIPE with chip_smoke.py's seeded checkpoint: kernel 5 at D = 960
+    "ripe+kornia_matcher": matching("synthetic16"),
     "loftr": matching("synthetic16", "matcher:\n  match_threshold: 0.0\n"),
     "se2loftr": matching("synthetic16", "matcher:\n  match_threshold: 0.0\n"),
 }
 # paths that read seeded checkpoints: path -> ``chip_smoke.WEIGHT_SETS`` key
 PATH_WEIGHTS = {"keynetaffnethardnet+kornia_matcher@learned": "keynet_weights",
+                "ripe+kornia_matcher": "dedode_liftfeat_ripe_weights",
                 "loftr": "loftr_weights", "se2loftr": "loftr_weights"}
 
 # the __global__ functions of csrc/*.cu -> the kernel they belong to; a name
@@ -138,7 +143,8 @@ OUR_KERNELS = {
     "attention_sm90": "attention", "ffn_sm90": "ffn",
     "assignment_sm90": "assignment", "tf32_split_kernel": "assignment",
     "combine_cols_kernel": "assignment",
-    "nullspace_kernel": "nullspace", "nn_top2_kernel": "nn",
+    "nullspace_kernel": "nullspace", "nn_top2_sm90": "nn", "nn_split_kernel": "nn",
+    "nn_merge_kernel": "nn",
     "sinkhorn_iter_kernel": "sinkhorn", "sinkhorn_cols_kernel": "sinkhorn",
     "lse_rows_kernel": "lse_rows",
     "refiner_block_kernel": "refiner", "bidir_attention_sm90": "bidir_attention", "qkv_sm90": "qkv",
@@ -146,6 +152,8 @@ OUR_KERNELS = {
     "bidir_attention_f32_sm90": "bidir_attention_f32", "qkv_f32_sm90": "qkv_f32",
     # the float32 attention kernels' per-call split of their operands
     "split_rows_kernel": "f32_split", "split_vt_kernel": "f32_split",
+    # kernel 5's earlier f32 FMA kernel, for --src of older checkouts
+    "nn_top2_kernel": "nn",
 }
 
 

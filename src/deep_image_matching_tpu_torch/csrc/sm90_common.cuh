@@ -7,8 +7,9 @@
 // host-side tensor-map encoder fetched at run time (so no library links
 // against libcuda). Used by the attention core (attention_sm90.cuh: kernels 1 and 6),
 // the Sinkhorn iteration (sinkhorn.cu: kernel 7), the FFN (ffn.cu: kernel 2),
-// the assignment (assignment.cu: kernel 3), the QKV + rotary prologue
-// (qkv.cu: kernel 10) and the refiner stack (refiner.cu: kernel 9).
+// the assignment (assignment.cu: kernel 3), the nearest-neighbour top-2
+// (nn.cu: kernel 5), the QKV + rotary prologue (qkv.cu: kernel 10) and the
+// refiner stack (refiner.cu: kernel 9).
 
 #pragma once
 

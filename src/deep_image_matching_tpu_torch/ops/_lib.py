@@ -33,7 +33,7 @@ SOURCES = ("attention.cu", "ffn.cu", "assignment.cu", "nullspace.cu", "nn.cu",
            "sinkhorn.cu", "refiner.cu", "bidir_attention.cu", "qkv.cu")
 # attention_sm90.cuh and attention_f32_sm90.cuh are included by attention.cu
 # and bidir_attention.cu; sm90_common.cuh (mbarriers, TMA, wgmma helpers) by
-# both, sinkhorn.cu, ffn.cu, assignment.cu, qkv.cu and refiner.cu
+# both, sinkhorn.cu, ffn.cu, assignment.cu, nn.cu, qkv.cu and refiner.cu
 HEADERS = ("attention_sm90.cuh", "attention_f32_sm90.cuh", "sm90_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,6 +47,9 @@ LAUNCHES: Dict[str, int] = {
     "sinkhorn": 0, "lse_rows": 0, "refiner": 0, "bidir_attention": 0, "qkv": 0,
     "attention_f32": 0, "ffn_f32": 0, "bidir_attention_f32": 0, "qkv_f32": 0,
     "attention_hd96": 0, "attention_hd96_f32": 0,
+    # kernel 5's TF32 split of its operands and the merge of its column
+    # slices, launched by the same C call as kernel 5
+    "nn_split": 0, "nn_merge": 0,
 }
 
 _P = ctypes.c_void_p
@@ -58,7 +61,7 @@ _SIGNATURES = {
     "dim_assignment_pass": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _F, _I, _P],
     "dim_nullspace_8x9": [_I, _P, _P, _I, _P],
-    "dim_nn_top2": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dim_nn_top2": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dim_sinkhorn_iteration": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "dim_lse_rows": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
     "dim_refiner_block": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

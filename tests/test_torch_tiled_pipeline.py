@@ -235,8 +235,7 @@ RUNS = {
 }
 
 
-@pytest.mark.parametrize("run", list(RUNS))
-def test_tiled_run_matching_equals_jax(tmp_path, demo3, monkeypatch, run):
+def tiled_run_matching_equals_jax(tmp_path, demo3, monkeypatch, run):
     """Both packages' ``run_matching`` with tiles of (400, 300) and overlap
     20: equal tile-pair jobs pair by pair, the same features with their
     tile indices, and equal raw and verified matches per pair (sets of
@@ -292,6 +291,15 @@ def test_tiled_run_matching_equals_jax(tmp_path, demo3, monkeypatch, run):
         assert len(tver) >= 1
     for pair in jver:
         assert tver[pair] == jver[pair], pair
+
+
+# The two LightGlue runs take most of this file's time, so each has a file of
+# its own (test_torch_tiled_lightglue_grid.py and
+# test_torch_tiled_lightglue_preselection.py) that parallel workers run beside
+# this one; all three call ``tiled_run_matching_equals_jax``.
+@pytest.mark.parametrize("run", [r for r in RUNS if not r.startswith("lightglue")])
+def test_tiled_run_matching_equals_jax(tmp_path, demo3, monkeypatch, run):
+    tiled_run_matching_equals_jax(tmp_path, demo3, monkeypatch, run)
 
 
 def test_roma_probe_selected_by_config(demo3, monkeypatch):
