@@ -23,8 +23,9 @@ Phases, each printing its own lines:
    and DINOv2's at RoMa's 560 px and at DeDoDe-G's 784 px), the FFN in
    both modes (ln_gelu at LightGlue's shape, relu at SuperGlue's),
    assignment (SuperPoint's and ALIKED's keypoint counts), null space,
-   nearest neighbours (SuperPoint's width 256, and LiftFeat's 64 and RIPE's
-   960 at (16, 4096, 4096), each timed against its bound), the Sinkhorn
+   nearest neighbours (SuperPoint's width 256, and LiftFeat's and alike-t's
+   64, alike-s's 96 and RIPE's 960 at (16, 4096, 4096), each timed against
+   its bound), the Sinkhorn
    iteration, the
    row logsumexp, RoMa's refiner stack (both passes' shapes), LightGlue's
    bidirectional cross attention (LightGlue's and ALIKED's lengths) and its
@@ -85,15 +86,26 @@ Phases, each printing its own lines:
      in bf16), liftfeat+kornia_matcher and ripe+kornia_matcher on the
      synthetic views with seeded checkpoints
      (``dedode_liftfeat_ripe_weights``; kernel 5 at widths 256, 64 and
-     960), each once more warm under
+     960), rdd_sparse+lightglue on the synthetic views (random RDD and
+     LightGlue weights, RDD in full f32, kernels 1-4 at K = 4096), and ALIKE
+     through a YAML over sift+kornia_matcher with seeded checkpoints
+     (``alike_weights``): alike-n on the synthetic views (held to the
+     planted shifts), alike-s and alike-t on the demo images (kernel 5 at
+     D = 96 and 64), each once more warm under
      ``torch.profiler`` (wall, device busy, idle share, peak memory), then
      each against the CPU (``SPARSE_CPU_CHECKS``: shares of keypoints and raw
      matches; DeDoDe and RIPE at their rows' sizes on view 0 of the synthetic
      views and its shifted copy, G's DINOv2 in f32 on both sides, and the
      timed bf16 G against the CPU's f32; DISK, XFeat, ALIKED and SuperPoint
      (open or not) at 1024 x 1024 on the same two views and the seeded
-     KeyNet / AffNet / OriNet on the demo images, each share printed beside
-     its bound);
+     KeyNet / AffNet / OriNet on the demo images, RDD and ALIKE in full f32
+     at 1024 x 1024 on the two views, each share printed beside its bound);
+   - the extract -> match handoff (``phase_handoff``): features.h5 written
+     through the handoff byte-equal to the host path's for SuperPoint,
+     ALIKED, XFeat and ALIKE on the demo images at medium quality and for
+     SuperPoint's tiled device route, and superpoint+lightglue's
+     raw_matches.h5 and matches.h5 from the handoff's store equal to a
+     ``--resume`` of its match stage, whose store reads features.h5;
    - the LoFTR family (``phase_loftr``, seeded checkpoints
      ``loftr_weights``, match threshold 0, no kernel may launch): loftr on
      the synthetic views (held to the planted shifts, once more warm under
@@ -812,11 +824,11 @@ def check_nn(torch, dev, card):
         exact.append(f"D={Dw} {'bitwise equal' if ok else 'DIFFERENT'}")
         if not ok:
             err = float("inf")
-    # LiftFeat's 64 and RIPE's 960 (kernel 5 at its other paths' widths),
-    # unit-norm f32 at (16, 4096, 4096) as at D = 256, each timed with its
-    # bound and plain version
+    # LiftFeat's and alike-t's 64, alike-s's 96 and RIPE's 960 (kernel 5 at
+    # its other paths' widths), unit-norm f32 at (16, 4096, 4096) as at
+    # D = 256, each timed with its bound and plain version
     extra["widths"] = {}
-    for Dw in (64, 960):
+    for Dw in (64, 96, 960):
         q = F.normalize(torch.randn(B, K, Dw, generator=gen), dim=-1)
         r = F.normalize(torch.randn(B, K, Dw, generator=gen), dim=-1)
         r[:, : K // 2] = F.normalize(q[:, : K // 2] + 0.3 * torch.randn(B, K // 2, Dw,
@@ -2173,6 +2185,22 @@ SPARSE_PATHS = {
         ("synthetic16", "bruteforce", "default", 64),), "dedode_liftfeat_ripe_weights"),
     "ripe+kornia_matcher": ("ripe+kornia_matcher", ("nn", "nullspace"), (), (
         ("synthetic16", "bruteforce", "default", 960),), "dedode_liftfeat_ripe_weights"),
+    # RDD (random weights from its seeded generator; ResNet-50, the
+    # deformable encoder, 4096 keypoints, all in full f32) with LightGlue
+    # (random rdd_sparse weights, bf16): kernels 1-4 at K = 4096
+    "rdd_sparse+lightglue": ("rdd_sparse+lightglue", ("attention", "ffn", "assignment",
+                                                      "nullspace"), ("attention_f32", "ffn_f32"), (
+        ("synthetic16", "bruteforce", "threshold0", 256),), None),
+    # ALIKE through a YAML that swaps sift+kornia_matcher's extractor, seeded
+    # checkpoints (``alike_weights``): alike-n (D = 128, 8192 keypoints) on the
+    # synthetic views, alike-s (D = 96) and alike-t (D = 64) on the demo images;
+    # kernel 5 and kernel 4
+    "alike+kornia_matcher": ("sift+kornia_matcher", ("nn", "nullspace"), (), (
+        ("synthetic16", "bruteforce", "alike", 128),), "alike_weights"),
+    "alike+kornia_matcher (alike-s)": ("sift+kornia_matcher", ("nn", "nullspace"), (), (
+        ("demo5", "bruteforce", "alike_s", 96),), "alike_weights"),
+    "alike+kornia_matcher (alike-t)": ("sift+kornia_matcher", ("nn", "nullspace"), (), (
+        ("demo5", "bruteforce", "alike_t", 64),), "alike_weights"),
 }
 
 # card against CPU on the same inputs: label -> (pipeline, project, card
@@ -2252,10 +2280,24 @@ SPARSE_CPU_CHECKS = {
     "superpoint_open+kornia_matcher (float32, 1024)": (
         "superpoint_open+kornia_matcher", "shifted2", "f32_threshold0", "cpu_threshold0",
         0.9, 0.9, None),
+    # RDD and ALIKE at their timed rows' size (1024 x 1024) on view 0 and its
+    # shifted copy, in full f32 on both sides (LightGlue too), keypoints and
+    # raw-match rows paired within 0.01 px: RDD's position embedding is
+    # absolute and its coarsest level has a stride of 64 px, so its
+    # descriptors do not carry the planted shift and this is the check of its
+    # row's outputs. On an H100 80GB HBM3 the least shares of keypoints / raw
+    # matches were RDD 1 / 1 and ALIKE 0.9998 / 1; RDD's pair keeps few raw
+    # matches under random weights (one flip moves its share by several
+    # percent), so it is held to 99 % / 90 %, ALIKE to 99 % / 99 %
+    "rdd_sparse+lightglue (1024)": ("rdd_sparse+lightglue", "shifted2", "f32_threshold0",
+                                    "cpu_threshold0", 0.99, 0.9, None),
+    "alike+kornia_matcher (1024)": ("sift+kornia_matcher", "shifted2", "alike", "cpu_alike",
+                                    0.99, 0.99, "alike_weights"),
 }
 # rows whose keypoints are sub-pixel: keypoints and raw-match rows pair one
 # to one within this many pixels (max norm) instead of comparing equal
-CPU_CHECK_TOL_PX = {"aliked+lightglue (1024)": 0.25}
+CPU_CHECK_TOL_PX = {"aliked+lightglue (1024)": 0.25, "rdd_sparse+lightglue (1024)": 0.01,
+                    "alike+kornia_matcher (1024)": 0.01}
 
 
 def keynet_weights(wdir: Path, seed: int = 0) -> dict:
@@ -2358,7 +2400,69 @@ def loftr_weights(wdir: Path, seed: int = 0) -> dict:
     return {"DIM_TPU_WEIGHTS_DIR": str(wdir)}
 
 
+def alike_state_dict(model_name: str = "alike-n", seed: int = 0) -> dict:
+    """A seeded ALNet checkpoint (``alike-t``, ``-s``, ``-n`` or ``-l``) in the
+    upstream key layout (ALIKE has no random initialisation): He-normal
+    convolutions, BatchNorms with running statistics, the /8 and /32 blocks'
+    share of the aggregation damped (their align-corners upsampling is not
+    shift equivariant) and the head's score channel scaled by 0.1, so that
+    the sigmoid scores spread around the 0.2 threshold.
+    ``tests/test_torch_alike.py`` builds the same."""
+    import numpy as np
+    import torch
+
+    from deep_image_matching_tpu_torch.models.alike import CONFIGS
+
+    cfg = CONFIGS[model_name]
+    c1, c2, c3, c4, dim = (cfg[k] for k in ("c1", "c2", "c3", "c4", "dim"))
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, co, ci, k, bias=False, std=None):
+        std = (2.0 / (ci * k * k)) ** 0.5 if std is None else std
+        sd[f"{name}.weight"] = rng.normal(0, std, (co, ci, k, k))
+        if bias:
+            sd[f"{name}.bias"] = rng.normal(0, 0.05, co)
+
+    def bn(name, n):
+        sd[f"{name}.weight"] = rng.uniform(0.5, 1.5, n)
+        sd[f"{name}.bias"] = rng.normal(0, 0.1, n)
+        sd[f"{name}.running_mean"] = rng.normal(0, 0.1, n)
+        sd[f"{name}.running_var"] = rng.uniform(0.5, 1.5, n)
+        sd[f"{name}.num_batches_tracked"] = np.array(0)
+
+    for b, ci, co in ((1, 3, c1), (2, c1, c2), (3, c2, c3), (4, c3, c4)):
+        conv(f"block{b}.conv1", co, ci, 3)
+        bn(f"block{b}.bn1", co)
+        conv(f"block{b}.conv2", co, co, 3)
+        bn(f"block{b}.bn2", co)
+        if b > 1:
+            conv(f"block{b}.downsample", co, ci, 1, bias=True)
+    for i, c in enumerate((c1, c2, c3, c4), 1):
+        conv(f"conv{i}", dim // 4, c, 1, std=(2.0 / c) ** 0.5 * (0.1 if i > 2 else 1.0))
+    if not cfg["single_head"]:
+        conv("convhead1", dim, dim, 1)
+    conv("convhead2", dim + 1, dim, 1)
+    sd["convhead2.weight"][-1] *= 0.1
+    return {k: torch.tensor(v, dtype=torch.int64 if v.ndim == 0 else torch.float32)
+            for k, v in sd.items()}
+
+
+def alike_weights(wdir: Path) -> dict:
+    """Seeded ``alike-n``, ``alike-s`` and ``alike-t`` checkpoints
+    (``alike_state_dict``); returns the environment that points the
+    extractor at them."""
+    import torch
+
+    if not (wdir / "alike-t.pth").exists():
+        wdir.mkdir(parents=True, exist_ok=True)
+        for model in ("alike-n", "alike-s", "alike-t"):
+            torch.save(alike_state_dict(model), wdir / f"{model}.pth")
+    return {"DIM_TPU_WEIGHTS_DIR": str(wdir)}
+
+
 WEIGHT_SETS = {"keynet_weights": keynet_weights,
+               "alike_weights": alike_weights,
                "dedode_liftfeat_ripe_weights": dedode_liftfeat_ripe_weights,
                "loftr_weights": loftr_weights}
 
@@ -2487,6 +2591,102 @@ def phase_sparse_presets(projects, configs, timers, card) -> dict:
         if kp < kp_min or raw < raw_min:
             _fail(f"{label}: the card and the CPU disagree beyond the stated shares")
     return launches
+
+
+def phase_handoff(projects, configs, card) -> None:
+    """The extract -> match handoff on the card. features.h5 written through
+    the handoff (``feature_cache`` armed, as ``ImageMatcher`` arms it) must
+    equal the host path's byte for byte for SuperPoint, ALIKED, XFeat and
+    ALIKE on the demo images at medium quality (several shape buckets,
+    rescaled keypoints, prefetched uploads) and for SuperPoint's tiled device
+    route; and ``run_matching`` of superpoint+lightglue on synthetic6, whose
+    store came from the handoff, must write the raw and verified matches that
+    a ``--resume`` of its match stage writes from features.h5."""
+    import filecmp
+
+    import numpy as np
+
+    from deep_image_matching_tpu_torch.__main__ import run_matching
+    from deep_image_matching_tpu_torch.constants import Quality, TileSelection
+    from deep_image_matching_tpu_torch.extractors.alike import AlikeExtractor
+    from deep_image_matching_tpu_torch.extractors.aliked import ALIKEDExtractor
+    from deep_image_matching_tpu_torch.extractors.superpoint import SuperPointExtractor
+    from deep_image_matching_tpu_torch.extractors.xfeat import XFeatExtractor
+    from deep_image_matching_tpu_torch.io import hdf5
+    from deep_image_matching_tpu_torch.matchers import matcher_base
+    from deep_image_matching_tpu_torch.utils.image import ImageList
+
+    t_phase = time.perf_counter()
+    out = WORK / "out" / "handoff"
+    out.mkdir(parents=True, exist_ok=True)
+    images = list(ImageList(projects["demo5"] / "images"))
+    env = {**_path_env("aliked+lightglue"), "DIM_TPU_ALLOW_RANDOM_WEIGHTS": "1"}
+    alike_weights(Path(env["DIM_TPU_WEIGHTS_DIR"]))
+    grid = {"tile_selection": TileSelection.GRID, "tile_size": (400, 300), "tile_overlap": 20}
+    cases = (("superpoint", SuperPointExtractor, {}), ("aliked", ALIKEDExtractor, {}),
+             ("xfeat", XFeatExtractor, {}), ("alike", AlikeExtractor, {}),
+             ("superpoint, tiled device route", SuperPointExtractor, grid))
+    with _env(env):
+        for label, cls, extra in cases:
+            conf = {"extractor": {}, "general": {"quality": Quality.MEDIUM,
+                                                 "tpu": {"device": "cuda"}, **extra}}
+            t0 = time.perf_counter()
+            host_path, dev_path = out / f"{label}_host.h5", out / f"{label}_handoff.h5"
+            for path in (host_path, dev_path):
+                path.unlink(missing_ok=True)
+            cls(conf).extract_batch(images, host_path)
+            ext = cls(conf)
+            ext.feature_cache = {}
+            ext.extract_batch(images, dev_path)
+            handoff = ext.device_handoff
+            ext.flush()
+            if handoff is None or (handoff.tile_idx is not None) != bool(extra):
+                _fail(f"handoff {label}: the extractor did not hand its features over")
+            if not filecmp.cmp(host_path, dev_path, shallow=False):
+                _fail(f"handoff {label}: features.h5 differs from the host path's")
+            print(f"[handoff] {label}: features.h5 byte-equal to the host path's "
+                  f"({dev_path.stat().st_size} bytes, {int(handoff.counts.sum())} keypoints over "
+                  f"{len(images)} images); {time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+
+    seen = []
+    real = matcher_base._PaddedFeatureStore
+
+    def spy(feature_path, names, device, cache=None, handoff=None):
+        seen.append(handoff is not None)
+        return real(feature_path, names, device, cache=cache, handoff=handoff)
+
+    def files(out_dir):
+        got = {}
+        for name in ("raw_matches.h5", "matches.h5"):
+            with hdf5.File(out_dir / name, "r") as f:
+                got[name] = {(a, b): np.asarray(f[a][b]) for a in f for b in f[a]}
+        return got
+
+    args = {"dir": str(projects["synthetic6"]), "outs": str(out / "resume"),
+            "pipeline": "superpoint+lightglue", "strategy": "bruteforce", "tiling": "none",
+            "skip_reconstruction": True, "config_file": str(configs["threshold0"])}
+    matcher_base._PaddedFeatureStore = spy
+    try:
+        run_matching({**args, "force": True})
+        first = files(out / "resume")
+        for name in ("raw_matches.h5", "matches.h5"):
+            (out / "resume" / name).unlink()
+        run_matching({**args, "resume": True})
+        again = files(out / "resume")
+    finally:
+        matcher_base._PaddedFeatureStore = real
+    if seen != [True, False]:
+        _fail(f"handoff: the stores came from {seen} (the handoff, then features.h5 expected)")
+    for name in first:
+        if first[name].keys() != again[name].keys() or any(
+                not np.array_equal(first[name][k], again[name][k]) for k in first[name]):
+            _fail(f"handoff: {name} from the handoff's store differs from features.h5's")
+    n_raw = sum(len(v) for v in first["raw_matches.h5"].values())
+    n_ver = sum(len(v) for v in first["matches.h5"].values())
+    print(f"[handoff] superpoint+lightglue on synthetic6: raw_matches.h5 and matches.h5 equal with "
+          f"the store from the handoff and from features.h5 ({len(first['raw_matches.h5'])} "
+          f"pairs, {n_raw} raw, {n_ver} verified matches); phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
 
 # the LoFTR family through ``run_matching`` (detector-free, seeded
@@ -2670,7 +2870,8 @@ def _run_path(pipeline, needed, runs, projects, configs, timers, card, label=Non
         if proj_name == "synthetic16" and pipeline not in ("superpoint+superglue",
                                                            "xfeat+lighterglue",
                                                            "dedode+kornia_matcher",
-                                                           "ripe+kornia_matcher"):
+                                                           "ripe+kornia_matcher",
+                                                           "rdd_sparse+lightglue"):
             # random SuperGlue weights mix the keypoint positions into the
             # descriptors, and LighterGlue's random input projection and six
             # random layers at width 96 leave a few mutual neighbours a pair
@@ -2682,7 +2883,9 @@ def _run_path(pipeline, needed, runs, projects, configs, timers, card, label=Non
             # hypercolumns at k (Wc - 1) / (W - 1), which drifts from k / 8
             # across the image, so its smooth random descriptors match
             # neighbours a few pixels off the shift (2 px median on the CPU
-            # between the two copies). Both are held to the CPU at this size
+            # between the two copies). RDD's position embedding is absolute
+            # and its coarsest level's stride is 64 px, so its descriptors do
+            # not follow the shift. These are held to the CPU at this size
             # instead (``SPARSE_CPU_CHECKS``)
             summary += "; " + _check_shifted(out_dir, names)
         if pipeline == "sift+kornia_matcher" and n_verified == 0:
@@ -2717,7 +2920,8 @@ def _main_setup():
                             "f32_threshold0", "f32_superglue0", "f32_aliked_bidir",
                             "cpu_threshold0", "adalam", "adalam_fast", "cpu_adalam",
                             "dedode_g", "f32_dedode_g", "cpu_dedode_g", "cpu_aliked_bidir",
-                            "loftr0", "loftr_blocked", "cpu_loftr0")}
+                            "loftr0", "loftr_blocked", "cpu_loftr0", "alike", "alike_s",
+                            "alike_t", "cpu_alike")}
     configs["default"].write_text(base.format("cuda"))
     configs["aliked_bidir"].write_text(base.format("cuda") + "    attn_impl: bidir\n"
                                        "matcher:\n  filter_threshold: 0.0\n")
@@ -2747,6 +2951,11 @@ def _main_setup():
     for name, dev, extra in (("loftr0", "cuda", ""), ("cpu_loftr0", "cpu", ""),
                              ("loftr_blocked", "cuda", "  coarse_impl: blocked\n")):
         configs[name].write_text(base.format(dev) + "matcher:\n  match_threshold: 0.0\n" + extra)
+    # ALIKE in place of the preset's extractor (sift+kornia_matcher's YAML)
+    for name, dev, model in (("alike", "cuda", "alike-n"), ("alike_s", "cuda", "alike-s"),
+                             ("alike_t", "cuda", "alike-t"), ("cpu_alike", "cpu", "alike-n")):
+        configs[name].write_text(base.format(dev) + f"extractor:\n  name: alike\n"
+                                                    f"  model: {model}\n")
     # the same in float32: the kernels' float32 forms
     for name in ("threshold0", "superglue0", "aliked_bidir"):
         text = configs[name].read_text().replace("    device: cuda\n",
@@ -2786,6 +2995,7 @@ def _run_main_paths(projects, configs, timers, card, launches) -> dict:
             launches[label], _ = _run_path(pipeline, needed, runs, projects, configs, timers,
                                            card, label)
     launches.update(phase_sparse_presets(projects, configs, timers, card))
+    phase_handoff(projects, configs, card)
     launches.update(phase_loftr(projects, configs, timers, card))
     return launches
 

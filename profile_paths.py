@@ -35,7 +35,10 @@ run on the synthetic views as ``chip_smoke.py``'s rows do,
 ripe+kornia_matcher on the synthetic views with
 ``chip_smoke.dedode_liftfeat_ripe_weights``' seeded checkpoint, loftr and
 se2loftr on the synthetic views with ``chip_smoke.loftr_weights``' seeded
-checkpoints (match threshold 0). ``--cpu`` also times ``--warm`` runs of
+checkpoints (match threshold 0), rdd_sparse+lightglue (random RDD and
+LightGlue weights, threshold 0) and ``sift+kornia_matcher@alike`` (a YAML
+that swaps the extractor for ALIKE, ``chip_smoke.alike_weights``' seeded
+alike-n) on the synthetic views. ``--cpu`` also times ``--warm`` runs of
 each path with the CPU as its device (walls only), the baseline the card's
 walls are read against. ``--src`` takes the port package from another
 checkout's ``src`` (e.g. the parent's, unpacked with ``git archive``), so
@@ -130,11 +133,16 @@ PATHS = {
     "ripe+kornia_matcher": matching("synthetic16"),
     "loftr": matching("synthetic16", "matcher:\n  match_threshold: 0.0\n"),
     "se2loftr": matching("synthetic16", "matcher:\n  match_threshold: 0.0\n"),
+    # RDD (full f32, 4096 keypoints) with LightGlue at K = 4096; ALIKE
+    # (alike-n, 8192 keypoints) through sift+kornia_matcher's YAML
+    "rdd_sparse+lightglue": matching("synthetic16", "matcher:\n  filter_threshold: 0.0\n"),
+    "sift+kornia_matcher@alike": matching("synthetic16", "extractor:\n  name: alike\n"),
 }
 # paths that read seeded checkpoints: path -> ``chip_smoke.WEIGHT_SETS`` key
 PATH_WEIGHTS = {"keynetaffnethardnet+kornia_matcher@learned": "keynet_weights",
                 "ripe+kornia_matcher": "dedode_liftfeat_ripe_weights",
-                "loftr": "loftr_weights", "se2loftr": "loftr_weights"}
+                "loftr": "loftr_weights", "se2loftr": "loftr_weights",
+                "sift+kornia_matcher@alike": "alike_weights"}
 
 # the __global__ functions of csrc/*.cu -> the kernel they belong to; a name
 # matches where no letter or underscore precedes it (attention_sm90 is not

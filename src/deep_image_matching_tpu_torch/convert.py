@@ -56,6 +56,11 @@ bias as its affine-free BatchNorm's negated mean); the JAX package's
 ``params_from_torch`` reads them back exactly, and the port's models fold
 them into their trees (``refiner_params_from_torch`` for the ConvRefiners
 that DeDoDe, RIPE and RoMa share).
+
+``rdd_params_from_jax`` and ``alike_params_from_jax`` write the upstream
+RDD and ALNet names in the same way (RDD's matchability head with its folded
+bias as the negated mean of an affine-free BatchNorm); the models'
+``params_from_torch`` fold them back into the port's trees.
 """
 
 from __future__ import annotations
@@ -807,3 +812,96 @@ def loftr_params_from_torch(state_dict, temp_bug_fix: bool = False) -> Dict:
     sd = _np_state(state_dict)
     fpn = [k for k in _LOFTR_FPN if k != "l3_triv"]
     return {"backbone": loftr_backbone_from_torch(sd, fpn), **loftr_transformer_from_torch(sd)}
+
+
+# ---------------------------------------------------------------------------
+# RDD, ALIKE
+# ---------------------------------------------------------------------------
+
+def _folded_conv_state(sd: StateDict, conv: str, bn: str, p) -> None:
+    """A folded convolution as the checkpoint's bias-free convolution and an
+    identity affine BatchNorm carrying the folded bias."""
+    sd[f"{conv}.weight"] = _oihw(p["w"])
+    _identity_bn(sd, bn, np.asarray(p["b"]).shape[0], affine=True)
+    sd[f"{bn}.bias"] = _t(p["b"])
+
+
+def _plain_conv_state(sd: StateDict, key: str, p) -> None:
+    sd[f"{key}.weight"] = _oihw(p["w"])
+    if "b" in p:
+        sd[f"{key}.bias"] = _t(p["b"])
+
+
+def rdd_params_from_jax(params) -> StateDict:
+    """The JAX package's RDD tree -> an upstream RDD state dict (``detector.*``,
+    ``descriptor.*``; identity BatchNorms, the matchability head's folded
+    bias as its affine-free BatchNorm's negated mean), which the JAX
+    package's ``params_from_torch`` reads back exactly."""
+    from .models.rdd import N_LEVELS
+
+    sd: StateDict = {}
+    det = params["detector"]
+    for b in (1, 2, 3, 4):
+        for j in (1, 2):
+            _folded_conv_state(sd, f"detector.block{b}.conv{j}", f"detector.block{b}.bn{j}",
+                               det[f"block{b}"][f"conv{j}"])
+        if b > 1:
+            _plain_conv_state(sd, f"detector.block{b}.downsample", det[f"block{b}"]["down"])
+    for i in range(1, 5):
+        _plain_conv_state(sd, f"detector.conv{i}", det["agg"][f"conv{i}"])
+    _plain_conv_state(sd, "detector.convhead2.0", det["head"])
+    body = "descriptor.backbone.0.body"
+    _folded_conv_state(sd, f"{body}.conv1", f"{body}.bn1", params["resnet"]["stem"])
+    for si, blocks in enumerate(params["resnet"]["stages"]):
+        for bi, blk in enumerate(blocks):
+            pre = f"{body}.layer{si + 1}.{bi}"
+            for j in (1, 2, 3):
+                _folded_conv_state(sd, f"{pre}.conv{j}", f"{pre}.bn{j}", blk[f"conv{j}"])
+            if "down" in blk:
+                _folded_conv_state(sd, f"{pre}.downsample.0", f"{pre}.downsample.1",
+                                   blk["down"])
+    for i in range(N_LEVELS):
+        pr = params["projs"][i]
+        _plain_conv_state(sd, f"descriptor.input_proj.{i}.0", pr["conv"])
+        sd[f"descriptor.input_proj.{i}.1.weight"] = _t(pr["gn"]["g"])
+        sd[f"descriptor.input_proj.{i}.1.bias"] = _t(pr["gn"]["b"])
+    sd["descriptor.transformer.level_embed"] = _t(params["level_embed"])
+    for i, lp in enumerate(params["encoder"]):
+        pre = f"descriptor.transformer.encoder.layers.{i}"
+        for key, name in (("sampling_offsets", "self_attn.sampling_offsets"),
+                          ("attention_weights", "self_attn.attention_weights"),
+                          ("value_proj", "self_attn.value_proj"),
+                          ("output_proj", "self_attn.output_proj"),
+                          ("fc1", "linear1"), ("fc2", "linear2")):
+            sd[f"{pre}.{name}.weight"] = _t(np.asarray(lp[key]["w"]).T)
+            sd[f"{pre}.{name}.bias"] = _t(lp[key]["b"])
+        for ln, name in (("ln1", "norm1"), ("ln2", "norm2")):
+            sd[f"{pre}.{name}.weight"] = _t(lp[ln]["g"])
+            sd[f"{pre}.{name}.bias"] = _t(lp[ln]["b"])
+    mh = params["match_head"]
+    for i in (0, 1):
+        pre = f"descriptor.matchibility_head.{i}.layer"
+        sd[f"{pre}.0.weight"] = _oihw(mh[f"l{i}"]["w"])
+        _identity_bn(sd, f"{pre}.1", np.asarray(mh[f"l{i}"]["b"]).shape[0])
+        sd[f"{pre}.1.running_mean"] = _t(-np.asarray(mh[f"l{i}"]["b"], np.float32))
+    _plain_conv_state(sd, "descriptor.matchibility_head.2", mh["out"])
+    return sd
+
+
+def alike_params_from_jax(params) -> StateDict:
+    """The JAX package's ALIKE tree (any of alike-t/s/n/l) -> an upstream
+    ALNet state dict with identity BatchNorms, which the JAX package's
+    ``params_from_torch`` reads back exactly."""
+    sd: StateDict = {}
+    for b in (1, 2, 3, 4):
+        for j in (1, 2):
+            _folded_conv_state(sd, f"block{b}.conv{j}", f"block{b}.bn{j}",
+                               params[f"block{b}"][f"conv{j}"])
+        if b > 1:
+            _plain_conv_state(sd, f"block{b}.downsample", params[f"block{b}"]["down"])
+    for i in range(1, 5):
+        _plain_conv_state(sd, f"conv{i}", params["agg"][f"conv{i}"])
+    if "head1" in params:
+        _plain_conv_state(sd, "convhead1", params["head1"])
+    _plain_conv_state(sd, "convhead2", params["head2"])
+    return sd

@@ -12,8 +12,10 @@ device memory is halved and retried, every other error propagates. With
 ``--tiling`` the tiles go through the host template
 (``ExtractorBase._extract_by_tile``) as uint8, one padded batch per shape
 bucket (``_extract_many``); as in the JAX package, ALIKED has no device
-route. The JAX package's device handoff and decode prefetch are not ported
-(ROADMAP.md, queue 1).
+route. Inside ``ImageMatcher`` an untiled run decodes and uploads the images
+on the prefetch pool (``utils/prefetch.py``), pads and stacks them on the
+device and keeps the outputs there for the matcher (the device handoff,
+``ExtractorBase._arm_device_handoff``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from ..constants import TileSelection
 from ..io.writer import AsyncFeatureWriter
 from ..models import aliked as aliked_model
+from ..ops.assemble import padded_batches
 from ..utils.device import resolve_device
 from ..utils.image import Image, read_image
 from .extractor_base import ExtractorBase, FeaturesDict
@@ -95,13 +98,15 @@ class ALIKEDExtractor(ExtractorBase):
     def extract_batch(self, images: List[Image], feature_path) -> None:
         if self.tile_selection is not TileSelection.NONE:
             return super().extract_batch(images, feature_path)
+        if self._device_handoff_allowed():
+            return self._extract_handoff(images, feature_path)
         prepped = []
         for img in images:
             # uint8 on the host; the device normalises
             arr = read_image(img.path, grayscale=False)
             h, w = arr.shape[:2]
             prepped.append((self._quality_resize(arr), (w, h)))
-        results = self._run(prepped)
+        results = self._run([arr for arr, _ in prepped])
         with AsyncFeatureWriter(feature_path) as writer:
             for img, (arr, (w, h)), feats in zip(images, prepped, results):
                 ah, aw = arr.shape[:2]
@@ -113,63 +118,21 @@ class ALIKEDExtractor(ExtractorBase):
                                 scores=feats["scores"], image_size=size)
 
     def _extract(self, image: np.ndarray) -> FeaturesDict:
-        if image.ndim == 2:
-            image = np.repeat(image[..., None], 3, axis=-1)
-        return self._run([(image, None)])[0]
+        return self._run([image])[0]
 
     def _extract_many(self, images) -> list:
         """One image's tiles as padded batches per shape bucket through
         ``_run`` (with its out-of-memory halving)."""
-        return self._run([(im if im.ndim == 3 else np.repeat(im[..., None], 3, axis=-1), None)
-                          for im in images])
+        return self._run(images)
 
-    def _run(self, prepped) -> list:
-        """prepped: list of (image (h, w, 3) uint8 or float in [0, 1], any);
-        per-image trimmed features in pixels of the image given."""
-        pad_to = 32
-        buckets: Dict[tuple, list] = {}
-        for i, (arr, _) in enumerate(prepped):
-            h, w = arr.shape[:2]
-            buckets.setdefault((-(-h // pad_to) * pad_to, -(-w // pad_to) * pad_to), []).append(i)
-        results = [None] * len(prepped)
-        for (ph, pw), idxs in buckets.items():
-            bsz = max(1, min(self.batch_size, self.pixel_budget // (ph * pw)))
-            start = 0
-            while start < len(idxs):
-                chunk = idxs[start:start + bsz]
-                try:
-                    self._run_chunk(chunk, prepped, (ph, pw), results)
-                    start += len(chunk)
-                except torch.cuda.OutOfMemoryError:
-                    if bsz == 1:
-                        raise
-                    bsz = max(1, bsz // 2)
-                    torch.cuda.empty_cache()
-                    logger.warning(f"ALIKED extraction ran out of device memory at "
-                                   f"{ph}x{pw}; retrying with batch {bsz}")
-        return results
-
-    def _run_chunk(self, chunk, prepped, phw, results) -> None:
-        ph, pw = phw
-        imgs = [prepped[i][0] for i in chunk]
-        as_uint8 = all(im.dtype == np.uint8 for im in imgs)
-        batch = np.zeros((len(chunk), ph, pw, 3), np.uint8 if as_uint8 else np.float32)
-        vhw = np.zeros((len(chunk), 2), np.int64)
-        for j, arr in enumerate(imgs):
-            if not as_uint8 and arr.dtype == np.uint8:
-                arr = arr.astype(np.float32) / 255.0
-            if arr.ndim == 2:
-                arr = np.repeat(arr[..., None], 3, axis=-1)
-            h, w = arr.shape[:2]
-            batch[j, :h, :w] = arr
-            vhw[j] = (h, w)
-        out = aliked_model.extract(
-            self.params, torch.from_numpy(batch).to(self.device),
-            torch.from_numpy(vhw).to(self.device), max_keypoints=self.max_keypoints,
-            detection_threshold=self.detection_threshold, nms_radius=self.nms_radius,
-            model_name=self.model_name, compute_dtype=self.compute_dtype)
-        out = {k: v.cpu().numpy() for k, v in out.items()}
-        for j, i in enumerate(chunk):
-            m = out["mask"][j]
-            results[i] = {"keypoints": out["keypoints"][j][m], "scores": out["scores"][j][m],
-                          "descriptors": out["descriptors"][j][m]}
+    def _device_batches(self, images):
+        """Images (h, w, 3) (or grey, repeated), uint8 or float in [0, 1], on
+        the host or the device, as padded batches (multiples of 32, at most ``pixel_budget`` pixels a batch, halved on running out
+        of device memory) -> (indices, padded device outputs) per batch."""
+        return padded_batches(
+            images, 32, 3, self.batch_size,
+            lambda batch, vhw: aliked_model.extract(
+                self.params, batch, vhw, max_keypoints=self.max_keypoints,
+                detection_threshold=self.detection_threshold, nms_radius=self.nms_radius,
+                model_name=self.model_name, compute_dtype=self.compute_dtype),
+            self.device, pixel_budget=self.pixel_budget)

@@ -1,5 +1,5 @@
-"""Extractor base: configuration, quality resize, feature cache and the
-per-image template.
+"""Extractor base: configuration, quality resize, feature cache, the
+extract -> match handoff on the device and the per-image template.
 
 Port of ``deep_image_matching_tpu/extractors/extractor_base.py``: the
 configuration, the quality resize, the in-memory ``feature_cache`` handed to
@@ -9,20 +9,32 @@ per-image template of the host extractors (SIFT, ORB): load (``grayscale`` /
 ``_extract_by_tile``) -> trim -> keypoints back to full resolution ->
 features.h5.
 
+The device handoff: where ``ImageMatcher`` has armed ``feature_cache``, the
+batched extractors (SuperPoint, ALIKED, XFeat, ALIKE: ``_extract_handoff``,
+the images decoded a few ahead by the prefetch pool and batched as they
+arrive) and the tiled device route keep their padded outputs on the device
+and hand them to the matcher
+as a ``DeviceFeatureHandoff`` (``_arm_device_handoff``): keypoints rescaled
+to full resolution on the device, descriptors and scores rounded through
+f16 there (the values an h5 reload gives), small host mirrors of the
+keypoints, counts and tile indices, and features.h5 written by a
+background writer while matching runs (``flush()`` joins it). The handoff
+is armed on every device, the CPU included, and a failure raises.
+
 Tiled extraction has two routes. Extractors that override
 ``_extract_tiles_dev`` (SuperPoint) take the device route
-(``_try_extract_batch_tiled_device``): each image uploads once as uint8, its
-tiles are cut, extracted and merged on the extractor's device
-(``ops/tile_merge.py``), and the merged features come back to the host for
-features.h5 and ``feature_cache``. A failure there raises; it does not fall
-back to the host route. The others (SIFT, ORB, ALIKED) take the host
-template ``_extract_by_tile``. Both give every keypoint its ``tile_idx``.
-The JAX package's device-resident extract->match handoff is not ported
-(ROADMAP.md, queue 1).
+(``_try_extract_batch_tiled_device``): each image uploads once as uint8
+(``utils/prefetch.py``), its tiles are cut, extracted and merged on the
+extractor's device (``ops/tile_merge.py``), and the merged features go to
+the handoff (or, outside ``ImageMatcher``, back to the host for features.h5
+and ``feature_cache``). A failure there raises; it does not fall back to the
+host route. The others (SIFT, ORB, ALIKED) take the host template
+``_extract_by_tile``. Both give every keypoint its ``tile_idx``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import logging
 from pathlib import Path
@@ -39,6 +51,29 @@ from ..utils.tiling import Tiler
 logger = logging.getLogger("dim_tpu_torch")
 
 FeaturesDict = Dict[str, np.ndarray]
+
+
+class DeviceFeatureHandoff:
+    """Extraction results that stay on the device for the matcher.
+
+    ``dev`` holds ``keypoints`` (n, K, 2) at full resolution, ``descriptors``
+    (n, K, D) and ``scores`` (n, K) with the f16 storage round trip applied,
+    ``mask`` (n, K) with the valid rows as a prefix and zeros (``tile_idx``
+    -1) on the others, and ``tile_idx`` (n, K) where tiled; the host mirrors
+    are what verification and gating read: keypoints, counts, image sizes,
+    tile indices."""
+
+    def __init__(self, names, counts, kpts, image_size, dev, tile_idx=None):
+        self.names = list(names)
+        self.index = {n: i for i, n in enumerate(self.names)}
+        self.counts = counts          # (n,) int32, host
+        self.kpts = kpts              # (n, K, 2) f32, host, full resolution
+        self.image_size = image_size  # (n, 2) int64, host
+        self.dev = dev                # device tensors, see above
+        self.tile_idx = tile_idx      # (n, K) f32 host, -1 on padding (tiled only)
+
+    def covers(self, names) -> bool:
+        return all(n in self.index for n in names)
 
 
 class ExtractorBase:
@@ -65,6 +100,111 @@ class ExtractorBase:
         # features.h5 stays the durable artifact, the matcher in the same
         # process reads from here instead of decompressing it again
         self.feature_cache: Optional[Dict[str, FeaturesDict]] = None
+        # the device handoff of the last batch and its deferred writer
+        self.device_handoff: Optional[DeviceFeatureHandoff] = None
+        self._pending_writer: Optional[AsyncFeatureWriter] = None
+
+    def flush(self) -> None:
+        """Join the deferred features.h5 writer, re-raising its error; after
+        this returns, features.h5 is complete on disk."""
+        w, self._pending_writer = self._pending_writer, None
+        if w is not None:
+            w.close()
+
+    def _device_handoff_allowed(self, tiled: bool = False) -> bool:
+        """The handoff is armed inside ``ImageMatcher`` (``feature_cache``
+        set) on an untiled run, or by the tiled device route (``tiled``)."""
+        if self.feature_cache is None:
+            return False
+        return tiled or self.tile_selection is TileSelection.NONE
+
+    def _arm_device_handoff(self, names, chunks, fac, image_size, feature_path) -> None:
+        """Build the ``DeviceFeatureHandoff`` of a batch from per-chunk padded
+        device outputs and queue its features.h5 write on a background writer.
+
+        chunks: [(indices into ``names``, out)] with ``out`` as every extract
+        function gives it: ``keypoints`` (B, K, 2) in model-input pixels,
+        ``descriptors`` (B, K, D), ``scores`` (B, K), ``mask`` (B, K) and
+        optionally ``tile_idx`` (B, K), the valid rows first and the others
+        zero (``tile_idx`` -1), one K for all. fac: (n, 2) f32 (sx, sy) to
+        full resolution; image_size: (n, 2) (w, h). Every value equals the
+        host path's bit for bit: keypoints are rescaled by the same f32
+        product, descriptors and scores round through f16 as features.h5
+        stores them."""
+        self.flush()
+        order = np.concatenate([np.asarray(c, np.int64) for c, _ in chunks])
+        keys = ["keypoints", "descriptors", "scores", "mask"]
+        if all("tile_idx" in out for _, out in chunks):
+            keys.append("tile_idx")
+        dev0 = chunks[0][1]["mask"].device
+        perm = torch.from_numpy(np.argsort(order)).to(dev0)
+        cat = {k: torch.cat([out[k] for _, out in chunks])[perm] for k in keys}
+        fac_t = torch.from_numpy(np.asarray(fac, np.float32)).to(dev0)
+        desc_f16, scores_f16 = cat["descriptors"].half(), cat["scores"].half()
+        mask = cat["mask"]
+        kpts = cat["keypoints"] * fac_t[:, None, :]
+        dev = {"keypoints": kpts, "descriptors": desc_f16.float(),
+               "scores": scores_f16.float(), "mask": mask}
+        tile_h = None
+        if "tile_idx" in cat:
+            dev["tile_idx"] = cat["tile_idx"]
+            tile_h = dev["tile_idx"].cpu().numpy()
+        ready = None
+        if dev0.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev0))
+        kpts_h = kpts.cpu().numpy()
+        counts = mask.sum(dim=1).int().cpu().numpy()
+        image_size = np.asarray(image_size, np.int64)
+        self.device_handoff = DeviceFeatureHandoff(names, counts, kpts_h, image_size, dev,
+                                                   tile_idx=tile_h)
+        writer = AsyncFeatureWriter(feature_path)
+        try:
+            writer.put_device_batch(names, kpts_h, desc_f16, scores_f16, image_size, counts,
+                                    tile_idx=tile_h, ready=ready)
+        except BaseException:
+            writer.close()
+            raise
+        self._pending_writer = writer
+
+    def _extract_handoff(self, images: List[Image], feature_path) -> None:
+        """An untiled batch under the device handoff: the prefetch pool
+        decodes and uploads the images a few ahead of the model, the
+        extractor's ``_device_batches`` runs them as padded batches as they
+        arrive, and the outputs go to ``_arm_device_handoff``."""
+        from ..utils.prefetch import prefetch_device_images
+
+        sizes = []
+
+        def fetched():
+            for t, (ah, aw), (w, h) in prefetch_device_images(
+                    images, self.grayscale, self._quality_resize, self.device):
+                sizes.append((w / aw, h / ah, w, h))
+                yield t
+
+        chunks = list(self._device_batches(fetched()))
+        sizes = np.asarray(sizes)
+        self._arm_device_handoff([img.name for img in images], chunks,
+                                 sizes[:, :2].astype(np.float32),
+                                 sizes[:, 2:].astype(np.int64), feature_path)
+
+    def _device_batches(self, images):
+        """Hook of the batched extractors: images (host arrays, or uint8
+        tensors on the device taken as they come) -> (indices, padded device
+        outputs) per batch (``ops/assemble.padded_batches``)."""
+        raise NotImplementedError
+
+    def _run(self, images: list) -> list:
+        """Images through ``_device_batches`` -> per-image trimmed features
+        (``keypoints``, ``scores``, ``descriptors``) on the host, in pixels
+        of the image given."""
+        from ..ops.assemble import unpad
+
+        results = [None] * len(images)
+        for chunk, out in self._device_batches(images):
+            for i, f in zip(chunk, unpad(out)):
+                results[i] = f
+        return results
 
     def _cache_put(
         self,
@@ -168,33 +308,39 @@ class ExtractorBase:
 
     def _try_extract_batch_tiled_device(self, images: List[Image], feature_path) -> bool:
         """The device route of tiled extraction: each (quality-resized,
-        uint8) image uploads once, its tiles are cut, extracted and merged on
-        the extractor's device, and the merged features (score-descending,
-        ``tile_idx`` per keypoint) come back to the host for features.h5 and
-        ``feature_cache``. Returns False where the extractor has no device
-        route or no keypoint cap; a failure raises."""
+        uint8) image is decoded and uploaded once by the prefetch pool (the
+        next images decode while this one's tiles run), its tiles are cut,
+        extracted and merged on the extractor's device, and the merged
+        features (score-descending, ``tile_idx`` per keypoint) go to the
+        device handoff, or, outside ``ImageMatcher``, back to the host for
+        features.h5 and ``feature_cache``. Returns False where the extractor
+        has no device route or no keypoint cap; a failure raises."""
         from ..ops.tile_merge import cut_tiles, merge_tile_features
+        from ..utils.prefetch import prefetch_device_images
 
         max_kpts = self._max_keypoints()
         if not self._supports_device_tiling() or not max_kpts:
             return False
         tiler = Tiler()
-        with AsyncFeatureWriter(feature_path) as writer:
-            for img in images:
-                arr = read_image(img.path, grayscale=self.grayscale)
-                h0, w0 = arr.shape[:2]
-                arr = self._quality_resize(arr)
-                ch, cw = arr.shape[:2]
+        fetched = prefetch_device_images(images, self.grayscale, self._quality_resize,
+                                         self.device)
+        handoff = self._device_handoff_allowed(tiled=True)
+        chunks, fac, sizes = [], [], []
+        with contextlib.nullcontext() if handoff else AsyncFeatureWriter(feature_path) as writer:
+            for i, (img, (dev_img, (ch, cw), (w0, h0))) in enumerate(zip(images, fetched)):
                 origins, padding, tile_hw = tiler.tile_origins((ch, cw), self.tile_size,
                                                                self.tile_overlap)
                 top, _, left, _ = padding
                 starts = np.stack([origins[:, 1] + top, origins[:, 0] + left], axis=1)
-                tiles = cut_tiles(torch.from_numpy(arr).to(self.device), starts, tile_hw,
-                                  padding)
-                out = self._extract_tiles_dev(tiles)
+                out = self._extract_tiles_dev(cut_tiles(dev_img, starts, tile_hw, padding))
                 merged = merge_tile_features(
                     out["keypoints"], out["scores"], out["descriptors"], out["mask"],
                     torch.from_numpy(origins.astype(np.float32)), (cw, ch), max_kpts)
+                if handoff:
+                    chunks.append(([i], {k: v[None] for k, v in merged.items()}))
+                    fac.append((w0 / cw, h0 / ch))
+                    sizes.append((w0, h0))
+                    continue
                 merged = {k: v.cpu().numpy() for k, v in merged.items()}
                 m = merged["mask"]
                 feats = {
@@ -207,6 +353,9 @@ class ExtractorBase:
                 }
                 writer.put(img.name, **feats)
                 self._cache_put(img.name, **feats)
+        if handoff:
+            self._arm_device_handoff([img.name for img in images], chunks,
+                                     np.asarray(fac, np.float32), sizes, feature_path)
         return True
 
     def _extract_by_tile(self, image: np.ndarray) -> FeaturesDict:

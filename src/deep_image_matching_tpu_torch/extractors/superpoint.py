@@ -1,11 +1,15 @@
 """SuperPoint extractor (port of ``deep_image_matching_tpu/extractors/superpoint.py``).
 
 Whole image batches are padded and extracted together on the configured
-device (``models/superpoint.py``); features.h5 is written by a background
-thread while extraction continues. With ``--tiling`` each image uploads once
-and its tiles are cut, extracted (``_extract_tiles_dev``, in chunks of
-``tpu.extract_batch_size`` tiles) and merged on the device
-(``ExtractorBase._try_extract_batch_tiled_device``).
+device (``models/superpoint.py``). Inside ``ImageMatcher`` the images are
+decoded and uploaded by the prefetch pool (``utils/prefetch.py``), padded
+and stacked on the device, and the outputs stay there for the matcher (the
+device handoff, ``ExtractorBase._arm_device_handoff``), with features.h5
+written in the background while matching runs; outside it, features.h5 is
+written by a background thread while extraction continues. With
+``--tiling`` each image uploads once and its tiles are cut, extracted
+(``_extract_tiles_dev``, in chunks of ``tpu.extract_batch_size`` tiles) and
+merged on the device (``ExtractorBase._try_extract_batch_tiled_device``).
 """
 
 from __future__ import annotations
@@ -58,6 +62,8 @@ class SuperPointExtractor(ExtractorBase):
     def extract_batch(self, images: List[Image], feature_path) -> None:
         if self.tile_selection is not TileSelection.NONE:
             return super().extract_batch(images, feature_path)
+        if self._device_handoff_allowed():
+            return self._extract_handoff(images, feature_path)
         prepped = []
         for img in images:
             # uint8 on the host; the device normalises
@@ -74,6 +80,9 @@ class SuperPointExtractor(ExtractorBase):
                            scores=feats["scores"], image_size=size)
                 self._cache_put(img.name, keypoints=kpts, descriptors=feats["descriptors"],
                                 scores=feats["scores"], image_size=size)
+
+    def _device_batches(self, images):
+        return self._runner.iter_batches(images)
 
     def _extract(self, image: np.ndarray) -> FeaturesDict:
         """One image or tile (the host template's per-tile hook)."""

@@ -8,8 +8,10 @@ padded to multiples of 32 and extracted in batches of
 capacity is ``max_num_keypoints`` rounded up to 128. With ``--tiling`` the
 tiles take the host template. Weights: ``xfeat.pt`` in DIM_TPU_WEIGHTS_DIR
 or ~/.cache/dim_tpu, else seeded random weights under the weights policy.
-The JAX package's device handoff (features kept on the device for the
-matcher) is not ported (ROADMAP.md, queue 1, item 8).
+Inside ``ImageMatcher`` an untiled run decodes and uploads the images on the
+prefetch pool (``utils/prefetch.py``), pads and stacks them on the device
+and keeps the outputs there for the matcher (the device handoff,
+``ExtractorBase._arm_device_handoff``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 import logging
 import os
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -25,6 +27,7 @@ import torch
 from ..constants import TileSelection
 from ..io.writer import AsyncFeatureWriter
 from ..models import xfeat as xfeat_model
+from ..ops.assemble import padded_batches
 from ..utils.device import resolve_device
 from ..utils.image import Image, read_image
 from .extractor_base import ExtractorBase, FeaturesDict
@@ -79,6 +82,8 @@ class XFeatExtractor(ExtractorBase):
     def extract_batch(self, images: List[Image], feature_path) -> None:
         if self.tile_selection is not TileSelection.NONE:
             return super().extract_batch(images, feature_path)
+        if self._device_handoff_allowed():
+            return self._extract_handoff(images, feature_path)
         prepped = []
         for img in images:
             arr = read_image(img.path, grayscale=True)
@@ -101,31 +106,15 @@ class XFeatExtractor(ExtractorBase):
     def _run(self, arrays: list) -> list:
         """Grey images (h, w) (or (h, w, 3), averaged) as padded batches per
         shape bucket -> per-image trimmed features."""
-        arrays = [a.mean(-1) if a.ndim == 3 else a for a in arrays]
+        return super()._run([a.mean(-1) if a.ndim == 3 else a for a in arrays])
+
+    def _device_batches(self, images):
+        """Grey images on the host or the device as padded batches
+        (multiples of 32) -> (indices, padded device outputs) per batch."""
         cap = -(-self.top_k // 128) * 128
-        buckets: Dict[tuple, list] = {}
-        for i, arr in enumerate(arrays):
-            h, w = arr.shape
-            buckets.setdefault((-(-h // 32) * 32, -(-w // 32) * 32), []).append(i)
-        dtype = np.uint8 if all(a.dtype == np.uint8 for a in arrays) else np.float32
-        results = [None] * len(arrays)
-        for (ph, pw), idxs in buckets.items():
-            for start in range(0, len(idxs), self.batch_size):
-                chunk = idxs[start:start + self.batch_size]
-                batch = np.zeros((len(chunk), ph, pw, 1), dtype)
-                vhw = np.zeros((len(chunk), 2), np.int64)
-                for j, i in enumerate(chunk):
-                    h, w = arrays[i].shape
-                    batch[j, :h, :w, 0] = arrays[i]
-                    vhw[j] = (h, w)
-                out = xfeat_model.extract(
-                    self.model, torch.from_numpy(batch).to(self.device),
-                    torch.from_numpy(vhw).to(self.device), top_k=cap,
-                    detection_threshold=self.detection_threshold)
-                out = {k: v.cpu().numpy() for k, v in out.items()}
-                for j, i in enumerate(chunk):
-                    m = out["mask"][j]
-                    results[i] = {"keypoints": out["keypoints"][j][m],
-                                  "scores": out["scores"][j][m],
-                                  "descriptors": out["descriptors"][j][m]}
-        return results
+        return padded_batches(
+            images, 32, 1, self.batch_size,
+            lambda batch, vhw: xfeat_model.extract(
+                self.model, batch, vhw, top_k=cap,
+                detection_threshold=self.detection_threshold),
+            self.device)

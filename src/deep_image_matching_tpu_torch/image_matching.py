@@ -6,11 +6,16 @@ generates pairs, extracts features into features.h5 and matches pairs into
 raw_matches.h5 / matches.h5, with verification and gating inside the
 matcher. With ``general.upright`` the images are rotated upright before
 extraction and the keypoints in features.h5 rotated back after matching
-(``upright.py``). This package carries the superpoint, superpoint_open,
-aliked, disk, xfeat, keynetaffnethardnet, dedode, liftfeat, ripe, sift, orb
-and no_extractor extractors and the lightglue, lighterglue, kornia_matcher,
-adalam, superglue, roma, loftr, se2loftr and srif matchers; other presets
-are not ported yet (ROADMAP.md, queue 1) and fail at construction.
+(``upright.py``). Where the extractor kept its features on the device (the
+device handoff, ``extractors/extractor_base.py``) and they cover every
+image of the pairs, the matcher builds its store from them; otherwise the
+deferred features.h5 writer is joined first and matching reads the file.
+The writer is joined before ``match_pairs`` returns, whatever happens, so
+features.h5 is complete after it. This package carries every extractor and
+matcher of the JAX package's zoo: superpoint, superpoint_open, alike,
+aliked, disk, xfeat, keynetaffnethardnet, dedode, liftfeat, ripe,
+rdd_sparse, sift, orb and no_extractor; lightglue, lighterglue,
+kornia_matcher, adalam, superglue, roma, loftr, se2loftr and srif.
 """
 
 from __future__ import annotations
@@ -30,9 +35,9 @@ from .utils.timer import Timer
 
 logger = logging.getLogger("dim_tpu_torch")
 
-PORTED_EXTRACTORS = ("superpoint", "superpoint_open", "aliked", "disk", "xfeat",
-                     "keynetaffnethardnet", "dedode", "liftfeat", "ripe", "sift", "orb",
-                     "no_extractor")
+PORTED_EXTRACTORS = ("superpoint", "superpoint_open", "alike", "aliked", "disk", "xfeat",
+                     "keynetaffnethardnet", "dedode", "liftfeat", "ripe", "rdd_sparse", "sift",
+                     "orb", "no_extractor")
 PORTED_MATCHERS = ("lightglue", "lighterglue", "kornia_matcher", "adalam", "superglue", "roma",
                    "loftr", "se2loftr", "srif")
 
@@ -43,9 +48,9 @@ class ImageMatcher:
         ext, mat = config.extractor["name"], config.matcher["name"]
         if ext not in PORTED_EXTRACTORS or mat not in PORTED_MATCHERS:
             raise NotImplementedError(
-                f"Pipeline {ext}+{mat} is not ported to the PyTorch package "
-                f"yet (ROADMAP.md, queue 1); ported extractors: "
-                f"{', '.join(PORTED_EXTRACTORS)}; matchers: {', '.join(PORTED_MATCHERS)}"
+                f"Pipeline {ext}+{mat}: no such extractor or matcher in the PyTorch "
+                f"package; ported extractors: {', '.join(PORTED_EXTRACTORS)}; matchers: "
+                f"{', '.join(PORTED_MATCHERS)}"
             )
         self.image_dir = Path(config.image_dir)
         self.output_dir = Path(config.output_dir)
@@ -140,7 +145,19 @@ class ImageMatcher:
                 if p.exists():
                     p.unlink()
         self.matcher.feature_cache = self.extractor.feature_cache
-        results = self.matcher.match_all(pairs, feature_path, match_path)
+        handoff = getattr(self.extractor, "device_handoff", None)
+        if handoff is not None and not handoff.covers({n for p in pairs for n in p}):
+            # a handoff of part of the images (a --resume that extracted the
+            # missing ones): matching reads features.h5, so it must be whole
+            self.extractor.flush()
+            handoff = None
+        self.matcher.device_handoff = handoff
+        try:
+            results = self.matcher.match_all(pairs, feature_path, match_path)
+        finally:
+            self.extractor.flush()
+            # the handoff's device tensors are not needed after matching
+            self.extractor.device_handoff = self.matcher.device_handoff = None
         kept = sum(1 for v in results.values() if v > 0)
         logger.info(f"Matched {kept}/{len(pairs)} pairs passed verification -> {match_path}")
         if self.config.general.get("verbose") and kept:

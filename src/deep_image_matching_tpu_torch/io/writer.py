@@ -2,9 +2,12 @@
 
 ``MatchWriter`` keeps raw_matches.h5 and matches.h5 open for a whole match
 stage; ``AsyncFeatureWriter`` moves features.h5 writes to one background
-thread so extraction batches overlap the host-side file work. Both write
-through ``io/hdf5.py``, which appends each dataset to the file as it is
-created and writes the group indexes on close.
+thread so extraction batches overlap the host-side file work, and takes
+whole batches still on the device (``put_device_batch``: the deferred write
+of the extract -> match handoff, one device -> host copy of the f16 batch
+on the writer thread while matching runs). Both write through
+``io/hdf5.py``, which appends each dataset to the file as it is created and
+writes the group indexes on close.
 """
 
 from __future__ import annotations
@@ -72,6 +75,43 @@ class MatchWriter:
         return False
 
 
+class _DeviceBatch:
+    """One extraction batch for the writer: host keypoints (n, K, 2), counts
+    and image sizes (and ``tile_idx`` (n, K) where tiled), the f16
+    descriptors (n, K, D) and scores (n, K) still on the device, and the
+    event after which they are complete (None on the CPU)."""
+
+    def __init__(self, names, kpts, desc_f16, scores_f16, image_size, counts, tile_idx,
+                 ready):
+        self.names = list(names)
+        self.kpts, self.desc_f16, self.scores_f16 = kpts, desc_f16, scores_f16
+        self.image_size, self.counts, self.tile_idx = image_size, counts, tile_idx
+        self.ready = ready
+
+
+_DOWNLOAD_STREAMS = {}
+
+
+def _download(t, ready) -> np.ndarray:
+    """A device tensor on the host. On CUDA the copy runs on a stream of its
+    own, after ``ready`` (not behind the match stage's kernels queued since),
+    into pinned memory, and this thread waits for it."""
+    import torch
+
+    if not t.is_cuda:
+        return t.numpy()
+    stream = _DOWNLOAD_STREAMS.get(t.device)
+    if stream is None:
+        stream = _DOWNLOAD_STREAMS.setdefault(t.device, torch.cuda.Stream(device=t.device))
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    with torch.cuda.device(t.device), torch.cuda.stream(stream):
+        if ready is not None:
+            stream.wait_event(ready)
+        host.copy_(t, non_blocking=True)
+    stream.synchronize()
+    return host.numpy()
+
+
 class AsyncFeatureWriter:
     """features.h5 writes on one background thread; ``close()`` joins it,
     closes the file and re-raises any error of the thread."""
@@ -91,7 +131,10 @@ class AsyncFeatureWriter:
                 item = self._q.get()
                 if item is None:
                     return
-                write_features(fd, **item)
+                if isinstance(item, _DeviceBatch):
+                    self._write_device_batch(fd, item)
+                else:
+                    write_features(fd, **item)
         except Exception as e:  # surfaced at close()
             self._error = e
             logger.error(f"Async feature write failed: {e}")
@@ -104,10 +147,32 @@ class AsyncFeatureWriter:
                 except Exception as e:
                     self._error = self._error or e
 
+    @staticmethod
+    def _write_device_batch(fd, b: _DeviceBatch) -> None:
+        """A whole batch: one device -> host copy each of the f16
+        descriptors and scores (the values ``write_features`` would store),
+        then one group per image, trimmed to its count."""
+        desc, scores = _download(b.desc_f16, b.ready), _download(b.scores_f16, b.ready)
+        for i, name in enumerate(b.names):
+            write_features(fd, name, keypoints=b.kpts[i], descriptors=desc[i],
+                           scores=scores[i],
+                           tile_idx=None if b.tile_idx is None else b.tile_idx[i],
+                           image_size=b.image_size[i], n_valid=int(b.counts[i]))
+
     def put(self, name: str, **arrays) -> None:
         if self._error is not None:
             raise RuntimeError("Async writer failed earlier") from self._error
         self._q.put({"name": name, **arrays})
+
+    def put_device_batch(self, names, kpts, desc_f16, scores_f16, image_size, counts,
+                         tile_idx=None, ready=None) -> None:
+        """Queue one whole batch whose descriptors and scores are still on the
+        device (f16); the writer thread copies them to the host once. Each
+        queued batch holds its device tensors until written."""
+        if self._error is not None:
+            raise RuntimeError("Async writer failed earlier") from self._error
+        self._q.put(_DeviceBatch(names, kpts, desc_f16, scores_f16, image_size, counts,
+                                 tile_idx, ready))
 
     def close(self) -> None:
         self._q.put(None)

@@ -2,7 +2,9 @@
 
 Port of ``deep_image_matching_tpu/matchers/matcher_base.py`` for one
 device. ``BatchedMatcher.match_all`` loads every image's
-features once into a padded store that lives on the device, assembles pair
+features once into a padded store that lives on the device (built from the
+extractor's device handoff where it covers every image: the features never
+leave the device between the two stages), assembles pair
 batches there, runs the matcher and (on CUDA) the batched RANSAC chained
 behind it, and packs each chunk's results into one int32 tensor, one
 device->host copy per chunk. Two chunks are in flight: chunk N+1 and N+2 are
@@ -100,6 +102,9 @@ class MatcherBase:
         # features with h5-roundtrip-exact values; images absent here are
         # read from features.h5
         self.feature_cache: Optional[Dict[str, Dict[str, np.ndarray]]] = None
+        # the extractor's DeviceFeatureHandoff, set by ImageMatcher where it
+        # covers every image of the pairs
+        self.device_handoff = None
         self._writer: Optional[MatchWriter] = None
 
     def _verify_and_save(
@@ -229,7 +234,8 @@ class BatchedMatcher(MatcherBase):
         if not pairs:
             return {}
         names = sorted({n for p in pairs for n in p})
-        store = _PaddedFeatureStore(feature_path, names, self.device, cache=self.feature_cache)
+        store = _PaddedFeatureStore(feature_path, names, self.device, cache=self.feature_cache,
+                                    handoff=self.device_handoff)
         tile_mode = self.config.get("general", {}).get("tile_selection", TileSelection.NONE)
         if tile_mode is not TileSelection.NONE and store.has_tiles:
             return self._match_all_tiled(pairs, store, matches_path, tile_mode)
@@ -451,9 +457,15 @@ class BatchedMatcher(MatcherBase):
 class _PaddedFeatureStore:
     """Every image's features padded to one capacity (a multiple of 128):
     host arrays for verification and gating, and one device copy from which
-    pair batches are gathered (each image uploads once, not once per pair)."""
+    pair batches are gathered (each image uploads once, not once per pair).
+    Built from a device handoff that covers ``names``, the device copy is the
+    handoff's own tensors and nothing is uploaded."""
 
-    def __init__(self, feature_path, names: List[str], device: torch.device, cache=None):
+    def __init__(self, feature_path, names: List[str], device: torch.device, cache=None,
+                 handoff=None):
+        if handoff is not None and handoff.covers(names):
+            self._init_from_handoff(handoff, names)
+            return
         cache = cache or {}
         known = set(list_h5_names(feature_path)) if any(n not in cache for n in names) else set()
         missing = [n for n in names if n not in known and n not in cache]
@@ -464,9 +476,7 @@ class _PaddedFeatureStore:
         # features.h5 holds (D, N)
         feats = [cache[n] if n in cache else _rows_from_file(feature_path, n) for n in names]
         counts = [len(f["keypoints"]) for f in feats]
-        cap = _round_up(max(max(counts), 1), KPT_PAD_MULTIPLE)
-        if cap > 0xFFFF:
-            raise ValueError(f"keypoint capacity {cap} exceeds the 16-bit match packing")
+        cap = self._capacity(counts)
         dims = {f["descriptors"].shape[1] for f, c in zip(feats, counts)
                 if "descriptors" in f and c > 0}
         if len(dims) > 1:
@@ -506,6 +516,44 @@ class _PaddedFeatureStore:
                 tile_idx[i, :counts[i]] = f["tile_idx"]
                 self.has_tiles = True
         self.tile_idx = torch.from_numpy(tile_idx).to(device)
+
+    @staticmethod
+    def _capacity(counts) -> int:
+        cap = _round_up(max(max(counts), 1), KPT_PAD_MULTIPLE)
+        if cap > 0xFFFF:
+            raise ValueError(f"keypoint capacity {cap} exceeds the 16-bit match packing")
+        return cap
+
+    def _init_from_handoff(self, handoff, names: List[str]) -> None:
+        """The store of ``names`` from the handoff's device tensors (rows
+        gathered, the capacity cut or zero-padded to the one the h5 route
+        gives), equal to the store built from features.h5 bit for bit."""
+        rows = np.asarray([handoff.index[n] for n in names], np.int64)
+        self.index = {n: i for i, n in enumerate(names)}
+        self.counts = handoff.counts[rows].astype(np.int32)
+        cap = self._capacity(self.counts.tolist())
+        K = handoff.kpts.shape[1]
+        kpts = handoff.kpts[rows, :cap]
+        self.kpts = np.zeros((len(names), cap, 2), np.float32)
+        self.kpts[:, :kpts.shape[1]] = kpts
+        self.image_size = handoff.image_size[rows].astype(np.int32)
+        dev = next(iter(handoff.dev.values())).device
+        ind = torch.from_numpy(rows).to(dev)
+
+        def fit(t, fill=0):
+            t = t[ind][:, :cap]
+            if cap > K:
+                t = torch.cat([t, t.new_full((t.shape[0], cap - K, *t.shape[2:]), fill)], 1)
+            return t
+
+        self.dev = {k: fit(handoff.dev[k]) for k in ("keypoints", "descriptors", "scores",
+                                                     "mask")}
+        self.dev["image_size"] = torch.from_numpy(self.image_size).to(dev)
+        self.has_tiles = "tile_idx" in handoff.dev
+        if self.has_tiles:
+            self.tile_idx = fit(handoff.dev["tile_idx"], -1.0)
+        else:
+            self.tile_idx = torch.full((len(names), cap), -1.0, device=dev)
 
     def gather(self, ind: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {k: v[ind] for k, v in self.dev.items()}

@@ -172,46 +172,31 @@ class SuperPointRunner:
     def extract_arrays(self, prepped) -> list:
         """prepped: list of (image (h, w) uint8 or float in [0, 1], scale,
         orig (w, h)); keypoints come back divided by ``scale``."""
-        pad_to = 64  # shape-bucket granularity (multiple of 8)
-        buckets: Dict[Tuple[int, int], list] = {}
-        for i, (img, _, _) in enumerate(prepped):
-            h, w = img.shape
-            key = (-(-h // pad_to) * pad_to, -(-w // pad_to) * pad_to)
-            buckets.setdefault(key, []).append(i)
-        batch_dtype = (
-            np.uint8 if all(p[0].dtype == np.uint8 for p in prepped) else np.float32
-        )
+        from ..ops.assemble import unpad
+
         results = [None] * len(prepped)
-        for (ph, pw), idxs in buckets.items():
-            for start in range(0, len(idxs), self.batch_size):
-                chunk = idxs[start:start + self.batch_size]
-                batch = np.zeros((len(chunk), ph, pw, 1), batch_dtype)
-                vhw = np.zeros((len(chunk), 2), np.int64)
-                for j, i in enumerate(chunk):
-                    im = prepped[i][0]
-                    if batch_dtype == np.float32 and im.dtype == np.uint8:
-                        im = im.astype(np.float32) / 255.0
-                    h, w = im.shape
-                    batch[j, :h, :w, 0] = im
-                    vhw[j] = (h, w)
-                out = extract(
-                    self.model, torch.from_numpy(batch).to(self.device),
-                    torch.from_numpy(vhw).to(self.device), self.max_keypoints,
-                    self.nms_radius, self.keypoint_threshold,
-                    self.remove_borders, self.compute_dtype,
-                )
-                # descriptors are stored float16 in features.h5 anyway
-                out["descriptors"] = out["descriptors"].half()
-                out = {k: v.cpu().numpy() for k, v in out.items()}
-                for j, i in enumerate(chunk):
-                    m = out["mask"][j]
-                    results[i] = {
-                        "keypoints": out["keypoints"][j][m] / prepped[i][1],
-                        "scores": out["scores"][j][m],
-                        "descriptors": out["descriptors"][j][m],
-                        "image_size": np.asarray(prepped[i][2], np.int64),
-                    }
+        for chunk, out in self.iter_batches(p[0] for p in prepped):
+            # descriptors are stored float16 in features.h5 anyway
+            out["descriptors"] = out["descriptors"].half()
+            for i, f in zip(chunk, unpad(out)):
+                f["keypoints"] = f["keypoints"] / prepped[i][1]
+                f["image_size"] = np.asarray(prepped[i][2], np.int64)
+                results[i] = f
         return results
+
+    def iter_batches(self, images):
+        """Yield (indices, padded device outputs) per batch of images (h, w)
+        bucketed by their shape padded to multiples of 64
+        (``ops/assemble.padded_batches``): host arrays, or uint8 tensors
+        already on the device (prefetched images), taken as they come."""
+        from ..ops.assemble import padded_batches
+
+        return padded_batches(
+            images, 64, 1, self.batch_size,
+            lambda batch, vhw: extract(self.model, batch, vhw, self.max_keypoints,
+                                       self.nms_radius, self.keypoint_threshold,
+                                       self.remove_borders, self.compute_dtype),
+            self.device)
 
 
 _DEFAULT_MODEL: Optional[SuperPoint] = None

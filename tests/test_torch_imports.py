@@ -129,18 +129,24 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path):
     sfm = json.loads((project / "sfm_data.json").read_text())
     assert len(sfm["views"]) == 3 and (project / "matches.f.bin").is_file()
     assert len(list(project.glob("*.feat"))) == 3
-    with pytest.raises(NotImplementedError, match="ported"):
-        run_matching({**args, "pipeline": "rdd_sparse+lightglue", "skip_reconstruction": True})
-    # the LoFTR family constructs on the CPU (random weights are allowed in
-    # the tests; se2loftr without its checkpoint runs standard LoFTR)
+    # the LoFTR family and rdd_sparse+lightglue construct on the CPU (random
+    # weights are allowed in the tests; se2loftr without its checkpoint runs
+    # standard LoFTR)
     from deep_image_matching_tpu_torch.config import Config
     from deep_image_matching_tpu_torch.image_matching import ImageMatcher
 
     for pipeline, cls in (("loftr", "LOFTRMatcher"), ("se2loftr", "SE2LOFTRMatcher"),
-                          ("srif", "SRIFMatcher")):
-        matcher = ImageMatcher(Config(args={**args, "pipeline": pipeline, "force": True,
-                                            "config_file": str(cfg)})).matcher
-        assert type(matcher).__name__ == cls and matcher.device == torch.device("cpu")
+                          ("srif", "SRIFMatcher"), ("rdd_sparse+lightglue", "LightGlueMatcher")):
+        im = ImageMatcher(Config(args={**args, "pipeline": pipeline, "force": True,
+                                       "config_file": str(cfg)}))
+        assert type(im.matcher).__name__ == cls and im.matcher.device == torch.device("cpu")
+    assert type(im.extractor).__name__ == "RDDSparseExtractor"
+    # ALIKE has no random initialisation: without a checkpoint it refuses
+    alike = tmp_path / "alike.yaml"
+    alike.write_text("general:\n  tpu:\n    device: cpu\nextractor:\n  name: alike\n")
+    with pytest.raises(FileNotFoundError, match="alike-n"):
+        ImageMatcher(Config(args={**args, "pipeline": "sift+kornia_matcher", "force": True,
+                                  "config_file": str(alike)}))
     assert resolve_device("cpu") == torch.device("cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -152,6 +152,10 @@ def test_superpoint_tiled_extraction_equals_jax(tmp_path, demo3, monkeypatch, on
     assert jex.device_handoff is not None and jex.device_handoff.tile_idx is not None
     jex.flush()
     tex.extract_batch(list(ImageList(demo3 / "images"))[:2], tmp_path / "torch.h5")
+    # both packages hand the merged features to the matcher on the device
+    handoff = tex.device_handoff
+    assert handoff is not None and handoff.tile_idx is not None
+    tex.flush()
     with h5py.File(tmp_path / "jax.h5", "r") as jf, h5py.File(tmp_path / "torch.h5", "r") as tf:
         for path in paths:
             j, t = jf[path.name], tf[path.name]
@@ -160,9 +164,11 @@ def test_superpoint_tiled_extraction_equals_jax(tmp_path, demo3, monkeypatch, on
                        j["descriptors"][()].T.astype(np.float32), j["tile_idx"][()])
             g = _keyed(t["keypoints"][()], t["scores"][()].astype(np.float32),
                        t["descriptors"][()].T.astype(np.float32), t["tile_idx"][()])
-            # the features in the cache are the file's values
-            np.testing.assert_array_equal(tex.feature_cache[path.name]["tile_idx"],
-                                          t["tile_idx"][()])
+            # the features handed to the matcher are the file's values
+            i = handoff.index[path.name]
+            n = handoff.counts[i]
+            np.testing.assert_array_equal(handoff.tile_idx[i][:n], t["tile_idx"][()])
+            np.testing.assert_array_equal(handoff.kpts[i][:n], t["keypoints"][()])
             if cap == "above":
                 assert g.keys() == r.keys()
                 for key, (s, d, tile) in g.items():
