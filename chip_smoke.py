@@ -450,6 +450,17 @@ def _ptxas(name: str) -> dict:
     return out
 
 
+def _ptxas_clean(kernel: str, name: str) -> dict:
+    """``_ptxas(name)``; fails the run where ptxas reports spills of those
+    entries, or no entry."""
+    ptxas = _ptxas(name)
+    spills = sum(i.get("spill_store_bytes", 0) + i.get("spill_load_bytes", 0)
+                 for i in ptxas.values())
+    if not ptxas or spills:
+        _fail(f"{kernel}: ptxas reports {spills} bytes of spills (or no entry): {ptxas}")
+    return ptxas
+
+
 def _sass_mma(so: Path) -> dict:
     """Tensor-core instructions per kernel of ``MMA_KERNELS`` in the
     library's SASS, from the CUDA toolkit's ``cuobjdump -sass``."""
@@ -1206,7 +1217,8 @@ def check_attention_f32(torch, dev, card):
     extra.update({"library_note": "scaled_dot_product_attention in f32 with the same key mask",
                   "bound_note": "three TF32 products of the valid pairs at 495 TFLOP/s, or the "
                                 "f32 bytes",
-                  "ptxas": _ptxas("18attention_f32_sm90"), "superglue_shape": [B, H, 4096, d],
+                  "ptxas": _ptxas_clean("attention_f32", "18attention_f32_sm90"),
+                  "superglue_shape": [B, H, 4096, d],
                   "superglue_max_abs_err": b["err"],
                   **{f"superglue_{k}": v for k, v in b.items() if k != "err"}})
     return max(a["err"], b["err"]), F32_ATTENTION_TOL, what, extra
@@ -1225,11 +1237,7 @@ def check_attention_hd96(torch, dev, card):
                for s in (2.0, 2.0, 1.0))
     qm, km = _masks(torch, gen, B, N, dev), _masks(torch, gen, B, N, dev)
     err, tol, main = _attention_case(torch, fused_attention, attention_reference, q, k, v, qm, km)
-    ptxas = _ptxas("19attention_hd96_sm90")
-    spills = sum(i.get("spill_store_bytes", 0) + i.get("spill_load_bytes", 0)
-                 for i in ptxas.values())
-    if not ptxas or spills:
-        _fail(f"attention_hd96: ptxas reports {spills} bytes of spills (or no entry): {ptxas}")
+    ptxas = _ptxas_clean("attention_hd96", "19attention_hd96_sm90")
     what = ("valid query rows, 2 bf16 ulps elementwise; LighterGlue's (16, 1, 4096, 96), the "
             "wgmma / TMA core at D = 96: 192 rows a block, 64-key tiles of three 64-byte "
             "swizzled boxes, P V one m64n96k16 a k-step")
@@ -1265,7 +1273,7 @@ def check_attention_hd96_f32(torch, dev, card):
                            "bytes",
              "shape": [B, H, N, d], "ptxas": _ptxas("23attention_hd96_f32_sm90")}
     what = ("|err| / max|out| over valid rows; LighterGlue's (16, 1, 4096, 96) in f32, the "
-            "split-TF32 wgmma core at D = 96: 128 rows a block, 32-key stages")
+            "split-TF32 wgmma core at D = 96: 128 rows a block, 32-key tiles split in the block")
     return err, F32_ATTENTION_TOL, what, extra
 
 
@@ -1302,7 +1310,8 @@ def check_bidir_attention_f32(torch, dev, card):
             f"ms, two sdpa {b['library_ms']:.3f} ms, bound {b['bound_ms']:.3f} ms")
     extra = {k: v for k, v in a.items() if k != "err"}
     extra.update({"library_note": "two masked scaled_dot_product_attention calls in f32",
-                  "ptxas": _ptxas("bidir_attention_f32_sm90"), "aliked_shape": [B, H, 4096, d],
+                  "ptxas": _ptxas_clean("bidir_attention_f32", "bidir_attention_f32_sm90"),
+                  "aliked_shape": [B, H, 4096, d],
                   "aliked_max_abs_err": b["err"],
                   **{f"aliked_{k}": v for k, v in b.items() if k != "err"}})
     return max(a["err"], b["err"]), F32_ATTENTION_TOL, what, extra

@@ -19,8 +19,9 @@ seed with partial masks, the head-dim-64 outputs of kernel 1 (three shapes)
 and of kernel 6 (two shapes), both in bf16 and f32, and kernel 1's
 head-dim-96 outputs (two shapes, bf16 and f32) under
 ``build/compare_attention/``. Lines before the last say whether the two
-checkouts' head-dim-64 outputs are equal bit for bit (kernels 1 and 6 share
-the attention cores, so a change to a core shows there), and the largest
+checkouts' head-dim-64 outputs are equal bit for bit, in bf16 and in f32
+apart (kernels 1 and 6 share the attention cores, so a change to a core
+shows there), and the largest
 difference of their head-dim-96 outputs over valid rows, absolute in bf16
 and relative to max|out| in f32 (those are not expected to be bit-equal
 across a change of the head-dim-96 kernel).
@@ -150,10 +151,11 @@ def main() -> None:
     import torch
 
     a, b = (torch.load(_out_path(str(r / "src"))) for r in (other, ROOT))
-    d64 = [k for k in a if not k.endswith("hd96")]
-    same = all(torch.equal(a[k][0], b[k][0]) for k in d64)
-    print(f"kernels 1 and 6 at head dim 64, bf16 and f32, {len(d64)} cases: the two checkouts' "
-          f"outputs {'are equal bit for bit' if same else 'DIFFER'}", flush=True)
+    for dt in ("bfloat16", "float32"):
+        d64 = [k for k in a if not k.endswith("hd96") and dt in k]
+        same = all(torch.equal(a[k][0], b[k][0]) for k in d64)
+        print(f"kernels 1 and 6 at head dim 64 in {dt}, {len(d64)} cases: the two checkouts' "
+              f"outputs {'are equal bit for bit' if same else 'DIFFER'}", flush=True)
     for k in a:
         if k.endswith("hd96"):
             print(f"kernel 1 at head dim 96, {k}: largest difference of the two checkouts over "

@@ -158,7 +158,7 @@ OUR_KERNELS = {
     "refiner_block_kernel": "refiner", "bidir_attention_sm90": "bidir_attention", "qkv_sm90": "qkv",
     "attention_f32_sm90": "attention_f32", "ffn_f32_sm90": "ffn_f32",
     "bidir_attention_f32_sm90": "bidir_attention_f32", "qkv_f32_sm90": "qkv_f32",
-    # the float32 attention kernels' per-call split of their operands
+    # the float32 attention kernels' split pass of older checkouts (for --src)
     "split_rows_kernel": "f32_split", "split_vt_kernel": "f32_split",
     # kernel 5's earlier f32 FMA kernel, for --src of older checkouts
     "nn_top2_kernel": "nn",

@@ -32,15 +32,18 @@
 //
 // The float32 forms (dim_attention_f32, dim_attention_hd96_f32, for
 // tpu.dtype: float32) compute the same function with every product in split
-// TF32, on the core of attention_f32_sm90.cuh.
+// TF32, on the core of attention_f32_sm90.cuh: one launch on the raw f32
+// operands, which each block splits into TF32 halves itself (Q into
+// registers, K and the transposed V into shared memory), with S of a key
+// tile issued beside P V of the one before.
 //
 // Head dim 96 (dim_attention_hd96_bf16, dim_attention_hd96_f32) is the same
 // cores at D = 96: in bf16 each row is three 64-byte swizzled TMA boxes of 32
 // columns (a 192-byte row is three 64-byte swizzle atoms), with 64-key tiles so
 // that O's 48 accumulator registers fit beside S and P, and P V one m64n96k16
-// a k-step; in float32 three 32-float boxes a row and 32-key stages, since a
-// 64-key stage in hi and lo (96 KB) twice beside the 96 KB Q tile would not
-// fit in shared memory.
+// a k-step; in float32 three 32-float boxes a row and 32-key tiles, since
+// 64-key K and V^T slots in hi and lo beside the raw tiles and the 48 KB Q
+// tile would not fit in shared memory.
 
 #include "attention_f32_sm90.cuh"
 #include "attention_sm90.cuh"
@@ -92,24 +95,20 @@ attention_hd96_sm90(const __grid_constant__ CUtensorMap qmap,
   attention_job<96>(qmap, kmap, vmap, q_mask, kv_mask, out, H, Nq, Nk, scale_log2);
 }
 
-// the float32 forms: the split operands of attention_f32_sm90.cuh
+// the float32 forms: raw f32 operands, split in the block (attention_f32_sm90.cuh)
 template <int D>
-__device__ __forceinline__ void attention_f32_job(
-    const CUtensorMap& qhi, const CUtensorMap& qlo, const CUtensorMap& khi,
-    const CUtensorMap& klo, const CUtensorMap& vhi, const CUtensorMap& vlo,
-    const uint8_t* q_mask, const uint8_t* kv_mask, float* out, int H, int Nq, int Nk,
-    float scale_log2) {
+__device__ __forceinline__ void attention_f32_job(const CUtensorMap& qmap, const CUtensorMap& kmap,
+                                                  const CUtensorMap& vmap, const uint8_t* q_mask,
+                                                  const uint8_t* kv_mask, float* out, int H,
+                                                  int Nq, int Nk, float scale_log2) {
   const int tiles = (Nq + attn_f32::BQ - 1) / attn_f32::BQ;
   int bh, x;
   attn_f32::block_tile(blockIdx.x, gridDim.x / tiles, tiles, bh, x);
   const int b = bh / H;
   attn_f32::Job job;
-  job.qhi = &qhi;
-  job.qlo = &qlo;
-  job.khi = &khi;
-  job.klo = &klo;
-  job.vhi = &vhi;
-  job.vlo = &vlo;
+  job.qmap = &qmap;
+  job.kmap = &kmap;
+  job.vmap = &vmap;
   job.qmask = q_mask == nullptr ? nullptr : q_mask + static_cast<size_t>(b) * Nq;
   job.kmask = kv_mask == nullptr ? nullptr : kv_mask + static_cast<size_t>(b) * Nk;
   job.out = out + static_cast<size_t>(bh) * Nq * D;
@@ -122,36 +121,27 @@ __device__ __forceinline__ void attention_f32_job(
 }
 
 __global__ void __launch_bounds__(attn_f32::THREADS, 1)
-attention_f32_sm90(const __grid_constant__ CUtensorMap qhi,
-                   const __grid_constant__ CUtensorMap qlo,
-                   const __grid_constant__ CUtensorMap khi,
-                   const __grid_constant__ CUtensorMap klo,
-                   const __grid_constant__ CUtensorMap vhi,
-                   const __grid_constant__ CUtensorMap vlo,
+attention_f32_sm90(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
                    const uint8_t* __restrict__ q_mask, const uint8_t* __restrict__ kv_mask,
                    float* __restrict__ out, int H, int Nq, int Nk, float scale_log2) {
-  attention_f32_job<64>(qhi, qlo, khi, klo, vhi, vlo, q_mask, kv_mask, out, H, Nq, Nk,
-                        scale_log2);
+  attention_f32_job<64>(qmap, kmap, vmap, q_mask, kv_mask, out, H, Nq, Nk, scale_log2);
 }
 
 __global__ void __launch_bounds__(attn_f32::THREADS, 1)
-attention_hd96_f32_sm90(const __grid_constant__ CUtensorMap qhi,
-                        const __grid_constant__ CUtensorMap qlo,
-                        const __grid_constant__ CUtensorMap khi,
-                        const __grid_constant__ CUtensorMap klo,
-                        const __grid_constant__ CUtensorMap vhi,
-                        const __grid_constant__ CUtensorMap vlo,
+attention_hd96_f32_sm90(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
                         const uint8_t* __restrict__ q_mask, const uint8_t* __restrict__ kv_mask,
                         float* __restrict__ out, int H, int Nq, int Nk, float scale_log2) {
-  attention_f32_job<96>(qhi, qlo, khi, klo, vhi, vlo, q_mask, kv_mask, out, H, Nq, Nk,
-                        scale_log2);
+  attention_f32_job<96>(qmap, kmap, vmap, q_mask, kv_mask, out, H, Nq, Nk, scale_log2);
 }
 
 typedef void (*Bf16Kernel)(CUtensorMap, CUtensorMap, CUtensorMap, const uint8_t*,
                            const uint8_t*, uint16_t*, int, int, int, float);
-typedef void (*F32Kernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
-                          CUtensorMap, const uint8_t*, const uint8_t*, float*, int, int, int,
-                          float);
+typedef void (*F32Kernel)(CUtensorMap, CUtensorMap, CUtensorMap, const uint8_t*,
+                          const uint8_t*, float*, int, int, int, float);
 
 // the bf16 form at head dim D: tensor maps, then the launch
 template <int D>
@@ -176,43 +166,30 @@ int launch_bf16(Bf16Kernel kernel, int device, const void* q, const void* k, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// the float32 form at head dim D: the split pass into the scratch, tensor
-// maps of the halves, then the launch
+// the float32 form at head dim D: tensor maps of the raw operands, then the
+// launch
 template <int D>
 int launch_f32(F32Kernel kernel, int device, const void* q, const void* k, const void* v,
-               const void* q_mask, const void* kv_mask, void* out, void* q_split,
-               void* k_split, void* v_split, int B, int H, int Nq, int Nk, float scale,
-               void* stream) {
+               const void* q_mask, const void* kv_mask, void* out, int B, int H, int Nq,
+               int Nk, float scale, void* stream) {
   namespace af = attn_f32;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * H;
-  float* qs = static_cast<float*>(q_split);
-  float* ks = static_cast<float*>(k_split);
-  float* vs = static_cast<float*>(v_split);
-  const int64_t nq = static_cast<int64_t>(BH) * Nq * D;
-  const int64_t nk = static_cast<int64_t>(BH) * Nk * D;
+  CUtensorMap mq, mk, mv;
   int e;
-  if ((e = af::split_rows(static_cast<const float*>(q), qs, nq, st)) ||
-      (e = af::split_rows(static_cast<const float*>(k), ks, nk, st)) ||
-      (e = af::split_vt<D>(static_cast<const float*>(v), vs, BH, Nk, st)))
-    return e;
-  CUtensorMap mqh, mql, mkh, mkl, mvh, mvl;
-  if ((e = af::make_row_maps<D>(&mqh, &mql, qs, Nq, BH, 64)) ||
-      (e = af::make_row_maps<D>(&mkh, &mkl, ks, Nk, BH, af::Geo<D>::BK)) ||
-      (e = af::make_vt_maps<D>(&mvh, &mvl, vs, Nk, BH)))
+  if ((e = af::make_row_map<D>(&mq, q, Nq, BH, 64)) ||
+      (e = af::make_row_map<D>(&mk, k, Nk, BH, af::Geo<D>::BK)) ||
+      (e = af::make_v_map<D>(&mv, v, Nk, BH)))
     return e;
   constexpr int smem = af::Smem<D>::SMEM_BYTES;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = BH * ((Nq + af::BQ - 1) / af::BQ);
-  kernel<<<grid, af::THREADS, smem, st>>>(mqh, mql, mkh, mkl, mvh, mvl,
-                                           static_cast<const uint8_t*>(q_mask),
-                                           static_cast<const uint8_t*>(kv_mask),
-                                           static_cast<float*>(out), H, Nq, Nk,
-                                           scale * af::LOG2E);
+  kernel<<<grid, af::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, static_cast<const uint8_t*>(q_mask), static_cast<const uint8_t*>(kv_mask),
+      static_cast<float*>(out), H, Nq, Nk, scale * af::LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,15 +208,12 @@ extern "C" int dim_attention_bf16(int device, const void* q, const void* k,
 
 // The float32 form: q (B, H, Nq, 64), k and v (B, H, Nk, 64) f32, contiguous,
 // 16-byte aligned; masks as for dim_attention_bf16; out (B, H, Nq, 64) f32.
-// Scratch, f32: q_split (2, B, H, Nq, 64) and k_split (2, B, H, Nk, 64) for
-// the TF32 halves, v_split (2, B H, 64, Np) for V's transposed halves, Np =
-// Nk rounded up to 8. Every size must be positive.
+// Every size must be positive.
 extern "C" int dim_attention_f32(int device, const void* q, const void* k, const void* v,
-                                 const void* q_mask, const void* kv_mask, void* out,
-                                 void* q_split, void* k_split, void* v_split, int B, int H,
-                                 int Nq, int Nk, float scale, void* stream) {
-  return launch_f32<64>(attention_f32_sm90, device, q, k, v, q_mask, kv_mask, out, q_split,
-                        k_split, v_split, B, H, Nq, Nk, scale, stream);
+                                 const void* q_mask, const void* kv_mask, void* out, int B,
+                                 int H, int Nq, int Nk, float scale, void* stream) {
+  return launch_f32<64>(attention_f32_sm90, device, q, k, v, q_mask, kv_mask, out, B, H, Nq, Nk,
+                        scale, stream);
 }
 
 // Head dim 96: q (B, H, Nq, 96), k and v (B, H, Nk, 96) bf16, contiguous,
@@ -251,12 +225,10 @@ extern "C" int dim_attention_hd96_bf16(int device, const void* q, const void* k,
                          Nk, scale, stream);
 }
 
-// Head dim 96 in float32 (split TF32): as dim_attention_f32 with 96 for 64,
-// its scratch included.
+// Head dim 96 in float32 (split TF32): as dim_attention_f32 with 96 for 64.
 extern "C" int dim_attention_hd96_f32(int device, const void* q, const void* k, const void* v,
-                                      const void* q_mask, const void* kv_mask, void* out,
-                                      void* q_split, void* k_split, void* v_split, int B, int H,
-                                      int Nq, int Nk, float scale, void* stream) {
-  return launch_f32<96>(attention_hd96_f32_sm90, device, q, k, v, q_mask, kv_mask, out, q_split,
-                        k_split, v_split, B, H, Nq, Nk, scale, stream);
+                                      const void* q_mask, const void* kv_mask, void* out, int B,
+                                      int H, int Nq, int Nk, float scale, void* stream) {
+  return launch_f32<96>(attention_hd96_f32_sm90, device, q, k, v, q_mask, kv_mask, out, B, H, Nq,
+                        Nk, scale, stream);
 }

@@ -38,7 +38,8 @@
 //
 // The float32 form (dim_bidir_attention_f32) computes the same function with
 // every product in split TF32 and P in f32, on the core of
-// attention_f32_sm90.cuh, in the same recompute form.
+// attention_f32_sm90.cuh, in the same recompute form: one launch on the raw
+// f32 operands, which each block splits into TF32 halves itself.
 
 #include "attention_f32_sm90.cuh"
 #include "attention_sm90.cuh"
@@ -95,17 +96,16 @@ bidir_attention_sm90(const __grid_constant__ CUtensorMap map_q0,  // qk0 in BQ-r
   attention_block<D, true>(job);
 }
 
-// the float32 form: the split operands of attention_f32_sm90.cuh; a side's
-// split rows serve as queries (its row tiles) and as keys (the other side's)
+// the float32 form on the core of attention_f32_sm90.cuh: a side's raw rows
+// serve as queries (its row tiles) and as keys (the other side's), through
+// one map of 64-row boxes, since a query box and a key tile are both 64 rows
+// at D = 64
+static_assert(attn_f32::Geo<D>::BK == 64, "kernel 6's f32 maps take 64-row key tiles");
 __global__ void __launch_bounds__(attn_f32::THREADS, 1)
-bidir_attention_f32_sm90(const __grid_constant__ CUtensorMap q0hi,
-                         const __grid_constant__ CUtensorMap q0lo,
-                         const __grid_constant__ CUtensorMap q1hi,
-                         const __grid_constant__ CUtensorMap q1lo,
-                         const __grid_constant__ CUtensorMap v0hi,
-                         const __grid_constant__ CUtensorMap v0lo,
-                         const __grid_constant__ CUtensorMap v1hi,
-                         const __grid_constant__ CUtensorMap v1lo,
+bidir_attention_f32_sm90(const __grid_constant__ CUtensorMap map_q0,
+                         const __grid_constant__ CUtensorMap map_q1,
+                         const __grid_constant__ CUtensorMap map_v0,
+                         const __grid_constant__ CUtensorMap map_v1,
                          const uint8_t* __restrict__ mask0, const uint8_t* __restrict__ mask1,
                          float* __restrict__ o0, float* __restrict__ o1, int H, int M, int N,
                          float scale_log2) {
@@ -119,12 +119,9 @@ bidir_attention_f32_sm90(const __grid_constant__ CUtensorMap q0hi,
   const uint8_t* m1 = mask1 + static_cast<size_t>(b) * N;
   attn_f32::Job job;
   if (side0) {
-    job.qhi = &q0hi;
-    job.qlo = &q0lo;
-    job.khi = &q1hi;
-    job.klo = &q1lo;
-    job.vhi = &v1hi;
-    job.vlo = &v1lo;
+    job.qmap = &map_q0;
+    job.kmap = &map_q1;
+    job.vmap = &map_v1;
     job.qmask = m0;
     job.kmask = m1;
     job.out = o0 + static_cast<size_t>(bh) * M * D;
@@ -132,12 +129,9 @@ bidir_attention_f32_sm90(const __grid_constant__ CUtensorMap q0hi,
     job.Nq = M;
     job.Nk = N;
   } else {
-    job.qhi = &q1hi;
-    job.qlo = &q1lo;
-    job.khi = &q0hi;
-    job.klo = &q0lo;
-    job.vhi = &v0hi;
-    job.vlo = &v0lo;
+    job.qmap = &map_q1;
+    job.kmap = &map_q0;
+    job.vmap = &map_v0;
     job.qmask = m1;
     job.kmask = m0;
     job.out = o1 + static_cast<size_t>(bh) * N * D;
@@ -190,13 +184,9 @@ extern "C" int dim_bidir_attention_bf16(int device, const void* qk0, const void*
 
 // The float32 form: qk0, v0, o0 (B, H, M, 64) and qk1, v1, o1 (B, H, N, 64)
 // f32, contiguous, 16-byte aligned; masks as for dim_bidir_attention_bf16.
-// Scratch, f32: split0 (2, B, H, M, 64) and split1 (2, B, H, N, 64) for the
-// TF32 halves of qk0 and qk1, vt0 (2, B H, 64, Mp) and vt1 (2, B H, 64, Np)
-// for the transposed halves of v0 and v1 (Mp, Np: M, N rounded up to 8).
 extern "C" int dim_bidir_attention_f32(int device, const void* qk0, const void* qk1,
                                        const void* v0, const void* v1, const void* mask0,
-                                       const void* mask1, void* o0, void* o1, void* split0,
-                                       void* split1, void* vt0, void* vt1, int B, int H, int M,
+                                       const void* mask1, void* o0, void* o1, int B, int H, int M,
                                        int N, float scale, void* stream) {
   namespace af = attn_f32;
   cudaError_t err = cudaSetDevice(device);
@@ -212,24 +202,11 @@ extern "C" int dim_bidir_attention_f32(int device, const void* qk0, const void* 
     return static_cast<int>(
         cudaMemsetAsync(o, 0, static_cast<size_t>(BH) * rows * D * 4, st));
   }
-  float* s0 = static_cast<float*>(split0);
-  float* s1 = static_cast<float*>(split1);
-  float* t0 = static_cast<float*>(vt0);
-  float* t1 = static_cast<float*>(vt1);
-  const int64_t n0 = static_cast<int64_t>(BH) * M * D;
-  const int64_t n1 = static_cast<int64_t>(BH) * N * D;
+  CUtensorMap mq0, mq1, mv0, mv1;
   int e;
-  if ((e = af::split_rows(static_cast<const float*>(qk0), s0, n0, st)) ||
-      (e = af::split_rows(static_cast<const float*>(qk1), s1, n1, st)) ||
-      (e = af::split_vt<D>(static_cast<const float*>(v0), t0, BH, M, st)) ||
-      (e = af::split_vt<D>(static_cast<const float*>(v1), t1, BH, N, st)))
-    return e;
-  CUtensorMap m0h, m0l, m1h, m1l, v0h, v0l, v1h, v1l;
-  // 64-row boxes: a warpgroup's query rows and a key tile alike at D = 64
-  if ((e = af::make_row_maps<D>(&m0h, &m0l, s0, M, BH, 64)) ||
-      (e = af::make_row_maps<D>(&m1h, &m1l, s1, N, BH, 64)) ||
-      (e = af::make_vt_maps<D>(&v0h, &v0l, t0, M, BH)) ||
-      (e = af::make_vt_maps<D>(&v1h, &v1l, t1, N, BH)))
+  if ((e = af::make_row_map<D>(&mq0, qk0, M, BH, 64)) ||
+      (e = af::make_row_map<D>(&mq1, qk1, N, BH, 64)) ||
+      (e = af::make_v_map<D>(&mv0, v0, M, BH)) || (e = af::make_v_map<D>(&mv1, v1, N, BH)))
     return e;
   err = cudaFuncSetAttribute(bidir_attention_f32_sm90,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -237,8 +214,7 @@ extern "C" int dim_bidir_attention_f32(int device, const void* qk0, const void* 
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = BH * ((M + af::BQ - 1) / af::BQ + (N + af::BQ - 1) / af::BQ);
   bidir_attention_f32_sm90<<<grid, af::THREADS, af::Smem<D>::SMEM_BYTES, st>>>(
-      m0h, m0l, m1h, m1l, v0h, v0l, v1h, v1l, static_cast<const uint8_t*>(mask0),
-      static_cast<const uint8_t*>(mask1), static_cast<float*>(o0), static_cast<float*>(o1), H,
-      M, N, scale * af::LOG2E);
+      mq0, mq1, mv0, mv1, static_cast<const uint8_t*>(mask0), static_cast<const uint8_t*>(mask1),
+      static_cast<float*>(o0), static_cast<float*>(o1), H, M, N, scale * af::LOG2E);
   return static_cast<int>(cudaGetLastError());
 }

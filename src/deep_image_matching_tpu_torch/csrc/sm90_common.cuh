@@ -314,6 +314,22 @@ __device__ __forceinline__ void wgmma_tf32_n64_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 32 f32 fragments) (+)= A (64 x 8, TF32 in registers) B^T (32 x 8,
+// shared, K-major)
+__device__ __forceinline__ void wgmma_tf32_n32_rs(float (&d)[16],
+                                                  const uint32_t* a, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %21, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 96 f32 fragments) (+)= A (64 x 8, TF32 in registers) B^T (96 x 8,
 // shared, K-major)
 __device__ __forceinline__ void wgmma_tf32_n96_rs(float (&d)[48],

@@ -67,14 +67,12 @@ _SIGNATURES = {
     "dim_refiner_block": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dim_bidir_attention_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "dim_qkv_rotary_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "dim_attention_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "dim_attention_f32": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "dim_ffn_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "dim_bidir_attention_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _F, _P],
+    "dim_bidir_attention_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "dim_qkv_rotary_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "dim_attention_hd96_bf16": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "dim_attention_hd96_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                               _P],
+    "dim_attention_hd96_f32": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 # the dtypes of the kernels with a bf16 and a float32 form

@@ -79,21 +79,10 @@ def fused_attention(
     masks = (None if q_mask is None else q_mask.data_ptr(),
              None if kv_mask is None else kv_mask.data_ptr())
     hd96 = "_hd96" if hd == 96 else ""
-    if dt == torch.bfloat16:
-        _lib.launch(
-            f"attention{hd96}", f"dim_attention{hd96}_bf16", q.device.index, q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), *masks,
-            out.data_ptr(), B, H, Tq, Tk, float(sm_scale), _lib.stream_of(q),
-        )
-        return out
-    # the split pass's scratch: Q's and K's TF32 halves, V's transposed
-    # halves with the keys rounded up to 8
-    qs = torch.empty((2,) + q.shape, dtype=dt, device=q.device)
-    ks = torch.empty((2,) + k.shape, dtype=dt, device=q.device)
-    vs = torch.empty(2, B * H, hd, -(-Tk // 8) * 8, dtype=dt, device=q.device)
+    kernel, fn = ((f"attention{hd96}", f"dim_attention{hd96}_bf16") if dt == torch.bfloat16
+                  else (f"attention{hd96}_f32", f"dim_attention{hd96}_f32"))
     _lib.launch(
-        f"attention{hd96}_f32", f"dim_attention{hd96}_f32", q.device.index, q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), *masks, out.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-        vs.data_ptr(), B, H, Tq, Tk, float(sm_scale), _lib.stream_of(q),
+        kernel, fn, q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), *masks,
+        out.data_ptr(), B, H, Tq, Tk, float(sm_scale), _lib.stream_of(q),
     )
     return out

@@ -62,17 +62,7 @@ def bidir_cross_attention(qk0, qk1, v0, v1, mask0, mask1):
         return o0, o1
     args = (qk0.data_ptr(), qk1.data_ptr(), v0.data_ptr(), v1.data_ptr(), mask0.data_ptr(),
             mask1.data_ptr(), o0.data_ptr(), o1.data_ptr())
-    if dt == torch.bfloat16:
-        _lib.launch("bidir_attention", "dim_bidir_attention_bf16", dev.index, *args,
-                    B, H, M, N, float(d ** -0.5), _lib.stream_of(qk0))
-        return o0, o1
-    # the split pass's scratch: each side's TF32 halves and its values'
-    # transposed halves, the keys rounded up to 8
-    s0 = torch.empty((2,) + qk0.shape, dtype=dt, device=dev)
-    s1 = torch.empty((2,) + qk1.shape, dtype=dt, device=dev)
-    t0 = torch.empty(2, B * H, d, -(-M // 8) * 8, dtype=dt, device=dev)
-    t1 = torch.empty(2, B * H, d, -(-N // 8) * 8, dtype=dt, device=dev)
-    _lib.launch("bidir_attention_f32", "dim_bidir_attention_f32", dev.index, *args,
-                s0.data_ptr(), s1.data_ptr(), t0.data_ptr(), t1.data_ptr(),
-                B, H, M, N, float(d ** -0.5), _lib.stream_of(qk0))
+    kernel, fn = (("bidir_attention", "dim_bidir_attention_bf16") if dt == torch.bfloat16
+                  else ("bidir_attention_f32", "dim_bidir_attention_f32"))
+    _lib.launch(kernel, fn, dev.index, *args, B, H, M, N, float(d ** -0.5), _lib.stream_of(qk0))
     return o0, o1

@@ -145,12 +145,13 @@ def _within_two_ulps(got, ref, rows):
 
 # (Nq, Nk, query masks, key masks): ragged against both tile sizes, fewer
 # than 64 queries, DINOv2's unmasked ragged length, a fully masked key tile
-# in the middle
+# in the middle, one key past the float32 form's 64-key tile
 ATTENTION_CASES = {
     "ragged": (300, 131, "prefix", "prefix"),
     "short": (40, 200, "prefix", "prefix"),
     "unmasked_1601": (1601, 401, "none", "none"),
     "middle_tile": (300, 520, "prefix", "middle"),
+    "tile_plus_one": (100, 65, "prefix", "prefix"),
 }
 
 
@@ -353,8 +354,8 @@ def test_p_fragments_meet_the_permuted_values():
     """O += P V with P from the S accumulator: thread (g, c) of a warp holds
     rows g, g + 8 and keys c, c + 1 (c = 2 (lane % 4)) of each group of 8;
     the TF32 A fragment takes them as k = c / 2 and k + 4, and V^T holds
-    each group's keys in the order 0 2 4 6 1 3 5 7 (split_vt_kernel), so the
-    fragment product is P V."""
+    each group's keys in the order 0 2 4 6 1 3 5 7 (the producer's split_v),
+    so the fragment product is P V."""
     rng = np.random.default_rng(23)
     P, V = _f32(rng, 16, 8), _f32(rng, 8, 64)
     A = torch.zeros(16, 8)

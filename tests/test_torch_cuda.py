@@ -75,13 +75,17 @@ def _middle_tile_masks(gen, B, N, cuda, masked=(128, 256)):
 
 
 # (B, H, Tq, Tk, masks): ragged against the 128-row tiles, fewer than 64
-# queries, DINOv2's unmasked ragged 1601 tokens at 16 heads, and a non-prefix
-# key mask with a fully masked 128-key tile in the middle
+# queries, DINOv2's unmasked ragged 1601 tokens at 16 heads, a non-prefix
+# key mask with a fully masked 128-key tile in the middle, and against the
+# float32 form's 64-key tiles one key past a tile and a fully masked 64-key
+# tile between valid ones
 ATTENTION_CASES = {
     "ragged": (2, 4, 300, 131, "prefix"),
     "short": (2, 4, 40, 200, "prefix"),
     "dinov2": (2, 16, 1601, 1601, None),
     "middle_tile": (3, 4, 300, 520, "middle"),
+    "tile_plus_one": (2, 4, 200, 65, "prefix"),
+    "middle_64_tile": (3, 4, 260, 300, "middle64"),
 }
 
 
@@ -99,9 +103,9 @@ def test_attention_kernel_matches_plain(cuda, nan_shared, dtype, case):
         qm = _prefix_masks(gen, B, N, 10).to(cuda)
         km = _prefix_masks(gen, B, M, 10).to(cuda)
         km[1] = False  # every key masked: the uniform average of all keys
-    elif masks == "middle":
+    elif masks in ("middle", "middle64"):
         qm = _prefix_masks(gen, B, N, 10).to(cuda)
-        km = _middle_tile_masks(gen, B, M, cuda)
+        km = _middle_tile_masks(gen, B, M, cuda, (64, 128) if masks == "middle64" else (128, 256))
         qm[2, :] = False  # every query masked: the kernel writes zeros
     counter = "attention" if dtype == "bf16" else "attention_f32"
     if dtype == "f32":
@@ -122,7 +126,7 @@ def test_attention_kernel_matches_plain(cuda, nan_shared, dtype, case):
             assert _within_two_ulps(got[1:2], mean[None].to(torch.bfloat16), rows[1:2])
         else:
             assert _within_f32(got[1:2], mean[None], F32_ATTENTION_TOL, rows[1:2])
-    if masks == "middle":
+    if masks in ("middle", "middle64"):
         assert bool((got[2] == 0).all())
 
 
@@ -608,13 +612,16 @@ def test_refiner_kernel_refuses_65_channels(cuda):
 
 
 # (B, H, M, N, masks): ragged M != N against the 128-row tiles, fewer than
-# 64 rows on one side, and non-prefix masks with a fully masked 128-column
-# tile in the middle
+# 64 rows on one side, non-prefix masks with a fully masked 128-column tile
+# in the middle, and against the float32 form's 64-key tiles one key past a
+# tile on each side and a fully masked 64-key tile between valid ones
 BIDIR_CASES = {
     "ragged": (3, 4, 200, 130, "prefix"),
     "ragged_131": (3, 4, 300, 131, "prefix"),
     "short": (3, 4, 40, 600, "prefix"),
     "middle_tile": (3, 4, 520, 400, "middle"),
+    "tile_plus_one": (3, 4, 65, 129, "prefix"),
+    "middle_64_tile": (3, 4, 200, 260, "middle64"),
 }
 
 
@@ -632,8 +639,9 @@ def test_bidir_attention_kernel_matches_plain(cuda, nan_shared, dtype, case):
         m0 = _prefix_masks(gen, B, M, 10).to(cuda)
         m1 = _prefix_masks(gen, B, N, 10).to(cuda)
     else:
-        m0 = _middle_tile_masks(gen, B, M, cuda)
-        m1 = _middle_tile_masks(gen, B, N, cuda)
+        tile = (64, 128) if masks == "middle64" else (128, 256)
+        m0 = _middle_tile_masks(gen, B, M, cuda, tile)
+        m1 = _middle_tile_masks(gen, B, N, cuda, tile)
     m0[1, 5] = False
     m1[2] = False  # every side-1 token of element 2 masked
     counter = "bidir_attention" if dtype == "bf16" else "bidir_attention_f32"
