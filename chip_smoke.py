@@ -1350,7 +1350,7 @@ def check_ffn_f32(torch, dev, card):
     extra.update({"library_ms": None,
                   "library_note": "none: LayerNorm, GELU (or ReLU) and two products; no single "
                                   "PyTorch call does all of them",
-                  "ptxas": _ptxas("ffn_f32_sm90"), "relu_shape": [16, 4096, D],
+                  "ptxas": _ptxas_clean("ffn_f32", "ffn_f32_sm90"), "relu_shape": [16, 4096, D],
                   "relu_max_abs_err": b["err"],
                   **{f"relu_{k}": v for k, v in b.items() if k != "err"}})
     return max(a["err"], b["err"]), F32_PRODUCT_TOL, what, extra
@@ -1392,7 +1392,7 @@ def check_qkv_f32(torch, dev, card):
     extra = {k: v for k, v in a.items() if k != "err"}
     extra.update({"library_note": "F.linear(x, W, b) in f32 alone: without the head relayout "
                                   "and the rotary embedding",
-                  "shape": [B * N, D], "ptxas": _ptxas("qkv_f32_sm90"),
+                  "shape": [B * N, D], "ptxas": _ptxas_clean("qkv_f32", "qkv_f32_sm90"),
                   "cross_max_abs_err": c["err"],
                   **{f"cross_{k}": v for k, v in c.items() if k != "err"}})
     return max(a["err"], c["err"]), F32_PRODUCT_TOL, what, extra

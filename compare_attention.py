@@ -24,7 +24,10 @@ apart (kernels 1 and 6 share the attention cores, so a change to a core
 shows there), and the largest
 difference of their head-dim-96 outputs over valid rows, absolute in bf16
 and relative to max|out| in f32 (those are not expected to be bit-equal
-across a change of the head-dim-96 kernel).
+across a change of the head-dim-96 kernel). The same file holds the outputs
+of kernel 2 (both modes) and kernel 10 (both modes) on seeded inputs with
+ragged row counts, in bf16 and f32, and a line says whether the two
+checkouts' outputs of each form are equal bit for bit.
 """
 
 from __future__ import annotations
@@ -46,6 +49,12 @@ OUTPUT_SHAPES = ((16, 4, 2048, 2048), (2, 16, 1601, 1601), (3, 4, 300, 131))
 BIDIR_SHAPES = ((16, 4, 2048, 2048), (3, 4, 300, 131))
 # kernel 1 at head dim 96, (B, H, Nq, Nk): LighterGlue's and a ragged one
 HD96_SHAPES = ((16, 1, 4096, 4096), (3, 1, 300, 131))
+
+
+# kernel 2, (B, K) in both modes; kernel 10, (B, N) in self and cross mode:
+# ragged against the row tiles, and a LightGlue-sized batch
+FFN_SHAPES = ((2, 1000), (16, 2048))
+QKV_SHAPES = ((3, 700), (16, 2048))
 
 
 def _out_path(src: str) -> Path:
@@ -81,8 +90,41 @@ def attention_outputs(torch, path: Path) -> None:
             o0, o1 = bidir_cross_attention(qk0, qk1, v0, v1, m0, m1)
             out[f"{dt} bidir {B} {H} {M} {N}"] = (torch.cat([o0.flatten(), o1.flatten()]).cpu(),
                                                  None)
+    out.update(projection_outputs(torch))
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(out, path)
+
+
+def projection_outputs(torch) -> dict:
+    """Kernels 2 and 10 on seeded inputs, both forms and both modes of each:
+    {"proj <dtype> <kernel> ...": (output, None)}."""
+    from deep_image_matching_tpu_torch.ops.ffn import ffn_fused
+    from deep_image_matching_tpu_torch.ops.qkv import proj_rotary_fused
+
+    gen = torch.Generator().manual_seed(6)
+    D, out = 256, {}
+    for dt in (torch.bfloat16, torch.float32):
+        def rnd(*shape, s=1.0, mean=0.0):
+            return (mean + s * torch.randn(*shape, generator=gen)).to("cuda", dt)
+
+        w = (rnd(2 * D, 2 * D, s=(2 * D) ** -0.5), rnd(2 * D, s=0.1), rnd(2 * D, s=0.1, mean=1.0),
+             rnd(2 * D, s=0.1), rnd(D, 2 * D, s=(2 * D) ** -0.5), rnd(D, s=0.1))
+        for B, K in FFN_SHAPES:
+            x, msg = rnd(B, K, D), rnd(B, K, D)
+            for mode in ("ln_gelu", "relu"):
+                out[f"proj {dt} ffn {mode} {B} {K}"] = (ffn_fused(x, msg, *w, mode=mode).cpu(),
+                                                       None)
+        for B, N in QKV_SHAPES:
+            x = rnd(B, N, D)
+            ang = torch.rand(B, N, 32, generator=gen) * 6.3
+            cos = torch.repeat_interleave(torch.cos(ang), 2, -1).cuda()
+            sin = torch.repeat_interleave(torch.sin(ang), 2, -1).cuda()
+            for sections, rot in ((3, (0, 1)), (2, ())):
+                wq, bq = rnd(sections * D, D, s=1 / 16), rnd(sections * D, s=0.1)
+                outs = proj_rotary_fused(x, wq, bq, cos, sin, 4, sections, rot)
+                out[f"proj {dt} qkv {sections} {B} {N}"] = (
+                    torch.cat([o.flatten() for o in outs]).cpu(), None)
+    return out
 
 
 def _hd96_difference(torch, a, b):
@@ -152,12 +194,19 @@ def main() -> None:
 
     a, b = (torch.load(_out_path(str(r / "src"))) for r in (other, ROOT))
     for dt in ("bfloat16", "float32"):
-        d64 = [k for k in a if not k.endswith("hd96") and dt in k]
+        for kernel in ("ffn", "qkv"):
+            keys = [k for k in a if k.startswith(f"proj torch.{dt} {kernel} ")]
+            same = all(torch.equal(a[k][0], b[k][0]) for k in keys)
+            print(f"kernel {2 if kernel == 'ffn' else 10} ({kernel}) in {dt}, {len(keys)} cases: "
+                  f"the two checkouts' outputs {'are equal bit for bit' if same else 'DIFFER'}",
+                  flush=True)
+        d64 = [k for k in a if not k.endswith("hd96") and not k.startswith("proj ")
+               and dt in k]
         same = all(torch.equal(a[k][0], b[k][0]) for k in d64)
         print(f"kernels 1 and 6 at head dim 64 in {dt}, {len(d64)} cases: the two checkouts' "
               f"outputs {'are equal bit for bit' if same else 'DIFFER'}", flush=True)
     for k in a:
-        if k.endswith("hd96"):
+        if k.endswith("hd96") and k in b:
             print(f"kernel 1 at head dim 96, {k}: largest difference of the two checkouts over "
                   f"valid rows {_hd96_difference(torch, a[k], b[k]):.3e} "
                   f"({'absolute' if 'bfloat16' in k else 'relative to max|out|'})", flush=True)

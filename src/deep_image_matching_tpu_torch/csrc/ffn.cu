@@ -330,18 +330,32 @@ ffn_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUten
 //
 // - The producer streams 32-wide k-chunks (one 128-byte swizzle row of f32)
 //   of [x | msg] (8 KB, unsplit) through a ring of two slots, and W1's chunks
-//   (512 rows, hi, then lo: 64 KB each) through a ring of two stages; then
-//   W2's chunks (256 rows, hi, then lo: 32 KB) through a ring of its own.
+//   (512 rows, hi, then lo: 64 KB each) through a ring of three stages; then
+//   W2's chunks (256 rows, hi, then lo: 32 KB) through a ring of two, in the
+//   W1 ring's third stage once its last W1 chunk is released.
 // - The consumers read the A fragments of each 8-deep step from the chunk
 //   (conflict-free in the swizzle), split them in registers and run
 //   wgmma m64n256k8 with A in registers (A lo.W1 hi and A hi.W1 hi on the hi
-//   stage, A hi.W1 lo on the lo stage), h in 128 f32 registers a thread, two
-//   fragment sets in flight.
+//   stage, A hi.W1 lo on the lo stage), h in 128 f32 registers a thread,
+//   three steps in flight (four fragment sets). The products stay in flight
+//   across stages: a stage is released once the next one's second step has
+//   been issued and everything before it is done, so the tensor cores do not
+//   drain at each 32-deep stage, and the ring keeps two stages loading.
 // - LayerNorm and the GELU (or the relu) as in the bf16 form; the f32
-//   activation (64 x 512, 128 KB) is written over the W1 ring in the same
-//   swizzled chunks, and the second product reads its A fragments from it
-//   (m64n128k8, A in registers, each warpgroup 128 output columns).
-// - The epilogue adds b2 and the f32 residual x in f32.
+//   activation (64 x 512, 128 KB) is written over the W1 ring's first two
+//   stages in the same swizzled chunks, and the second product reads its A
+//   fragments from it (m64n128k8, A in registers, each warpgroup 128 output
+//   columns).
+// - The epilogue adds b2 and the f32 residual x in f32 and writes with
+//   streaming stores, which leave L2 to the weights. (Loading the residuals
+//   into registers before the second product made the relu form spill.)
+//
+// What bounds it: three TF32 products of 64 x 512 x 512 and 64 x 512 x 256
+// a block, 40 us of the tensor cores at 495 TFLOP/s, against 3 MB of weight
+// halves read from L2. Leaving the weights' L2 reads out (all but the ring's
+// first round: probe_proj_f32.py's `w_once`) did not change the time of the
+// earlier design, which drained the tensor pipe at every stage; so the
+// weights stream to each block from L2 and no cluster shares them.
 namespace ffn32 {
 
 constexpr int D = 256, D2 = 512, BM = 64;
@@ -351,18 +365,19 @@ constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128;
 constexpr int A_BYTES = BM * KC * 4;         // 8 KB: a chunk of [x | msg], or of the activation
 constexpr int W1_BYTES = D2 * KC * 4;        // 64 KB: a chunk of W1 (hi or lo)
 constexpr int W2_BYTES = D * KC * 4;         // 32 KB: a chunk of W2 (hi or lo)
+constexpr int W1_STAGES = 3;
 
 // shared memory from a 1024-byte aligned base
-constexpr int OFF_W1 = 0;                    // the W1 ring, then the activation (128 KB)
-constexpr int OFF_A = OFF_W1 + 2 * W1_BYTES;
-constexpr int OFF_W2 = OFF_A + 2 * A_BYTES;
-constexpr int OFF_B1 = OFF_W2 + 2 * W2_BYTES;  // f32 [512]
+constexpr int OFF_W1 = 0;                    // the W1 ring; then the activation (128 KB)
+constexpr int OFF_W2 = OFF_W1 + 2 * W1_BYTES;  // the W2 ring, in the W1 ring's third stage
+constexpr int OFF_A = OFF_W1 + W1_STAGES * W1_BYTES;
+constexpr int OFF_B1 = OFF_A + 2 * A_BYTES;  // f32 [512]
 constexpr int OFF_G = OFF_B1 + D2 * 4;         // f32 [512]
 constexpr int OFF_BETA = OFF_G + D2 * 4;       // f32 [512]
 constexpr int OFF_B2 = OFF_BETA + D2 * 4;      // f32 [256]
 constexpr int OFF_RED = OFF_B2 + D * 4;        // f32 [2 stats][2 wg][64 rows]
 constexpr int OFF_BAR = OFF_RED + 2 * 2 * BM * 4;  // u64 full / empty of the three rings
-constexpr int SMEM_BYTES = OFF_BAR + 8 * 12 + 1024;
+constexpr int SMEM_BYTES = OFF_BAR + 8 * (4 + 2 * W1_STAGES + 4) + 1024;
 
 // byte offset of element (row, k) of a 64-row chunk of 32 f32 columns in the
 // 128-byte swizzle: 16-byte units XOR-ed with the row's low 3 bits
@@ -382,6 +397,77 @@ __device__ __forceinline__ void a_frag(const uint8_t* chunk, int r, int k0, int 
   for (int i = 0; i < 4; ++i) split_tf32(x[i], hi[i], lo[i]);
 }
 
+// a ring's position: stage and phase parity
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance(int stages) {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// One product's k-chunks on a weight ring: `acc` (+)= A W^T, where chunk t / 2
+// of A is at `a_chunk(t / 2)` and stage t holds W's chunk t / 2, hi (t even)
+// or lo; the hi stage runs A lo.W hi and A hi.W hi, the lo stage A hi.W lo,
+// all m64nNk8 with A in registers, each step a commit group. Three groups
+// stay in flight: a step's fragments are split while the two before it run
+// (four fragment sets, one per step of a stage). A stage is released
+// (`release(stage)`) once the second step of the next stage has been
+// committed and every group of the stage is done; the last one after the
+// final wait. `acc` is overwritten by the first product.
+template <int N, typename AChunk, typename Release>
+__device__ __forceinline__ void product(float (&acc)[N / 2], uint32_t full, uint32_t w_base,
+                                        int w_bytes, int w_stages, int w_off, Ring& ring,
+                                        AChunk a_chunk, Release release, int rl, int q) {
+  uint32_t fh[4][4], fl[4][4];
+  int prev = -1;
+#pragma unroll 1
+  for (int t = 0; t < 2 * NCH; ++t) {
+    const int ch = t / 2, part = t % 2;
+    const uint8_t* ac = a_chunk(ch);
+    mbar_wait(full + 8 * ring.stage, ring.phase);
+    const uint64_t db = sw128_desc(w_base + ring.stage * w_bytes + w_off, 1);
+#pragma unroll
+    for (int kk = 0; kk < KC / 8; ++kk) {
+      a_frag(ac, rl, 8 * kk, q, fh[kk], fl[kk]);
+      wg_fence();
+      if constexpr (N == 256) {
+        if (part == 0) {
+          wgmma_tf32_n256_rs(acc, fl[kk], db + 2 * kk, ch | kk);
+          wgmma_tf32_n256_rs(acc, fh[kk], db + 2 * kk, 1);
+        } else {
+          wgmma_tf32_n256_rs(acc, fh[kk], db + 2 * kk, 1);
+        }
+      } else {
+        if (part == 0) {
+          wgmma_tf32_n128_rs(acc, fl[kk], db + 2 * kk, ch | kk);
+          wgmma_tf32_n128_rs(acc, fh[kk], db + 2 * kk, 1);
+        } else {
+          wgmma_tf32_n128_rs(acc, fh[kk], db + 2 * kk, 1);
+        }
+      }
+      wg_commit();
+      wg_wait<2>();
+      fence_regs(fh[(kk + 1) & 3]);
+      fence_regs(fl[(kk + 1) & 3]);
+      if (kk == 1 && prev >= 0) release(prev);
+    }
+    prev = ring.stage;
+    ring.advance(w_stages);
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int kk = 0; kk < KC / 8; ++kk) {
+    fence_regs(fh[kk]);
+    fence_regs(fl[kk]);
+  }
+  release(prev);
+}
+
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 ffn_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap mmap,
@@ -395,20 +481,23 @@ ffn_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
   const uint32_t pad = (1024u - (base & 1023u)) & 1023u;
   uint8_t* sm = dyn_smem + pad;
   base += pad;
-  // full[2], empty[2] of the A ring, the W1 ring and the W2 ring
+  // full[2], empty[2] of the A ring; full[3], empty[3] of the W1 ring;
+  // full[2], empty[2] of the W2 ring
   const uint32_t a_full = base + OFF_BAR, a_empty = a_full + 16;
-  const uint32_t w_full = a_full + 32, w_empty = w_full + 16;
-  const uint32_t v_full = a_full + 64, v_empty = v_full + 16;
+  const uint32_t w_full = a_empty + 16, w_empty = w_full + 8 * W1_STAGES;
+  const uint32_t v_full = w_empty + 8 * W1_STAGES, v_empty = v_full + 16;
   const int row0 = blockIdx.x * BM;
 
   if (tid == 0) {
     for (int s = 0; s < 2; ++s) {
       mbar_init(a_full + 8 * s, 1);
       mbar_init(a_empty + 8 * s, CONSUMERS);
-      mbar_init(w_full + 8 * s, 1);
-      mbar_init(w_empty + 8 * s, CONSUMERS);
       mbar_init(v_full + 8 * s, 1);
       mbar_init(v_empty + 8 * s, CONSUMERS);
+    }
+    for (int s = 0; s < W1_STAGES; ++s) {
+      mbar_init(w_full + 8 * s, 1);
+      mbar_init(w_empty + 8 * s, CONSUMERS);
     }
     mbar_init_fence();
   }
@@ -418,40 +507,33 @@ ffn_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
     // ---------------- producer warpgroup: one thread issues ---------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == CONSUMERS) {
-      int as = 0, ws = 0;
-      uint32_t aph = 0, wph = 0;
+      Ring a, w;
       for (int c = 0; c < NCH; ++c) {
-        mbar_wait(a_empty + 8 * as, aph ^ 1);
-        mbar_arrive_tx(a_full + 8 * as, A_BYTES);
-        tma_load_2d(base + OFF_A + as * A_BYTES, c < NCH / 2 ? &xmap : &mmap, a_full + 8 * as,
-                    (c % (NCH / 2)) * KC, row0);
-        if (++as == 2) {
-          as = 0;
-          aph ^= 1;
-        }
+        mbar_wait(a_empty + 8 * a.stage, a.phase ^ 1);
+        mbar_arrive_tx(a_full + 8 * a.stage, A_BYTES);
+        tma_load_2d(base + OFF_A + a.stage * A_BYTES, c < NCH / 2 ? &xmap : &mmap,
+                    a_full + 8 * a.stage, (c % (NCH / 2)) * KC, row0);
+        a.advance(2);
         for (int part = 0; part < 2; ++part) {  // W1 hi, then lo (rows 512 on)
-          mbar_wait(w_empty + 8 * ws, wph ^ 1);
-          const uint32_t full = w_full + 8 * ws, dst = base + OFF_W1 + ws * W1_BYTES;
+          mbar_wait(w_empty + 8 * w.stage, w.phase ^ 1);
+          const uint32_t full = w_full + 8 * w.stage, dst = base + OFF_W1 + w.stage * W1_BYTES;
           mbar_arrive_tx(full, W1_BYTES);
           tma_load_2d(dst, &w1map, full, c * KC, part * D2);
           tma_load_2d(dst + W1_BYTES / 2, &w1map, full, c * KC, part * D2 + D);
-          if (++ws == 2) {
-            ws = 0;
-            wph ^= 1;
-          }
+          w.advance(W1_STAGES);
         }
       }
-      int vs = 0;
-      uint32_t vph = 0;
+      // W2 goes into the W1 ring's third stage (the ring stands there after
+      // its 32 chunks) once the consumers release its last W1 chunk, the 30th
+      static_assert((2 * NCH) % W1_STAGES == 2, "the W2 ring lies in the W1 ring's third stage");
+      mbar_wait(w_empty + 8 * w.stage, w.phase ^ 1);
+      Ring v;
       for (int t = 0; t < 2 * NCH; ++t) {  // W2 chunk t / 2, hi then lo (rows 256 on)
-        mbar_wait(v_empty + 8 * vs, vph ^ 1);
-        mbar_arrive_tx(v_full + 8 * vs, W2_BYTES);
-        tma_load_2d(base + OFF_W2 + vs * W2_BYTES, &w2map, v_full + 8 * vs, (t / 2) * KC,
-                    (t % 2) * D);
-        if (++vs == 2) {
-          vs = 0;
-          vph ^= 1;
-        }
+        mbar_wait(v_empty + 8 * v.stage, v.phase ^ 1);
+        mbar_arrive_tx(v_full + 8 * v.stage, W2_BYTES);
+        tma_load_2d(base + OFF_W2 + v.stage * W2_BYTES, &w2map, v_full + 8 * v.stage,
+                    (t / 2) * KC, (t % 2) * D);
+        v.advance(2);
       }
     }
     return;
@@ -477,51 +559,24 @@ ffn_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
   }
   consumers_sync();
 
-  // h = [x | msg] W1^T for columns [256 wg, 256 wg + 256), chunk by chunk;
-  // each step's fragments in one of two register sets, the step before's
-  // products done before its set is rewritten
+  // h = [x | msg] W1^T for columns [256 wg, 256 wg + 256); each A chunk is
+  // read by the hi and the lo stage, and released when the next one is taken
   float h[128];
-  uint32_t fh[2][4], fl[2][4];
-  int as = 0, ws = 0;
-  uint32_t aph = 0, wph = 0;
-#pragma unroll 1
-  for (int ch = 0; ch < NCH; ++ch) {
-    mbar_wait(a_full + 8 * as, aph);
-    const uint8_t* achunk = sm + OFF_A + as * A_BYTES;
-#pragma unroll 1
-    for (int part = 0; part < 2; ++part) {
-      mbar_wait(w_full + 8 * ws, wph);
-      const uint64_t db = sw128_desc(base + OFF_W1 + ws * W1_BYTES + wg * (W1_BYTES / 2), 1);
-#pragma unroll
-      for (int kk = 0; kk < KC / 8; ++kk) {
-        a_frag(achunk, rl, 8 * kk, q, fh[kk & 1], fl[kk & 1]);
-        wg_fence();
-        if (part == 0) {
-          wgmma_tf32_n256_rs(h, fl[kk & 1], db + 2 * kk, ch | kk);
-          wgmma_tf32_n256_rs(h, fh[kk & 1], db + 2 * kk, 1);
-        } else {
-          wgmma_tf32_n256_rs(h, fh[kk & 1], db + 2 * kk, 1);
-        }
-        wg_commit();
-        wg_wait<1>();
-        fence_regs(fh[(kk + 1) & 1]);
-        fence_regs(fl[(kk + 1) & 1]);
-      }
-      wg_wait<0>();
-      fence_regs(h);
-      fence_regs(fh[1]);
-      fence_regs(fl[1]);
-      mbar_arrive(w_empty + 8 * ws);
-      if (++ws == 2) {
-        ws = 0;
-        wph ^= 1;
-      }
-    }
-    mbar_arrive(a_empty + 8 * as);
-    if (++as == 2) {
-      as = 0;
-      aph ^= 1;
-    }
+  {
+    Ring a, w;
+    int held = 0;
+    product<256>(
+        h, w_full, base + OFF_W1, W1_BYTES, W1_STAGES, wg * (W1_BYTES / 2), w,
+        [&](int ch) {
+          if (ch != held) {  // chunk ch - 1 is read through
+            mbar_arrive(a_empty + 8 * a.stage);
+            a.advance(2);
+            held = ch;
+          }
+          mbar_wait(a_full + 8 * a.stage, a.phase);
+          return static_cast<const uint8_t*>(sm + OFF_A + a.stage * A_BYTES);
+        },
+        [&](int stage) { mbar_arrive(w_empty + 8 * stage); }, rl, q);
   }
 
   // + b1, then the activation
@@ -531,8 +586,8 @@ ffn_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
 #pragma unroll
     for (int e = 0; e < 4; ++e) h[4 * j + e] += sb1[col + (e & 1)];
   }
+  float mu[2] = {0.f, 0.f}, rstd[2] = {1.f, 1.f};
   if (MODE == 0) {
-    float mu[2], rstd[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float sum = 0.f;
@@ -541,7 +596,7 @@ ffn_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
       sum = quad_sum(sum);
       if (c == 0) red[wg * BM + rl + 8 * r] = sum;
     }
-    consumers_sync();  // also: both warpgroups are done with the W1 ring
+    consumers_sync();
 #pragma unroll
     for (int r = 0; r < 2; ++r) mu[r] = (red[rl + 8 * r] + red[BM + rl + 8 * r]) / D2;
 #pragma unroll
@@ -555,72 +610,57 @@ ffn_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
       var = quad_sum(var);
       if (c == 0) red[2 * BM + wg * BM + rl + 8 * r] = var;
     }
-    consumers_sync();
+  }
+  consumers_sync();  // also: both warpgroups are done with the W1 ring
+  if (MODE == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       rstd[r] = rsqrtf((red[2 * BM + rl + 8 * r] + red[3 * BM + rl + 8 * r]) / D2 + 1e-5f);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int col = wg * D + 8 * j + c;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float hn = (h[4 * j + e] - mu[r]) * rstd[r] * sg[col + (e & 1)] + sbeta[col + (e & 1)];
-        h[4 * j + e] = 0.5f * hn * (1.f + erff(hn * 0.7071067811865476f));
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 128; ++i) h[i] = fmaxf(h[i], 0.f);
-    consumers_sync();  // both warpgroups are done with the W1 ring
   }
 
-  // the f32 activation over the W1 ring: column k in chunk k / 32
+  // the activation, column by column pair, written in f32 over the W1 ring:
+  // column k in chunk k / 32; 8 columns a step, so that the compiler does
+  // not hold every g and beta at once
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     const int col = wg * D + 8 * j + c;
     uint8_t* chunk = sm + OFF_W1 + (col / KC) * A_BYTES;
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<float2*>(chunk + swz(rl + 8 * r, col % KC)) =
-          make_float2(h[4 * j + 2 * r], h[4 * j + 2 * r + 1]);
+    for (int r = 0; r < 2; ++r) {
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float hv = h[4 * j + 2 * r + e];
+        if (MODE == 0) {
+          const float hn = (hv - mu[r]) * rstd[r] * sg[col + e] + sbeta[col + e];
+          v[e] = 0.5f * hn * (1.f + erff(hn * 0.7071067811865476f));
+        } else {
+          v[e] = fmaxf(hv, 0.f);
+        }
+      }
+      *reinterpret_cast<float2*>(chunk + swz(rl + 8 * r, col % KC)) = make_float2(v[0], v[1]);
+    }
+    asm volatile("" ::: "memory");
   }
   consumers_sync();
 
+  // the residuals of this thread's first row, loaded while the second product
+  // runs (both rows' would take 64 registers, and the relu form spilled)
+  float2 xres[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    xres[j] = row0 + rl < R ? *reinterpret_cast<const float2*>(
+                                  x + static_cast<size_t>(row0 + rl) * D + wg * (D / 2) + 8 * j + c)
+                            : make_float2(0.f, 0.f);
+
   // out = act W2^T for columns [128 wg, 128 wg + 128)
   float o[64];
-  int vs = 0;
-  uint32_t vph = 0;
-#pragma unroll 1
-  for (int t = 0; t < 2 * NCH; ++t) {
-    const int ch = t / 2, part = t % 2;
-    mbar_wait(v_full + 8 * vs, vph);
-    const uint8_t* achunk = sm + OFF_W1 + ch * A_BYTES;
-    const uint64_t db = sw128_desc(base + OFF_W2 + vs * W2_BYTES + wg * (W2_BYTES / 2), 1);
-#pragma unroll
-    for (int kk = 0; kk < KC / 8; ++kk) {
-      a_frag(achunk, rl, 8 * kk, q, fh[kk & 1], fl[kk & 1]);
-      wg_fence();
-      if (part == 0) {
-        wgmma_tf32_n128_rs(o, fl[kk & 1], db + 2 * kk, ch | kk);
-        wgmma_tf32_n128_rs(o, fh[kk & 1], db + 2 * kk, 1);
-      } else {
-        wgmma_tf32_n128_rs(o, fh[kk & 1], db + 2 * kk, 1);
-      }
-      wg_commit();
-      wg_wait<1>();
-      fence_regs(fh[(kk + 1) & 1]);
-      fence_regs(fl[(kk + 1) & 1]);
-    }
-    wg_wait<0>();
-    fence_regs(o);
-    fence_regs(fh[1]);
-    fence_regs(fl[1]);
-    mbar_arrive(v_empty + 8 * vs);
-    if (++vs == 2) {
-      vs = 0;
-      vph ^= 1;
-    }
+  {
+    Ring v;
+    product<128>(
+        o, v_full, base + OFF_W2, W2_BYTES, 2, wg * (W2_BYTES / 2), v,
+        [&](int ch) { return static_cast<const uint8_t*>(sm + OFF_W1 + ch * A_BYTES); },
+        [&](int stage) { mbar_arrive(v_empty + 8 * stage); }, rl, q);
   }
 
   // out = x + (o + b2), rows past the end not stored
@@ -632,9 +672,9 @@ ffn_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
       for (int j = 0; j < 16; ++j) {
         const int col = wg * (D / 2) + 8 * j + c;
         const float2 xv = *reinterpret_cast<const float2*>(x + static_cast<size_t>(row) * D + col);
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * D + col) =
-            make_float2(xv.x + (o[4 * j + 2 * r] + sb2[col]),
-                        xv.y + (o[4 * j + 2 * r + 1] + sb2[col + 1]));
+        __stcs(reinterpret_cast<float2*>(out + static_cast<size_t>(row) * D + col),
+               make_float2(xv.x + (o[4 * j + 2 * r] + sb2[col]),
+                           xv.y + (o[4 * j + 2 * r + 1] + sb2[col + 1])));
       }
     }
   }

@@ -268,21 +268,37 @@ qkv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUten
 // hi)), the bias and the rotary in f32 with f32 cos and sin. The weight comes
 // split once per model (hi then lo, (2, S 256, 256)).
 //
-// - One block takes 128 rows; the producer loads the f32 x tile once by TMA
-//   as eight 32-wide k-chunks in the 128-byte swizzle (128 KB, unsplit), then
-//   streams the weight through a ring of four 16 KB stages: a 32-wide chunk
-//   of 128 output rows, hi, then lo.
+// What bounds it: at (65536 rows, 256) in 3-section mode, three TF32
+// products (0.156 ms of the tensor cores) against 302 MB of f32 in and out
+// (0.090 ms). In the first design the epilogue took 37 % of the time
+// (probe_proj_f32.py's `no_epilogue`): cos / sin loaded from global memory
+// and 464 bytes of spills a thread, with the tensor cores idle; the drain at
+// every stage cost nothing measurable (`no_drain`). The design:
+//
+// - One block takes 128 rows. The producer streams stages of three boxes: a
+//   32-wide k-chunk of the x tile (16 KB, unsplit), and the same chunk of the
+//   pass's 128 weight rows, hi and lo (16 KB each), through a ring of three
+//   48 KB stages; the x tile is read again from L2 for each pass, which
+//   leaves room for the tile's cos and sin rows (64 KB in f32), loaded once
+//   by TMA as two 32-column boxes each, and for the bias (3 KB).
 // - Two consumer warpgroups, 64 rows each, read the A fragments of each
-//   8-deep step from the x tile, split them in registers and run wgmma
-//   m64n128k8 with A in registers (x lo.W hi and x hi.W hi on the hi stage,
-//   x hi.W lo on the lo stage) into 64 f32 registers a thread, two fragment
-//   sets in flight: one pass per 128 output columns.
+//   8-deep step from the stage's x chunk and split them in registers once for
+//   the three products: x lo.W hi and x hi.W hi step by step, then x hi.W lo
+//   for the chunk's four steps (the order of the earlier design, so the sums
+//   are the same bit for bit), wgmma m64n128k8 with A in registers into 64
+//   f32 registers a thread, one pass per 128 output columns. The hi
+//   fragments of two chunks alternate between two register sets; the
+//   products stay in flight across stages, and a stage is released once the
+//   next stage's first step has been committed and everything before it is
+//   done.
 // - The epilogue adds the bias, applies the rotary (each product and the sum
-//   rounded once, as the plain version's f32 arithmetic) and stores each
-//   thread's column pairs straight into the (B, H, N, 64) f32 outputs, cos
-//   and sin read from global memory: 8-byte stores that fill whole 32-byte
-//   sectors, with no staging tile (the x tile and the ring take the shared
-//   memory).
+//   rounded once, as the plain version's f32 arithmetic) with cos and sin
+//   from shared memory, and stores each thread's column pairs into the (B, H,
+//   N, 64) f32 outputs: 8-byte streaming stores (evict-first, so the outputs
+//   do not push the weights and the x tiles out of L2) that fill whole
+//   32-byte sectors. It runs under the next pass's products: the
+//   accumulators of two passes alternate, and a pass's tile goes out one
+//   8-column slice a chunk of the next pass, behind the chunk's first step.
 namespace qkv32 {
 
 constexpr int D = 256, HD = 64, HALF = 128, BM = 128;
@@ -291,11 +307,15 @@ constexpr int NCH = D / KC;            // 8 chunks per pass
 constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128;
 constexpr int X_BYTES = BM * KC * 4;   // 16 KB: a chunk of the x tile
 constexpr int W_BYTES = HALF * KC * 4; // 16 KB: a chunk of 128 weight rows (hi or lo)
-constexpr int STAGES = 4;
+constexpr int STAGE_BYTES = X_BYTES + 2 * W_BYTES;
+constexpr int STAGES = 3;
+constexpr int CS_BYTES = BM * 32 * 4;  // 16 KB: 32 columns of cos (or sin) of the tile's rows
 
-constexpr int OFF_X = 0;
-constexpr int OFF_W = OFF_X + NCH * X_BYTES;
-constexpr int OFF_BAR = OFF_W + STAGES * W_BYTES;  // u64: x, full[STAGES], empty[STAGES]
+// shared memory from a 1024-byte aligned base
+constexpr int OFF_RING = 0;
+constexpr int OFF_CS = OFF_RING + STAGES * STAGE_BYTES;  // cos d 0-31, 32-63; sin the same
+constexpr int OFF_BIAS = OFF_CS + 4 * CS_BYTES;          // f32 [S 256]
+constexpr int OFF_BAR = OFF_BIAS + 3 * D * 4;            // u64: cs, full[STAGES], empty[STAGES]
 constexpr int SMEM_BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
 
 // byte offset of element (row, k) of a chunk of 32 f32 columns in the
@@ -304,10 +324,144 @@ __device__ __forceinline__ int swz(int row, int k) {
   return row * 128 + ((((k >> 2) ^ row) & 7) << 4) + (k & 3) * 4;
 }
 
+// the ring's position and the stage the consumers hold back
+struct Pipe {
+  int stage = 0, held = -1;
+  uint32_t phase = 0;
+};
+
+// where one pass's epilogue writes: the section's output at the pass's first
+// head, the pass's bias in shared memory, and whether it takes the rotary
+struct Epi {
+  float* o;
+  const float* bias;
+  bool rot;
+};
+
+// a consumer thread's view of the block: shared memory, the ring's
+// barriers, its rows rt and rt + 8 of the tile, its lane's column pair c and
+// fragment column q, and its rows' offsets in the (B, H, N, 64) outputs at
+// head 0 (-1 past the end; heads `head` apart)
+struct Ctx {
+  const uint8_t* sm;
+  uint32_t base, bar_full, bar_empty;
+  int rt, q, c;
+  long long head;
+  long long rowoff[2];
+};
+
+// Chunk ch of a pass from the ring's next stage into `acc`: x lo.W hi and x
+// hi.W hi step by step, then x hi.W lo for the chunk's four steps, each x
+// fragment read from the stage and split once. The hi fragments stay in `fh`
+// until the chunk's lo products are done (the caller alternates two sets by
+// chunk: a set is rewritten two chunks on, after the first wait of the chunk
+// between has seen its products done); the stage before is released at this
+// chunk's first wait, and `then()` runs right after that release, with the
+// chunk's first step in flight.
+template <typename Then>
+__device__ __forceinline__ void chunk_products(float (&acc)[64], uint32_t (&fh)[4][4],
+                                               uint32_t (&fl)[2][4], int ch, Pipe& p,
+                                               const Ctx& cx, Then then) {
+  const int rt = cx.rt, q = cx.q;
+  mbar_wait(cx.bar_full + 8 * p.stage, p.phase);
+  const uint8_t* xc = cx.sm + OFF_RING + p.stage * STAGE_BYTES;
+  const uint64_t dh = sw128_desc(cx.base + OFF_RING + p.stage * STAGE_BYTES + X_BYTES, 1);
+  const uint64_t dl = dh + (W_BYTES >> 4);
+#pragma unroll
+  for (int kk = 0; kk < KC / 8; ++kk) {
+    const int k0 = 8 * kk + q;
+    const float xv[4] = {*reinterpret_cast<const float*>(xc + swz(rt, k0)),
+                         *reinterpret_cast<const float*>(xc + swz(rt + 8, k0)),
+                         *reinterpret_cast<const float*>(xc + swz(rt, k0 + 4)),
+                         *reinterpret_cast<const float*>(xc + swz(rt + 8, k0 + 4))};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(xv[i], fh[kk][i], fl[kk & 1][i]);
+    wg_fence();
+    wgmma_tf32_n128_rs(acc, fl[kk & 1], dh + 2 * kk, ch | kk);
+    wgmma_tf32_n128_rs(acc, fh[kk], dh + 2 * kk, 1);
+    wg_commit();
+    wg_wait<1>();
+    fence_regs(fl[(kk + 1) & 1]);
+    // the stage before is done: its x read, its products complete
+    if (kk == 0) {
+      if (p.held >= 0) mbar_arrive(cx.bar_empty + 8 * p.held);
+      then();
+    }
+  }
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < KC / 8; ++kk) wgmma_tf32_n128_rs(acc, fh[kk], dl + 2 * kk, 1);
+  wg_commit();
+  p.held = p.stage;
+  if (++p.stage == STAGES) {
+    p.stage = 0;
+    p.phase ^= 1;
+  }
+}
+
+// Columns (d, d + 1), d = 8 jj + c, of both heads of a pass's 64 x 128 tile
+// in `a`, for this thread's rows: + bias, the rotary (each product and the
+// sum rounded once, as the plain version's f32 arithmetic) with cos and sin
+// from shared memory, stored into the (B, H, N, 64) layout.
+__device__ __forceinline__ void store_slice(const float (&a)[64], int jj, const Epi& ep,
+                                            const Ctx& cx) {
+  const int d = 8 * jj + cx.c;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (cx.rowoff[r] < 0) continue;
+    float2 cs = make_float2(1.f, 1.f), sn = make_float2(0.f, 0.f);
+    if (ep.rot) {
+      const int off = (d / 32) * CS_BYTES + swz(cx.rt + 8 * r, d % 32);
+      cs = *reinterpret_cast<const float2*>(cx.sm + OFF_CS + off);
+      sn = *reinterpret_cast<const float2*>(cx.sm + OFF_CS + 2 * CS_BYTES + off);
+    }
+#pragma unroll
+    for (int h = 0; h < HALF / HD; ++h) {
+      const int j = 8 * h + jj;
+      const float2 bv = *reinterpret_cast<const float2*>(ep.bias + HD * h + d);
+      const float y0 = a[4 * j + 2 * r] + bv.x;
+      const float y1 = a[4 * j + 2 * r + 1] + bv.y;
+      float2 v = make_float2(y0, y1);
+      if (ep.rot) {
+        v.x = __fadd_rn(__fmul_rn(y0, cs.x), __fmul_rn(-y1, sn.x));
+        v.y = __fadd_rn(__fmul_rn(y1, cs.y), __fmul_rn(y0, sn.y));
+      }
+      __stcs(reinterpret_cast<float2*>(ep.o + cx.rowoff[r] + h * cx.head + d), v);
+    }
+  }
+}
+
+// One pass's products into `acc` (a stage a chunk, the accumulator
+// overwritten by the first product) while, when `store`, the pass before
+// (`done`) is stored a slice a chunk, behind the chunk's first step and after
+// the release of the stage before (an arrival orders the thread's earlier
+// stores: so a slice's stores have a chunk's time to drain before the next
+// release); then the wait for them all and the last stage's release.
+__device__ __forceinline__ void run_pass(float (&acc)[64], const float (&done)[64], bool store,
+                                         const Epi& ep, Pipe& p, uint32_t (&fa)[4][4],
+                                         uint32_t (&fb)[4][4], uint32_t (&fl)[2][4],
+                                         const Ctx& cx) {
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) {
+    chunk_products(acc, (ch & 1) ? fb : fa, fl, ch, p, cx, [&] {
+      if (store) store_slice(done, ch, ep, cx);
+    });
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int kk = 0; kk < KC / 8; ++kk) {
+    fence_regs(fa[kk]);
+    fence_regs(fb[kk]);
+  }
+  mbar_arrive(cx.bar_empty + 8 * p.held);
+  p.held = -1;
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
 qkv_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
-             const float* __restrict__ bias, const float* __restrict__ cosv,
-             const float* __restrict__ sinv, float* __restrict__ out0, float* __restrict__ out1,
+             const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CUtensorMap smap,
+             const float* __restrict__ bias, float* __restrict__ out0, float* __restrict__ out1,
              float* __restrict__ out2, int R, int N, int sections, int rot_mask) {
   extern __shared__ __align__(1024) uint8_t dyn_smem[];
   const int tid = threadIdx.x;
@@ -315,14 +469,14 @@ qkv_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
   const uint32_t pad = (1024u - (base & 1023u)) & 1023u;
   uint8_t* sm = dyn_smem + pad;
   base += pad;
-  const uint32_t bar_x = base + OFF_BAR;
-  const uint32_t bar_full = bar_x + 8;                // + 8 * stage
+  const uint32_t bar_cs = base + OFF_BAR;
+  const uint32_t bar_full = bar_cs + 8;               // + 8 * stage
   const uint32_t bar_empty = bar_full + 8 * STAGES;   // + 8 * stage
   const int row0 = blockIdx.x * BM;
   const int passes = sections * (D / HALF);
 
   if (tid == 0) {
-    mbar_init(bar_x, 1);
+    mbar_init(bar_cs, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, CONSUMERS);
@@ -335,19 +489,25 @@ qkv_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
     // ---------------- producer warpgroup: one thread issues ---------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == CONSUMERS) {
-      mbar_arrive_tx(bar_x, NCH * X_BYTES);
-      for (int ch = 0; ch < NCH; ++ch)
-        tma_load_2d(base + OFF_X + ch * X_BYTES, &xmap, bar_x, ch * KC, row0);
+      if (rot_mask) {
+        mbar_arrive_tx(bar_cs, 4 * CS_BYTES);
+        for (int h = 0; h < 2; ++h) {
+          tma_load_2d(base + OFF_CS + h * CS_BYTES, &cmap, bar_cs, 32 * h, row0);
+          tma_load_2d(base + OFF_CS + (2 + h) * CS_BYTES, &smap, bar_cs, 32 * h, row0);
+        }
+      }
       int stage = 0;
       uint32_t phase = 0;
-      // stage t: chunk (t / 2) % 8 of pass t / 16's 128 rows, hi (t even) or
-      // lo (the rows sections * 256 on)
-      for (int t = 0; t < passes * NCH * 2; ++t) {
+      // stage t: chunk t % 8 of the x tile and of pass t / 8's 128 weight
+      // rows, hi and lo (the rows sections * 256 on)
+      for (int t = 0; t < passes * NCH; ++t) {
         mbar_wait(bar_empty + 8 * stage, phase ^ 1);
-        const uint32_t full = bar_full + 8 * stage;
-        mbar_arrive_tx(full, W_BYTES);
-        tma_load_2d(base + OFF_W + stage * W_BYTES, &wmap, full, ((t / 2) % NCH) * KC,
-                    (t % 2) * sections * D + (t / (2 * NCH)) * HALF);
+        const uint32_t full = bar_full + 8 * stage, dst = base + OFF_RING + stage * STAGE_BYTES;
+        const int k0 = (t % NCH) * KC, w0 = (t / NCH) * HALF;
+        mbar_arrive_tx(full, STAGE_BYTES);
+        tma_load_2d(dst, &xmap, full, k0, row0);
+        tma_load_2d(dst + X_BYTES, &wmap, full, k0, w0);
+        tma_load_2d(dst + X_BYTES + W_BYTES, &wmap, full, k0, sections * D + w0);
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -363,79 +523,44 @@ qkv_f32_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
   const int c = (lane % 4) * 2, q = lane % 4;
   const int rl = warp * 16 + lane / 4;  // this thread's rows rl, rl + 8 of the 64
   const int rt = wg * 64 + rl;          // the same rows of the tile
+  float* sbias = reinterpret_cast<float*>(sm + OFF_BIAS);
+  for (int i = tid; i < sections * D; i += CONSUMERS) sbias[i] = bias[i];
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
 
-  int stage = 0;
-  uint32_t phase = 0;
-  uint32_t fh[2][4], fl[2][4];
-  mbar_wait(bar_x, 0);
-#pragma unroll 1
-  for (int pass = 0; pass < passes; ++pass) {
+  Ctx cx{sm, base, bar_full, bar_empty, rt, q, c, static_cast<long long>(N) * HD, {-1, -1}};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int grow = row0 + rt + 8 * r;
+    if (grow < R)
+      cx.rowoff[r] = (static_cast<long long>(grow / N) * (D / HD) * N + grow % N) * HD;
+  }
+  auto epi = [&](int pass) {
     const int sec = pass / (D / HALF), col0 = (pass % (D / HALF)) * HALF;
-    float acc[64];
-#pragma unroll 1
-    for (int t = 0; t < 2 * NCH; ++t) {
-      const int ch = t / 2, part = t % 2;
-      mbar_wait(bar_full + 8 * stage, phase);
-      const uint8_t* xc = sm + OFF_X + ch * X_BYTES;
-      const uint64_t db = sw128_desc(base + OFF_W + stage * W_BYTES, 1);
-#pragma unroll
-      for (int kk = 0; kk < KC / 8; ++kk) {
-        const int k0 = 8 * kk + q;
-        const float xv[4] = {*reinterpret_cast<const float*>(xc + swz(rt, k0)),
-                             *reinterpret_cast<const float*>(xc + swz(rt + 8, k0)),
-                             *reinterpret_cast<const float*>(xc + swz(rt, k0 + 4)),
-                             *reinterpret_cast<const float*>(xc + swz(rt + 8, k0 + 4))};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) split_tf32(xv[i], fh[kk & 1][i], fl[kk & 1][i]);
-        wg_fence();
-        if (part == 0) {
-          wgmma_tf32_n128_rs(acc, fl[kk & 1], db + 2 * kk, ch | kk);
-          wgmma_tf32_n128_rs(acc, fh[kk & 1], db + 2 * kk, 1);
-        } else {
-          wgmma_tf32_n128_rs(acc, fh[kk & 1], db + 2 * kk, 1);
-        }
-        wg_commit();
-        wg_wait<1>();
-        fence_regs(fh[(kk + 1) & 1]);
-        fence_regs(fl[(kk + 1) & 1]);
-      }
-      wg_wait<0>();
-      fence_regs(acc);
-      fence_regs(fh[1]);
-      fence_regs(fl[1]);
-      mbar_arrive(bar_empty + 8 * stage);
-      if (++stage == STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-
-    // + bias, the rotary, stored into the (B, H, N, 64) layout
-    const bool rot = (rot_mask >> sec) & 1;
     float* o = sec == 0 ? out0 : sec == 1 ? out1 : out2;
-    const float* bp = bias + sec * D + col0;
+    return Epi{o + (col0 / HD) * cx.head, sbias + sec * D + col0, ((rot_mask >> sec) & 1) != 0};
+  };
+
+  // Each pass's products run while the pass before is stored, a slice after
+  // each chunk, so the stores spread over the tensor cores' work; the
+  // accumulators of two passes alternate.
+  Pipe p;
+  uint32_t fa[4][4], fb[4][4], fl[2][4];
+  float acc_a[64], acc_b[64];
+  run_pass(acc_a, acc_b, false, epi(0), p, fa, fb, fl, cx);
+  if (rot_mask) mbar_wait(bar_cs, 0);
+#pragma unroll 1
+  for (int pass = 1;; pass += 2) {
+    run_pass(acc_b, acc_a, true, epi(pass - 1), p, fa, fb, fl, cx);
+    if (pass + 1 == passes) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int grow = row0 + rt + 8 * r;
-      if (grow >= R) continue;
-      const int bb = grow / N, n = grow % N;
+      for (int jj = 0; jj < HD / 8; ++jj) store_slice(acc_b, jj, epi(pass), cx);
+      break;
+    }
+    run_pass(acc_a, acc_b, true, epi(pass), p, fa, fb, fl, cx);
+    if (pass + 2 == passes) {
 #pragma unroll
-      for (int j = 0; j < HALF / 8; ++j) {
-        const int col = 8 * j + c, d = col % HD;
-        const float y0 = acc[4 * j + 2 * r] + bp[col];
-        const float y1 = acc[4 * j + 2 * r + 1] + bp[col + 1];
-        float2 v = make_float2(y0, y1);
-        if (rot) {
-          const size_t at = static_cast<size_t>(grow) * HD + d;
-          const float2 cs = *reinterpret_cast<const float2*>(cosv + at);
-          const float2 sn = *reinterpret_cast<const float2*>(sinv + at);
-          v.x = __fadd_rn(__fmul_rn(y0, cs.x), __fmul_rn(-y1, sn.x));
-          v.y = __fadd_rn(__fmul_rn(y1, cs.y), __fmul_rn(y0, sn.y));
-        }
-        const int head = (col0 + col) / HD;
-        *reinterpret_cast<float2*>(
-            o + ((static_cast<size_t>(bb) * (D / HD) + head) * N + n) * HD + d) = v;
-      }
+      for (int jj = 0; jj < HD / 8; ++jj) store_slice(acc_a, jj, epi(pass + 1), cx);
+      break;
     }
   }
 }
@@ -481,9 +606,9 @@ extern "C" int dim_qkv_rotary_bf16(int device, const void* x, const void* w,
 // The float32 form: x (B N, 256) f32; w (2, S 256, 256) f32, the TF32 hi and
 // lo halves of the section-contiguous nn.Linear weight
 // (ops/qkv.py::weights_tf32); bias (S 256,) f32; cos, sin (B N, 64) f32 (may
-// be null when rot_mask is 0); x and w 16-byte aligned, cos and sin 8-byte
-// aligned; out0..out{S-1} (B, 4, N, 64) f32 (unused ones null). sections and
-// rot_mask as for dim_qkv_rotary_bf16.
+// be null when rot_mask is 0); x, w, cos and sin 16-byte aligned;
+// out0..out{S-1} (B, 4, N, 64) f32 (unused ones null). sections and rot_mask
+// as for dim_qkv_rotary_bf16.
 extern "C" int dim_qkv_rotary_f32(int device, const void* x, const void* w, const void* bias,
                                   const void* cosv, const void* sinv, void* out0, void* out1,
                                   void* out2, int R, int N, int sections, int rot_mask,
@@ -493,21 +618,24 @@ extern "C" int dim_qkv_rotary_f32(int device, const void* x, const void* w, cons
   if (err != cudaSuccess) return static_cast<int>(err);
   if (sections < 1 || sections > 3 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (R <= 0) return 0;
-  CUtensorMap xm, wm;
+  CUtensorMap xm, wm, cos_map = {}, sin_map = {};
   const uint64_t xdims[2] = {k::D, static_cast<uint64_t>(R)};
-  const uint32_t xbox[2] = {k::KC, k::BM};
+  const uint32_t box[2] = {k::KC, k::BM};  // BM = HALF = 128 rows
   const uint64_t wdims[2] = {k::D, 2 * static_cast<uint64_t>(sections) * k::D};
-  const uint32_t wbox[2] = {k::KC, k::HALF};
-  int rc = encode_sw128(&xm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, 2, xdims, xbox);
-  if (rc == 0) rc = encode_sw128(&wm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, w, 2, wdims, wbox);
+  const uint64_t cdims[2] = {k::HD, static_cast<uint64_t>(R)};
+  int rc = encode_sw128(&xm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, 2, xdims, box);
+  if (rc == 0) rc = encode_sw128(&wm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, w, 2, wdims, box);
+  if (rc == 0 && rot_mask)
+    rc = encode_sw128(&cos_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, cosv, 2, cdims, box);
+  if (rc == 0 && rot_mask)
+    rc = encode_sw128(&sin_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, sinv, 2, cdims, box);
   if (rc != 0) return rc;
   err = cudaFuncSetAttribute(k::qkv_f32_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              k::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   k::qkv_f32_sm90<<<(R + k::BM - 1) / k::BM, k::THREADS, k::SMEM_BYTES,
                     static_cast<cudaStream_t>(stream)>>>(
-      xm, wm, static_cast<const float*>(bias), static_cast<const float*>(cosv),
-      static_cast<const float*>(sinv), static_cast<float*>(out0), static_cast<float*>(out1),
-      static_cast<float*>(out2), R, N, sections, rot_mask);
+      xm, wm, cos_map, sin_map, static_cast<const float*>(bias), static_cast<float*>(out0),
+      static_cast<float*>(out1), static_cast<float*>(out2), R, N, sections, rot_mask);
   return static_cast<int>(cudaGetLastError());
 }

@@ -195,9 +195,12 @@ def test_attention_refuses_other_head_dims(cuda):
             tattn.fused_attention(q, q, q, None, None, 0.1)
 
 
-# (B, K): fewer rows than one 64-row tile, a ragged last tile (231 rows),
-# and SuperGlue's 16 x 4096 rows
-FFN_CASES = {"short": (1, 40), "ragged": (3, 77), "superglue": (16, 4096)}
+# (B, K): fewer rows than one 64-row tile, a ragged last tile (231 rows, not
+# a multiple of 8), a last tile of one row (129 rows: the float32 form's
+# third W1 stage, where W2 goes, is still read by the tile before), and
+# SuperGlue's 16 x 4096 rows
+FFN_CASES = {"short": (1, 40), "ragged": (3, 77), "tail_row": (1, 129),
+             "superglue": (16, 4096)}
 
 
 @pytest.mark.parametrize("case", list(FFN_CASES))
@@ -661,8 +664,11 @@ def test_bidir_attention_kernel_matches_plain(cuda, nan_shared, dtype, case):
 
 
 # (B, N): fewer rows than one 128-row tile; 2 x 100 rows, whose tiles
-# straddle two images; 3 x 300 rows, a ragged last tile and straddling tiles
-QKV_CASES = {"short": (1, 40), "straddle": (2, 100), "ragged": (3, 300)}
+# straddle two images; 3 x 300 rows, a ragged last tile and straddling tiles;
+# a last tile of one row (129 rows); 3 x 37 rows, one tile over three images
+# with a row count not a multiple of 8
+QKV_CASES = {"short": (1, 40), "straddle": (2, 100), "ragged": (3, 300),
+             "tail_row": (1, 129), "straddle_odd": (3, 37)}
 
 
 @pytest.mark.parametrize("case", list(QKV_CASES))

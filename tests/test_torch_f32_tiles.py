@@ -63,6 +63,28 @@ def chunked_product(a: torch.Tensor, w: torch.Tensor, terms: str = "split") -> t
     return out
 
 
+def stepped_product(a: torch.Tensor, w: torch.Tensor, terms: str = "split") -> torch.Tensor:
+    """The same product in the order the kernels' accumulators take it, one
+    8-deep wgmma step at a time: in each 32-deep chunk, A lo.W hi then A hi.W
+    hi for each of the four steps, then A hi.W lo for each ("split"); or the
+    hi one alone ("tf32")."""
+    out = torch.zeros(a.shape[0], w.shape[0])
+    for k0 in range(0, a.shape[1], KC):
+        steps = []
+        for s0 in range(k0, k0 + KC, 8):
+            ac, wc = a[:, s0:s0 + 8], w[:, s0:s0 + 8]
+            ah, wh = rna_tf32(ac), rna_tf32(wc)
+            steps.append((ah, wh, rna_tf32(ac - ah), rna_tf32(wc - wh)))
+        for ah, wh, al, _ in steps:
+            if terms == "split":
+                out = out + al @ wh.T
+            out = out + ah @ wh.T
+        if terms == "split":
+            for ah, _, _, wl in steps:
+                out = out + ah @ wl.T
+    return out
+
+
 def _err(got, ref) -> float:
     return float(np.abs(np.asarray(got) - np.asarray(ref)).max() / np.abs(np.asarray(ref)).max())
 
@@ -99,14 +121,14 @@ def _ffn_inputs(seed, B=2, K=192, D=256):
     return x, msg, w1, b1, g, beta, w2, b2
 
 
-def tiled_ffn(x, msg, w1, b1, g, beta, w2, b2, mode, terms="split"):
+def tiled_ffn(x, msg, w1, b1, g, beta, w2, b2, mode, terms="split", product=chunked_product):
     """The float32 kernel's arithmetic on (B, K, D) inputs: h = [x | msg]
-    W1^T in split TF32 chunk by chunk, + b1, LayerNorm (eps 1e-5) and the
-    exact GELU (or the relu) in f32, the f32 activation times W2^T in split
-    TF32, + b2, + x."""
+    W1^T in split TF32 chunk by chunk (``product``), + b1, LayerNorm (eps
+    1e-5) and the exact GELU (or the relu) in f32, the f32 activation times
+    W2^T in split TF32, + b2, + x."""
     B, K, D = x.shape
     a = torch.cat([x, msg], -1).reshape(-1, 2 * D)
-    h = chunked_product(a, w1, terms) + b1
+    h = product(a, w1, terms) + b1
     if mode == "relu":
         act = torch.relu(h)
     else:
@@ -114,7 +136,7 @@ def tiled_ffn(x, msg, w1, b1, g, beta, w2, b2, mode, terms="split"):
         var = ((h - mu) ** 2).mean(-1, keepdim=True)
         hn = (h - mu) * torch.rsqrt(var + 1e-5) * g + beta
         act = 0.5 * hn * (1.0 + torch.erf(hn * 0.7071067811865476))
-    out = x.reshape(-1, D) + (chunked_product(act, w2, terms) + b2)
+    out = x.reshape(-1, D) + (product(act, w2, terms) + b2)
     return out.reshape(B, K, D)
 
 
@@ -158,13 +180,13 @@ def _qkv_inputs(seed, sections, B=2, N=128, D=256):
     return x, w, b, cos, sin
 
 
-def tiled_qkv(x, w, b, cos, sin, sections, rot, terms="split"):
+def tiled_qkv(x, w, b, cos, sin, sections, rot, terms="split", product=chunked_product):
     """The float32 kernel's arithmetic: y = x W^T in split TF32 chunk by
-    chunk, + b in f32, split into (B, H, N, hd) heads per section, the rotary
-    t cos + rotate_half(y) sin in f32 (each product and the sum rounded once)
-    on the sections in ``rot``."""
+    chunk (``product``), + b in f32, split into (B, H, N, hd) heads per
+    section, the rotary t cos + rotate_half(y) sin in f32 (each product and
+    the sum rounded once) on the sections in ``rot``."""
     B, N, D = x.shape
-    y = chunked_product(x.reshape(-1, D), w, terms) + b
+    y = product(x.reshape(-1, D), w, terms) + b
     outs = []
     for s in range(sections):
         t = y[:, s * D:(s + 1) * D].reshape(B, N, H, D // H).transpose(1, 2)
@@ -196,6 +218,29 @@ def test_one_tf32_product_leaves_the_qkv_tolerance():
     ref = _jax_qkv(args, 3, (0, 1))
     one = tiled_qkv(*(torch.from_numpy(a) for a in args), 3, (0, 1), terms="tf32")
     assert max(_err(g, r) for g, r in zip(one, ref)) > 4 * TOL
+
+
+@pytest.mark.parametrize("kernel,mode", [("ffn", "ln_gelu"), ("ffn", "relu"), ("qkv", "self"),
+                                         ("qkv", "cross")])
+def test_step_order_meets_pallas_kernels(kernel, mode):
+    """Both float32 kernels keep the accumulation order of their first design
+    (their outputs equal the earlier kernels' bit for bit on the card): per
+    32-deep chunk, lo.hi and hi.hi step by step, then hi.lo. In that order,
+    step by step, the split products meet the Pallas kernels within 1e-5 of
+    max|out|, and one TF32 product in their place does not."""
+    if kernel == "ffn":
+        args = _ffn_inputs(5)
+        ref = [_jax_ffn(args, mode)]
+        run = lambda terms: [tiled_ffn(*(torch.from_numpy(a) for a in args), mode,  # noqa: E731
+                                       terms, product=stepped_product)]
+    else:
+        sections, rot = (3, (0, 1)) if mode == "self" else (2, ())
+        args = _qkv_inputs(6, sections)
+        ref = _jax_qkv(args, sections, rot)
+        run = lambda terms: tiled_qkv(*(torch.from_numpy(a) for a in args),  # noqa: E731
+                                      sections, rot, terms, product=stepped_product)
+    assert max(_err(g, r) for g, r in zip(run("split"), ref)) <= TOL
+    assert max(_err(g, r) for g, r in zip(run("tf32"), ref)) > 4 * TOL
 
 
 # ---------------------------------------------------------------------------
