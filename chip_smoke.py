@@ -54,6 +54,8 @@ Phases, each printing its own lines:
      0.1; two views are shifted copies of the first, whose verified matches
      must carry the shift), then the 5 demo images with the default
      ``matching_lowres`` strategy and default settings;
+   - superpoint+lightglue_fast (7 layers, 1024 keypoints, adaptive depth and
+     width) on the synthetic views, match threshold 0;
    - superpoint+superglue on the synthetic views (``bruteforce``, match
      threshold 0);
    - superpoint+kornia_matcher on the synthetic views (the shifted copies
@@ -140,7 +142,18 @@ Phases, each printing its own lines:
      the CPU on a 24 MP view's tiles, and kernels 1 and 3 against their plain
      versions on a batch of tile-pair jobs gathered from the tiled store
      (masks scattered over the capacity);
-7. reconstruction, the main path's stage 5 (no exception caught):
+7. the device mesh (``parallel/mesh.py``) over ``cuda:0`` named twice
+   (``phase_mesh``), each run once on one device and once on the mesh with
+   the launch counts set to 0 just before the mesh run and read just after,
+   features.h5, raw_matches.h5, matches.h5 and database.db bit-equal, both
+   walls printed: superpoint+lightglue on the 16 synthetic views (bf16, the
+   preset's adaptive depth and width, device RANSAC; match threshold 0),
+   superpoint+kornia_matcher on them in chunks of 15 pairs (each padded to
+   16), ``--tiling grid`` with superpoint+lightglue on the demo images; then
+   a LoFTR step (4 pairs of 256 x 256 crops, seeded weights) split over the
+   slots against one device: masks and coarse cells equal, fine coordinates
+   and confidences within ``MESH_LOFTR_PX`` / ``MESH_LOFTR_CONF``;
+8. reconstruction, the main path's stage 5 (no exception caught):
    - bundle adjustment alone at 64 poses, 8192 points and ~262k observations
      (``ba_scene``: perturbed as ``tests/test_sfm.py`` perturbs its scene):
      the mapper's default solve on the card down to under 1.5 x the injected
@@ -157,14 +170,14 @@ Phases, each printing its own lines:
      database within 2 % of the CPU's points; the model's files), and the
      default superpoint+lightglue (``matching_lowres``), which must end on
      the card as on the CPU; each with its kernels' launches counted;
-8. retrieval pairs (``phase_retrieval``): NetVLAD, OpenIBL, CosPlace, DIR
+9. retrieval pairs (``phase_retrieval``): NetVLAD, OpenIBL, CosPlace, DIR
    and the tiny descriptor at their published widths (seeded checkpoints in
    their files' own layouts, ``retrieval_weights``) on the 16 synthetic
    views, on the card (warm wall, device busy) against the CPU (descriptors
    within RETRIEVAL_TOL, top-10 pairs equal but for near-ties), then
    ``run_matching --strategy retrieval --global_feature netvlad`` with
    superpoint+lightglue, kernels 1-4 counted;
-9. ``--upright`` (``phase_upright``) on the 5 demo images plus three copies
+10. ``--upright`` (``phase_upright``) on the 5 demo images plus three copies
    of the first rotated by 90, 180 and 270 degrees (lossless PNG): the
    2clusters probe on the card and on the CPU must recover the planted
    rotations, launching kernel 5 twice an image; kernel 5 against its plain
@@ -173,7 +186,7 @@ Phases, each printing its own lines:
    (``rotations.txt``) and ``2clusters`` (kernel 5 counted): the upright
    copies equal the reference's pixels, and features.h5 holds each copy's
    keypoints, the reference's rotated into its frame, with its image_size;
-10. the exports (``phase_exports``) on the sift+kornia_matcher demo run of
+11. the exports (``phase_exports``) on the sift+kornia_matcher demo run of
    stage 5: Bundler, Metashape, MicMac with its import back to h5, OpenMVG
    and the view graph, their files and tie-point counts against matches.h5
    and database.db, with no device event; then ``run_matching --openmvg``.
@@ -2114,6 +2127,10 @@ PATHS = {
     "superpoint+lightglue": (("attention", "ffn", "assignment", "nullspace"), (
         ("synthetic16", "bruteforce", "threshold0", 256, False),
         ("demo5", "matching_lowres", "default", 256, False))),
+    # the main path's preset at 7 layers and 1024 keypoints, its adaptive
+    # depth and width on kernels 1-4
+    "superpoint+lightglue_fast": (("attention", "ffn", "assignment", "nullspace"), (
+        ("synthetic16", "bruteforce", "threshold0", 256, False),)),
     "superpoint+superglue": (("attention", "ffn", "sinkhorn", "nullspace"), (
         ("synthetic16", "bruteforce", "superglue0", 256, False),)),
     "superpoint+kornia_matcher": (("nn", "nullspace"), (
@@ -2399,14 +2416,23 @@ def loftr_weights(wdir: Path, seed: int = 0) -> dict:
         for init, coarse, name in ((loftr.init_params, "l3_out", "loftr_outdoor.ckpt"),
                                    (se2loftr.init_params, "l3_triv",
                                     "se2loftr_8rot_exported.pth")):
-            p = init(torch.Generator().manual_seed(seed))
-            p["backbone"][coarse]["w"] = p["backbone"][coarse]["w"] * 0.2
-            p["fine_pre"]["merge_feat"]["w"] = p["fine_pre"]["merge_feat"]["w"] * 0.1
-            for lp in p["fine"]:
-                for ln in ("ln1", "ln2"):
-                    lp[ln]["g"] = lp[ln]["g"] * 0.1
-            torch.save(loftr_state_dict(p), wdir / name)
+            torch.save(loftr_state_dict(seeded_loftr_params(init, coarse, seed)), wdir / name)
     return {"DIM_TPU_WEIGHTS_DIR": str(wdir)}
+
+
+def seeded_loftr_params(init, coarse: str = "l3_out", seed: int = 0) -> dict:
+    """The tree of ``loftr_weights``' checkpoints: ``init`` drawn from a
+    seeded generator, the coarse output projection ``coarse`` scaled by 0.2,
+    the fine stage's input projection and layer norms by 0.1."""
+    import torch
+
+    p = init(torch.Generator().manual_seed(seed))
+    p["backbone"][coarse]["w"] = p["backbone"][coarse]["w"] * 0.2
+    p["fine_pre"]["merge_feat"]["w"] = p["fine_pre"]["merge_feat"]["w"] * 0.1
+    for lp in p["fine"]:
+        for ln in ("ln1", "ln2"):
+            lp[ln]["g"] = lp[ln]["g"] * 0.1
+    return p
 
 
 def alike_state_dict(model_name: str = "alike-n", seed: int = 0) -> dict:
@@ -3371,6 +3397,172 @@ def phase_tiled(card: str) -> dict:
     _tiled_steps_bitwise(p24, card)
     _tiled_kernel_masks(out2048, jobs2048, card)
     print(f"[tiled] phase wall {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the device mesh (parallel/mesh.py) over cuda:0 named twice
+# ---------------------------------------------------------------------------
+
+MESH_DEVICES = ("cuda:0", "cuda:0")
+MESH_FILES = ("features.h5", "raw_matches.h5", "matches.h5", "database.db")
+_MESH_BASE = "general:\n  allow_random_weights: true\n{general}  tpu:\n    device: cuda\n{tpu}"
+# label -> (pipeline, project, tiling, YAML, descriptor width, kernels that
+# must launch): the main path at full width (bf16, the preset's adaptive depth
+# and width, device RANSAC on kernel 4; match threshold 0, since random
+# weights never reach 0.1), kornia in chunks of 15 pairs (each padded to 16),
+# and the tiled matcher's tile-pair jobs
+MESH_RUNS = {
+    "superpoint+lightglue (mesh)": (
+        "superpoint+lightglue", "synthetic16", "none",
+        _MESH_BASE.format(general="", tpu="") + "matcher:\n  filter_threshold: 0.0\n", 256,
+        ("attention", "ffn", "assignment", "nullspace")),
+    "superpoint+kornia_matcher (mesh)": (
+        "superpoint+kornia_matcher", "synthetic16", "none",
+        _MESH_BASE.format(general="", tpu="    match_batch_size: 15\n"), 256,
+        ("nn", "nullspace")),
+    "superpoint+lightglue --tiling grid (mesh, demo5, tiles 400 x 300)": (
+        "superpoint+lightglue", "demo5", "grid",
+        _MESH_BASE.format(general="  tile_size: [400, 300]\n  tile_overlap: 20\n", tpu="")
+        + "matcher:\n  filter_threshold: 0.0\n", 256,
+        ("attention", "ffn", "assignment", "nullspace")),
+}
+# the LoFTR step's f32 sums on the card are ordered by the batch's shape
+# (``probe_batch_shapes.py``), so a slot of two pairs rounds apart from the
+# batch of four: the fine coordinates are held to this many pixels and the
+# confidences to this much (the masks and the coarse cells exactly)
+MESH_LOFTR_PX, MESH_LOFTR_CONF = 5e-3, 1e-4
+
+
+def _mesh_run(i, label, root, card):
+    """One row of ``MESH_RUNS`` four times: on one device, on the mesh
+    (``_DEFAULT_MESH``), on the mesh, on one device, the first mesh run's
+    launches counted from 0 just before it to just after; every run's files
+    must equal the first's bit for bit. Returns the counted launches."""
+    import filecmp
+
+    import torch
+
+    from deep_image_matching_tpu_torch.ops import _lib
+    from deep_image_matching_tpu_torch.parallel import mesh as mesh_mod
+
+    pipeline, proj_name, tiling, text, dim, needed = MESH_RUNS[label]
+    proj = WORK / proj_name
+    cfg = root / f"run{i}.yaml"
+    cfg.write_text(text)
+    outs, walls = [], {"one device": [], "mesh": []}
+    for k, mode in enumerate(("one device", "mesh", "mesh", "one device")):
+        mesh_mod._DEFAULT_MESH = mesh_mod.MeshRunner(MESH_DEVICES if mode == "mesh"
+                                                     else ("cuda:0",))
+        try:
+            torch.cuda.synchronize()
+            _lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs.append(_run(pipeline, proj, "bruteforce", cfg, root / "out" / f"{cfg.stem}_{k}",
+                             tiling))
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+        finally:
+            mesh_mod._DEFAULT_MESH = None
+        if k == 1:
+            launches = dict(_lib.LAUNCHES)
+    differ = [(k, f) for k in (1, 2, 3) for f in MESH_FILES
+              if not filecmp.cmp(outs[0] / f, outs[k] / f, shallow=False)]
+    if differ:
+        _fail(f"{label}: files differ from the first one-device run's (run, file): {differ}")
+    names = sorted(p.name for p in (proj / "images").iterdir())
+    summary, _ = _check_outputs(outs[1], names, len(names) * (len(names) - 1) // 2, dim)
+    one, two = walls["one device"], walls["mesh"]
+    print(f"[mesh] {label}: {summary}; {', '.join(MESH_FILES)} bit-equal to the one-device "
+          f"run's; run_matching walls one device, mesh, mesh, one device: {one[0]:.3f}, "
+          f"{two[0]:.3f}, {two[1]:.3f}, {one[1]:.3f} s ({len(MESH_DEVICES)} slots on "
+          f"{len(set(MESH_DEVICES))} card(s); slots on one card run one after the other) "
+          f"[{card}]", flush=True)
+    print(f"[mesh] {label}: kernel launches {launches}", flush=True)
+    missing = [k for k in needed if launches[k] == 0]
+    if missing:
+        _fail(f"{label}: kernels {missing} of its path were never launched")
+    return launches
+
+
+def _mesh_loftr_step(card) -> None:
+    """The detector-free step over the mesh (``__graft_entry__``'s stage 3):
+    LoFTR on four pairs of 256 x 256 crops of one smooth texture (the second
+    shifted by (8, 4) px), seeded weights, the images split over the slots,
+    the weights replicated once per distinct device, the outputs gathered,
+    against the same step on one device."""
+    import numpy as np
+    import torch
+
+    from deep_image_matching_tpu_torch.models import loftr
+    from deep_image_matching_tpu_torch.parallel.mesh import MeshRunner
+    from deep_image_matching_tpu_torch.utils.device import to_device
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(3)
+    base = rng.random((300, 300)).astype(np.float32)
+    k = np.ones(5, np.float32) / 5.0
+    for _ in range(2):
+        base = np.apply_along_axis(lambda r: np.convolve(r, k, mode="same"), 1, base)
+        base = np.apply_along_axis(lambda c: np.convolve(c, k, mode="same"), 0, base)
+    im0 = torch.from_numpy(np.stack([base[j:j + 256, :256] for j in range(4)])[..., None].copy())
+    im1 = torch.from_numpy(np.stack([base[j + 4:j + 260, 8:264] for j in range(4)])[..., None]
+                           .copy())
+    params = to_device(seeded_loftr_params(loftr.init_params), dev)
+
+    def step(p, a, b):
+        return loftr.match_pair(p, a, b, max_matches=1024, threshold=0.0)
+
+    mesh = MeshRunner(MESH_DEVICES)
+    weights = mesh.replicate(params, dev)
+
+    def on_mesh():
+        outs = [step(weights[d], a, b)
+                for (d, _), a, b in zip(mesh.slots(4), mesh.shard(im0), mesh.shard(im1))]
+        return {key: mesh.gather([o[key] for o in outs], 4, dev) for key in outs[0]}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def on_one():
+        return step(params, im0.to(dev), im1.to(dev))
+
+    on_one(), on_mesh()  # warm-up at both shapes
+    (one, a), (got, b), (_, c), (_, d) = (timed(f) for f in (on_one, on_mesh, on_mesh, on_one))
+    n = one["mask"].sum(1).tolist()
+    if min(n) == 0:
+        _fail(f"LoFTR step on one device: matches per pair {n}")
+    if not (torch.equal(got["mask"], one["mask"]) and torch.equal(got["keypoints0"],
+                                                                  one["keypoints0"])):
+        _fail("LoFTR step: the mesh's matched cells differ from one device's")
+    px = float((got["keypoints1"] - one["keypoints1"]).abs().max())
+    conf = float((got["confidence"] - one["confidence"]).abs().max())
+    equal = [key for key in one if torch.equal(got[key], one[key])]
+    print(f"[mesh] LoFTR step (4 pairs of 256 x 256, {mesh.padded(4) // mesh.n_devices} a slot): "
+          f"matches per pair {n}; masks and "
+          f"coarse cells equal; bit-equal: {equal}; fine coordinates within {px:.3g} px (bound "
+          f"{MESH_LOFTR_PX}), confidences within {conf:.3g} (bound {MESH_LOFTR_CONF}); walls "
+          f"one device, mesh, mesh, one device: {a:.1f}, {b:.1f}, {c:.1f}, {d:.1f} ms [{card}]",
+          flush=True)
+    if px > MESH_LOFTR_PX or conf > MESH_LOFTR_CONF:
+        _fail("LoFTR step: the mesh's fine coordinates or confidences left their bounds")
+
+
+def phase_mesh(card: str) -> dict:
+    """The device mesh over ``cuda:0`` named twice (``MESH_DEVICES`` as
+    ``_DEFAULT_MESH``): each row of ``MESH_RUNS`` once on one device and once
+    on the mesh, their files bit-equal, then the LoFTR step. Returns the
+    mesh runs' launches."""
+    t_phase = time.perf_counter()
+    root = WORK / "mesh"
+    root.mkdir(parents=True, exist_ok=True)
+    launches = {label: _mesh_run(i, label, root, card) for i, label in enumerate(MESH_RUNS)}
+    _mesh_loftr_step(card)
+    print(f"[mesh] phase wall {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     return launches
 
 
@@ -4430,6 +4622,7 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     import torch
 
+    t_start = time.perf_counter()
     card = phase_environment()
     print(f"[env] {card}", flush=True)
     phase_build()
@@ -4437,6 +4630,7 @@ def main() -> None:
     phase_reference(card)
     launches = phase_main_path(card)
     launches.update(phase_tiled(card))
+    launches.update(phase_mesh(card))
     launches.update(phase_reconstruction(card))
     launches.update(phase_retrieval(card))
     upright_launches, report["nn"]["upright_probe"] = phase_upright(card)
@@ -4451,6 +4645,7 @@ def main() -> None:
          **report[name], **({"note": NO_CALLER[name]} if name in NO_CALLER else {})}
         for name in KERNELS
     ]
+    print(f"[smoke] wall {time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

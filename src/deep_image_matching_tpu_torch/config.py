@@ -11,9 +11,10 @@ Capability parity with the JAX package's config layer
 Execution options live under ``general["tpu"]``, a section name kept from
 the JAX package so its YAML files load unchanged: batch sizes for the
 padded extract/match batches, keypoint capacity padding, the on-device
-RANSAC toggle, the matcher's compute dtype and the device. ``mesh_devices``
-is accepted and ignored: this package runs on one device. Everything else is
-interchangeable with reference YAML files.
+RANSAC toggle, the matcher's compute dtype, the device and the device mesh
+of the batched matchers (``mesh_devices``, read by
+``parallel/mesh.py::mesh_devices``). Everything else is interchangeable with
+reference YAML files.
 """
 
 from __future__ import annotations
@@ -96,7 +97,11 @@ conf_general: Dict[str, Any] = {
         "match_batch_size": 16,
         # keypoint capacity = max_keypoints padded up to a multiple of 128
         "kpt_pad_multiple": 128,
-        # multi-device mesh size in the JAX package; unused here (one device)
+        # the batched matchers' device mesh (parallel/mesh.py::mesh_devices):
+        # null = every visible CUDA device when `device` is auto or cuda, else
+        # the one device `device` names; N = the first N CUDA devices (raises
+        # when fewer are visible, or on the CPU). The JAX package never reads
+        # this key.
         "mesh_devices": None,
         # geometric verification placement: "auto" (default) runs the
         # RANSAC-family methods (MAGSAC/RANSAC/JAX_RANSAC) as the batched
@@ -501,6 +506,10 @@ class Config:
             raise TypeError(
                 "general['geom_verification'] must be a GeometricVerification enum"
             )
+        n = self.general.get("tpu", {}).get("mesh_devices")
+        if n is not None and (isinstance(n, bool) or not isinstance(n, int) or n < 1):
+            raise ValueError(f"general.tpu.mesh_devices must be a positive integer or null, "
+                             f"not {n!r}")
 
     def _setup_paths(self) -> None:
         a = self.args

@@ -19,7 +19,10 @@ to full resolution on the device, descriptors and scores rounded through
 f16 there (the values an h5 reload gives), small host mirrors of the
 keypoints, counts and tile indices, and features.h5 written by a
 background writer while matching runs (``flush()`` joins it). The handoff
-is armed on every device, the CPU included, and a failure raises.
+is armed on every device, the CPU included, and on a device mesh of any
+size: the matcher's store takes the handoff's tensors as its copy on the
+extractor's device and copies them once to each other mesh device
+(``matchers/matcher_base.py``). A failure raises.
 
 Tiled extraction has two routes. Extractors that override
 ``_extract_tiles_dev`` (SuperPoint) take the device route
@@ -113,7 +116,9 @@ class ExtractorBase:
 
     def _device_handoff_allowed(self, tiled: bool = False) -> bool:
         """The handoff is armed inside ``ImageMatcher`` (``feature_cache``
-        set) on an untiled run, or by the tiled device route (``tiled``)."""
+        set) on an untiled run, or by the tiled device route (``tiled``), on
+        a device mesh of any size (the JAX package arms it on one device
+        only, since its mesh path gathered pair batches on the host)."""
         if self.feature_cache is None:
             return False
         return tiled or self.tile_selection is TileSelection.NONE

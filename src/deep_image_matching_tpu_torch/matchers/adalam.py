@@ -9,7 +9,10 @@ in adalam mode) with the JAX package's two modes:
   pair with the seed mutuality and the image sizes; each batch's samples
   are drawn from a CPU ``torch.Generator`` seeded with ``seed`` and moved to
   the device (``_samples``; the JAX package draws from ``jax.random`` keys,
-  so the two packages agree where the samples are carried across);
+  so the two packages agree where the samples are carried across). On a
+  device mesh they are drawn once for the whole chunk, row after row, and
+  each slot takes its rows' draws (padding rows the last row's), so every
+  pair gets the draws it gets on one device;
 - ``match_mode: adalam_fast``: symmetric nearest neighbours with the ratio
   ``th``, then the dense motion-consistency vote, an approximation the user
   opts into.
@@ -52,9 +55,25 @@ class AdalamMatcher(BatchedMatcher):
         if self.mode not in ("adalam", "adalam_fast"):
             raise ValueError(f"adalam match_mode {self.mode!r}; expected adalam or adalam_fast")
 
+    def _match_shards(self, shards, n_real) -> list:
+        if self.mode != "adalam":
+            return super()._match_shards(shards, n_real)
+        K = shards[0][1]["keypoints"].shape[1]
+        n = sum(n_real)
+        drawn = self._samples(n, K, int(self.conf.get("ransac_iters", 128)), torch.device("cpu"))
+        outs, start = [], 0
+        for dev, b0, b1 in shards:
+            rows = b0["keypoints"].shape[0]
+            mine = [drawn[min(r, n - 1)].to(dev) for r in range(start, start + rows)]
+            outs.append(self._replica(dev)._match_batch_arrays(b0, b1, mine))
+            start += rows
+        return outs
+
     def _match_batch_arrays(
-        self, batch0: Dict[str, torch.Tensor], batch1: Dict[str, torch.Tensor]
+        self, batch0: Dict[str, torch.Tensor], batch1: Dict[str, torch.Tensor], samples=None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``samples``: the filter's draws per row (``_samples``), drawn
+        here for the batch where not given."""
         c = self.conf
         k0, k1 = batch0["keypoints"], batch1["keypoints"]
         if self.mode == "adalam_fast":
@@ -73,7 +92,8 @@ class AdalamMatcher(BatchedMatcher):
             batch0["descriptors"], batch1["descriptors"], batch0["mask"], batch1["mask"],
             mode="mnn")
         iters = int(c.get("ransac_iters", 128))
-        samples = self._samples(matches0.shape[0], k0.shape[1], iters, k0.device)
+        if samples is None:
+            samples = self._samples(matches0.shape[0], k0.shape[1], iters, k0.device)
         wh0, wh1 = batch0["image_size"].float(), batch1["image_size"].float()
         keep = torch.stack([
             adalam_filter(

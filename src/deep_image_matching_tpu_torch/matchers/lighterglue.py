@@ -16,6 +16,7 @@ else seeded random weights under the weights policy.
 from __future__ import annotations
 
 import contextlib
+import copy
 import logging
 import os
 from pathlib import Path
@@ -76,6 +77,10 @@ class LighterGlueMatcher(BatchedMatcher):
         self.compute_dtype = check_matcher_dtype(
             self.device, getattr(torch, str(self.tpu.get("dtype", "bfloat16"))))
         self.model = load_model().to(self.device)
+
+    def _move_weights(self, device: torch.device) -> None:
+        self.model = copy.deepcopy(self.model).to(device)
+        self.model._prologue.clear()
 
     def _match_batch_arrays(
         self, batch0: Dict[str, torch.Tensor], batch1: Dict[str, torch.Tensor]

@@ -20,16 +20,21 @@ package's unfused arithmetic under "xla". ``tpu.assignment_impl`` is
 "fused" (kernel 3, the default) or "dense" (the (B, M, N) log assignment).
 Any other value of either raises. ``DIM_TPU_FUSED_PROLOGUE=1`` fuses the
 attention prologue (``models/lightglue.py``).
+
+On a device mesh the chunk's slots run as one batch through
+``forward_shards`` (each slot on its device's copy of the model, made once),
+so the depth exit is decided over every pair of the chunk, as on one device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Dict, Tuple
 
 import torch
 
-from ..models.lightglue import (check_assignment_impl, check_attn_impl, forward,
+from ..models.lightglue import (check_assignment_impl, check_attn_impl, forward_shards,
                                 load_default_model, resolve_ffn_impl)
 from ..utils.device import check_matcher_dtype, full_f32
 from .matcher_base import BatchedMatcher
@@ -62,16 +67,23 @@ class LightGlueMatcher(BatchedMatcher):
             str(self.conf.get("features", "superpoint")), self.n_layers
         ).to(self.device)
 
+    def _move_weights(self, device: torch.device) -> None:
+        self.model = copy.deepcopy(self.model).to(device)
+        self.model._prologue.clear()
+
     def _match_batch_arrays(
         self, batch0: Dict[str, torch.Tensor], batch1: Dict[str, torch.Tensor]
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._match_shards([(self.device, batch0, batch1)], None)[0]
+
+    def _match_shards(self, shards, n_real) -> list:
         with full_f32() if self.compute_dtype == torch.float32 else contextlib.nullcontext():
-            out = forward(
-                self.model,
-                batch0["keypoints"], batch1["keypoints"],
-                batch0["descriptors"], batch1["descriptors"],
-                batch0["mask"], batch1["mask"],
-                batch0["image_size"].float(), batch1["image_size"].float(),
+            outs = forward_shards(
+                [(self._replica(dev).model,
+                  b0["keypoints"], b1["keypoints"], b0["descriptors"], b1["descriptors"],
+                  b0["mask"], b1["mask"], b0["image_size"].float(), b1["image_size"].float())
+                 for dev, b0, b1 in shards],
+                n_real,
                 filter_threshold=self.filter_threshold,
                 depth_confidence=self.depth_confidence,
                 width_confidence=self.width_confidence,
@@ -80,4 +92,4 @@ class LightGlueMatcher(BatchedMatcher):
                 ffn_impl=self.ffn_impl,
                 assignment_impl=self.assignment_impl,
             )
-        return out["matches0"], out["valid0"]
+        return [(out["matches0"], out["valid0"]) for out in outs]

@@ -21,14 +21,28 @@ side's mask restricted to one tile on the device (``gather_tiled``), and each
 pair's union of its jobs' matches, deduplicated on the query index, is
 verified (device RANSAC on CUDA) and written.
 
+On a device mesh of more than one slot (``parallel/mesh.py``: the devices
+of ``tpu.mesh_devices``, or an injected ``_DEFAULT_MESH``; a device may be
+named twice) each chunk of pairs or tile-pair jobs is padded to a multiple
+of the mesh and split across the slots (``_match_sharded``): each slot
+gathers its rows from its device's replica of the store and matches them
+with its device's replica of the matcher's weights; the slots' results come
+back to the first mesh device in row order, padding trimmed, where device
+RANSAC verifies the chunk as one batch and one device->host copy takes it.
+The batch-level decisions are taken over the whole chunk (LightGlue's depth
+exit in ``forward_shards``, AdaLAM's draws, RANSAC's), so the output equals
+the one-device output bit for bit. A mesh of one device runs the one-device
+path: no padding, no replica.
+
 Failures are not swallowed: a chunk that runs out of device memory is
 bisected and retried (a batch that does not fit at B usually fits at B/2);
-every other exception propagates, and so does an out-of-memory error of a
-single pair. The mesh path is not ported (ROADMAP.md, queue 1).
+every other exception propagates, from any slot, and so does an
+out-of-memory error of a single pair.
 """
 
 from __future__ import annotations
 
+import copy
 import inspect
 import logging
 from pathlib import Path
@@ -41,6 +55,7 @@ from ..constants import KPT_PAD_MULTIPLE, GeometricVerification, Quality, TileSe
 from ..io import hdf5
 from ..io.h5 import get_features, list_h5_names
 from ..io.writer import MatchWriter
+from ..parallel.mesh import get_default_mesh
 from ..utils.device import resolve_device
 from ..utils.geometric_verification import geometric_verification
 
@@ -72,14 +87,15 @@ def _pack_match_results(matches0, valid, inl=None) -> torch.Tensor:
 
 
 def _to_host_async(t: torch.Tensor):
-    """Queue ``t``'s copy to pinned host memory; returns (host tensor, event
-    to wait on, None on the CPU)."""
+    """Queue ``t``'s copy to pinned host memory on the current stream of
+    ``t``'s device; returns (host tensor, event to wait on, None on the
+    CPU)."""
     if not t.is_cuda:
         return t, None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     done = torch.cuda.Event()
-    done.record()
+    done.record(torch.cuda.current_stream(t.device))
     return host, done
 
 
@@ -98,6 +114,9 @@ class MatcherBase:
         self.min_inlier_ratio_per_pair = float(general.get("min_inlier_ratio_per_pair", 0.15))
         self.tpu = dict(general.get("tpu", {}))
         self.device = resolve_device(self.tpu.get("device", "auto"))
+        self._mesh = None
+        # this matcher with its weights on another mesh device, by device
+        self._replicas: Dict[torch.device, "MatcherBase"] = {}
         # in-memory extract->match handoff set by ImageMatcher: per-image
         # features with h5-roundtrip-exact values; images absent here are
         # read from features.h5
@@ -151,7 +170,7 @@ class MatcherBase:
             except torch.cuda.OutOfMemoryError as e:
                 logger.warning(f"Batch of {len(chunk)} pairs ran out of device "
                                f"memory ({e}); retrying in halves")
-                torch.cuda.empty_cache()
+                self._empty_caches()
                 while window:
                     finish(*window.pop(0))
                 mid = len(chunk) // 2
@@ -174,12 +193,50 @@ class MatcherBase:
         except torch.cuda.OutOfMemoryError:
             if len(chunk) == 1:
                 raise
-            torch.cuda.empty_cache()
+            self._empty_caches()
             mid = len(chunk) // 2
             for half in (chunk[:mid], chunk[mid:]):
                 self._bisecting(half, dispatch, finish)
             return
         finish(chunk, disp)
+
+    @property
+    def mesh(self):
+        """The device mesh of the batched matchers' chunks
+        (``parallel/mesh.py::get_default_mesh`` of ``general.tpu``, taken at
+        first use; one device: the one-device path on ``self.device``)."""
+        if self._mesh is None:
+            self._mesh = get_default_mesh(self.tpu)
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh) -> None:
+        self._mesh = mesh
+
+    def _empty_caches(self) -> None:
+        """Return the cached blocks of every CUDA device the matcher runs on
+        (each mesh device) to the driver."""
+        for dev in dict.fromkeys([self.device, *self.mesh.devices]):
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    torch.cuda.empty_cache()
+
+    def _replica(self, device: torch.device) -> "MatcherBase":
+        """This matcher with its weights on ``device``: itself on its own
+        device, elsewhere a shallow copy whose weights ``_move_weights``
+        copies, made once per device."""
+        if device == self.device:
+            return self
+        if device not in self._replicas:
+            rep = copy.copy(self)
+            rep.device = device
+            rep._move_weights(device)
+            self._replicas[device] = rep
+        return self._replicas[device]
+
+    def _move_weights(self, device: torch.device) -> None:
+        """Give this (replica) matcher its own copy of its weights on
+        ``device``; matchers without weights keep nothing there."""
 
     def _use_device_gv(self) -> bool:
         """Whether verification runs as the batched device RANSAC
@@ -255,21 +312,33 @@ class BatchedMatcher(MatcherBase):
 
     def _dispatch_chunk(self, chunk, store, use_device_gv: bool):
         """Queue a chunk's device work and its device->host copy; returns
-        what ``_finish_chunk`` needs to materialise it."""
+        what ``_finish_chunk`` needs to materialise it. Over a mesh the
+        slots match their rows (``_match_sharded``) and the chunk comes back
+        to the first mesh device, where RANSAC verifies it as one batch, as
+        on one device: torch's CUDA sums depend on the batch's shape, so a
+        slot's RANSAC would not repeat the one-device bits."""
         from ..ops.ransac import ransac_fundamental_store_batch
 
         idx0 = [store.index[a] for a, _ in chunk]
         idx1 = [store.index[b] for _, b in chunk]
-        ind0 = torch.as_tensor(idx0, device=self.device)
-        ind1 = torch.as_tensor(idx1, device=self.device)
-        matches0, valid = self._match_batch_arrays(store.gather(ind0), store.gather(ind1))
+        if self.mesh.n_devices == 1:
+            dev, table = self.device, store
+            ind0 = torch.as_tensor(idx0, device=dev)
+            ind1 = torch.as_tensor(idx1, device=dev)
+            matches0, valid = self._match_batch_arrays(store.gather(ind0), store.gather(ind1))
+        else:
+            matches0, valid = self._match_sharded(store, idx0, idx1)
+            dev = self.mesh.devices[0]
+            table = store.replica(dev)
+            ind0 = torch.as_tensor(idx0, device=dev)
+            ind1 = torch.as_tensor(idx1, device=dev)
         inl = None
         if use_device_gv:
             inl = ransac_fundamental_store_batch(
-                store.dev["keypoints"], ind0, ind1, matches0, valid,
+                table.dev["keypoints"], ind0, ind1, matches0, valid,
                 self.gv_threshold * GV_QUALITY_SCALES[self.quality],
                 iters=int(self.tpu.get("ransac_iters", 2048)),
-                generator=torch.Generator(device=self.device).manual_seed(0),
+                generator=torch.Generator(device=dev).manual_seed(0),
             )
         packed, done = _to_host_async(_pack_match_results(matches0, valid, inl))
         return idx0, idx1, packed, done, inl is not None
@@ -353,6 +422,10 @@ class BatchedMatcher(MatcherBase):
         per_pair: Dict[int, list] = {i: [] for i in range(len(pairs))}
 
         def dispatch(chunk):
+            if self.mesh.n_devices > 1:
+                return _to_host_async(_pack_match_results(*self._match_sharded(
+                    store, [j[1] for j in chunk], [j[2] for j in chunk],
+                    [j[3] for j in chunk], [j[4] for j in chunk])))
             dev = self.device
             tiles = [torch.tensor([j[c] for j in chunk], dtype=torch.float32, device=dev)
                      for c in (3, 4)]
@@ -418,7 +491,9 @@ class BatchedMatcher(MatcherBase):
         RANSAC over the store's keypoints where ``_use_device_gv``, in chunks
         of ``match_batch_size`` pairs (each union as a (K,) match row with
         its validity, as the untiled chunks hold it); None (host
-        verification in ``_verify_and_save``) otherwise."""
+        verification in ``_verify_and_save``) otherwise. On a mesh it runs
+        on the store's device (the matcher's), as on one device: the
+        unions are few, one per image pair."""
         if not self._use_device_gv():
             return [None] * len(unions)
         from ..ops.ransac import ransac_fundamental_store_batch
@@ -445,6 +520,40 @@ class BatchedMatcher(MatcherBase):
             masks.extend(inl[b][m[:, 0]] for b, (_, _, _, _, m) in enumerate(chunk))
         return masks
 
+    def _match_sharded(self, store, idx0, idx1, tiles0=None, tiles1=None):
+        """The rows of a chunk (image indices ``idx0`` / ``idx1``, and with
+        ``tiles0`` / ``tiles1`` each row restricted to one tile per side)
+        over the mesh: padded to a multiple of the mesh (the last row
+        repeated) and split across the slots, each slot gathering its rows
+        from its device's replica of the store and matching them with
+        ``_match_shards``. Returns (matches0, valid) of the real rows, in
+        row order, on the first mesh device."""
+        mesh = self.mesh
+        n = len(idx0)
+        sides = [mesh.shard(np.asarray(i)) for i in (idx0, idx1)]
+        if tiles0 is not None:
+            tiles = [mesh.shard(np.asarray(t, np.float32)) for t in (tiles0, tiles1)]
+        shards = []
+        for s, (dev, _) in enumerate(mesh.slots(n)):
+            rep = store.replica(dev)
+            if tiles0 is None:
+                batches = [rep.gather(side[s]) for side in sides]
+            else:
+                batches = [rep.gather_tiled(side[s], t[s]) for side, t in zip(sides, tiles)]
+            shards.append((dev, *batches))
+        outs = self._match_shards(shards, mesh.real_rows(n))
+        dev0 = mesh.devices[0]
+        return (mesh.gather([o[0] for o in outs], n, dev0),
+                mesh.gather([o[1] for o in outs], n, dev0))
+
+    def _match_shards(self, shards, n_real) -> list:
+        """(matches0, valid) of each mesh slot's ``(device, batch0,
+        batch1)``, ``n_real`` of its rows real: ``_match_batch_arrays`` on
+        the slot's device with that device's weights. Matchers whose batch
+        takes a decision over all its rows (LightGlue's depth exit, AdaLAM's
+        draws) take it over every slot here."""
+        return [self._replica(dev)._match_batch_arrays(b0, b1) for dev, b0, b1 in shards]
+
     def _match_batch_arrays(self, batch0: Dict[str, torch.Tensor],
                             batch1: Dict[str, torch.Tensor]):
         """Subclass hook over stacked padded device tensors ``keypoints
@@ -459,10 +568,13 @@ class _PaddedFeatureStore:
     host arrays for verification and gating, and one device copy from which
     pair batches are gathered (each image uploads once, not once per pair).
     Built from a device handoff that covers ``names``, the device copy is the
-    handoff's own tensors and nothing is uploaded."""
+    handoff's own tensors and nothing is uploaded. Each other device of a
+    mesh gets its copy once (``replica``), the tile indices with it."""
 
     def __init__(self, feature_path, names: List[str], device: torch.device, cache=None,
                  handoff=None):
+        # copies of the device tensors on other mesh devices, by device
+        self._replicas: Dict[torch.device, "_PaddedFeatureStore"] = {}
         if handoff is not None and handoff.covers(names):
             self._init_from_handoff(handoff, names)
             return
@@ -554,6 +666,21 @@ class _PaddedFeatureStore:
             self.tile_idx = fit(handoff.dev["tile_idx"], -1.0)
         else:
             self.tile_idx = torch.full((len(names), cap), -1.0, device=dev)
+
+    def replica(self, device: torch.device) -> "_PaddedFeatureStore":
+        """The store with its device tensors on ``device``: itself on its
+        own device (the handoff's tensors where it came from a handoff),
+        elsewhere a device-to-device copy made once."""
+        home = self.dev["keypoints"].device
+        if device == home:
+            return self
+        if device not in self._replicas:
+            rep = copy.copy(self)
+            rep.dev = {k: v.to(device) for k, v in self.dev.items()}
+            rep.tile_idx = self.tile_idx.to(device)
+            rep._replicas = {}
+            self._replicas[device] = rep
+        return self._replicas[device]
 
     def gather(self, ind: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {k: v[ind] for k, v in self.dev.items()}

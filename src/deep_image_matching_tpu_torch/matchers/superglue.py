@@ -7,7 +7,8 @@ The reference's config surface: ``weights`` (indoor / outdoor, read from
 default, or f32; on CUDA the attention and FFN kernels take those two, so
 another dtype fails at start; f32 runs under ``full_f32``, so no global TF32
 setting lowers its plain products), with the folded parameters (and in f32
-the FFN weights' TF32 halves) made once at start.
+the FFN weights' TF32 halves) made once at start, and once per other device
+of a device mesh.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..models.superglue import forward, load_default_model
-from ..utils.device import check_matcher_dtype, full_f32
+from ..utils.device import check_matcher_dtype, full_f32, to_device
 from .matcher_base import BatchedMatcher
 
 
@@ -38,6 +39,11 @@ class SuperGlueMatcher(BatchedMatcher):
         self.model = load_default_model(str(self.conf.get("weights", "outdoor"))).to(self.device)
         # BatchNorm folded and weights cast once, not per pair batch
         self.params = self.model.folded_params(self.compute_dtype)
+
+    def _move_weights(self, device: torch.device) -> None:
+        # ``forward`` reads its tensors from the folded parameters; the
+        # module gives it only the shapes
+        self.params = to_device(self.params, device)
 
     def _match_batch_arrays(
         self, batch0: Dict[str, torch.Tensor], batch1: Dict[str, torch.Tensor]

@@ -11,7 +11,9 @@ capacity and validity masks, masked self and cross attention, and
   ``width_confidence <= 0``);
 - the adaptive path: the depth exit at batch level (a batch stops after the
   first layer where every pair is token-confident) and width pruning
-  expressed as mask updates, exactly as the JAX package does it.
+  expressed as mask updates, exactly as the JAX package does it;
+  ``forward_shards`` runs the row blocks of a device mesh's slots as one
+  batch, the exit decided over all of them.
 
 Attention, the FFN and the assignment go through the kernel wrappers of
 ``ops/`` (CUDA kernels on the GPU, their plain versions on the CPU). The FFN
@@ -447,51 +449,50 @@ def forward(
     f32. ``attn_impl`` "bidir" runs the cross attention on kernel 6
     (``ATTN_IMPLS``); ``ffn_impl`` and ``assignment_impl`` pick the FFN and
     assignment routes (``FFN_IMPLS``, ``ASSIGNMENT_IMPLS``). Returns
-    matches0 (B, M) int32, matching_scores0, valid0 and layers_run (int)."""
+    matches0 (B, M) int32, matching_scores0, valid0 and layers_run (int).
+    It is ``forward_shards`` over one shard."""
+    return forward_shards(
+        [(model, kpts0, kpts1, desc0, desc1, mask0, mask1, size0, size1)],
+        filter_threshold=filter_threshold, depth=depth, depth_confidence=depth_confidence,
+        width_confidence=width_confidence, pruning_min_kpts=pruning_min_kpts,
+        compute_dtype=compute_dtype, attn_impl=attn_impl, ffn_impl=ffn_impl,
+        assignment_impl=assignment_impl)[0]
+
+
+@torch.no_grad()
+def forward_shards(shards, n_real=None, filter_threshold: float = 0.1,
+                   depth: Optional[int] = None, depth_confidence: float = -1.0,
+                   width_confidence: float = -1.0, pruning_min_kpts: int = 1536,
+                   compute_dtype: torch.dtype = torch.float32, attn_impl: str = "flash",
+                   ffn_impl: str = "auto", assignment_impl: str = "fused") -> list:
+    """``forward`` over the row blocks of one batch, each on its own device
+    (the slots of a device mesh), as one batch: ``shards`` holds per block
+    ``(model, kpts0, kpts1, desc0, desc1, mask0, mask1, size0, size1)`` with
+    the model on the block's device, ``n_real`` per block the rows that
+    count for the depth exit (the others are padding; all by default).
+
+    The layers advance over every block in step: each layer is launched on
+    every block, then every block's exit flag (``all`` over its real rows)
+    is read in one host sync, and the batch stops at the first layer where
+    every real row of every block is confident, as the JAX package's one
+    program decides over the whole batch. Launches are asynchronous, so
+    blocks on distinct devices run side by side. Width pruning is per row.
+    Returns ``forward``'s outputs per block."""
     ffn_impl = resolve_ffn_impl(ffn_impl, attn_impl)
     check_assignment_impl(assignment_impl)
-    num_heads = model.num_heads
-    mask0 = mask0.bool()
-    mask1 = mask1.bool()
-    # every parameter in the compute dtype, as the JAX package casts its
-    # parameter tree (the rotary frequencies are rounded, then used in f32)
-    p = {k: v.to(compute_dtype) for k, v in model.state_dict().items()}
-    desc0 = desc0.to(compute_dtype)
-    desc1 = desc1.to(compute_dtype)
-    if "input_proj.weight" in p:
-        desc0 = _lin(desc0, p, "input_proj")
-        desc1 = _lin(desc1, p, "input_proj")
-
-    fused = (model.prologue_weights(p)
-             if os.environ.get("DIM_TPU_FUSED_PROLOGUE", "0") == "1" else None)
-    # the float32 kernels' TF32 halves of the weights, made once per model
-    splits = model.tf32_weights(p) if compute_dtype == torch.float32 else None
-    wr = p["posenc.Wr.weight"].T
-    # every rotary use rounds cos and sin to the compute dtype: round them
-    # once (in f32 they stay as they are)
-    enc0 = tuple(e.to(compute_dtype)
-                 for e in rotary_encoding(normalize_keypoints(kpts0, size0), wr))
-    enc1 = tuple(e.to(compute_dtype)
-                 for e in rotary_encoding(normalize_keypoints(kpts1, size1), wr))
-
-    n_layers = model.n_layers
+    n_real = n_real or [None] * len(shards)
+    runs = [_Shard(*shard, real, compute_dtype, attn_impl, ffn_impl)
+            for shard, real in zip(shards, n_real)]
+    n_layers = runs[0].model.n_layers
     if depth is not None and depth < n_layers:
         n_layers = depth
     do_stop = depth_confidence is not None and depth_confidence > 0
     do_prune = width_confidence is not None and width_confidence > 0
-    # the reference's stop check divides by the ORIGINAL m + n: pruned
-    # points implicitly count as confident
-    n_pts_orig = (mask0.sum(1) + mask1.sum(1)).float()
 
     layers_run = n_layers
     for i in range(n_layers):
-        t = f"transformers.{i}"
-        fl = None if fused is None else fused[i]
-        sl = None if splits is None else splits[i]
-        desc0 = _self_block(desc0, enc0, mask0, p, t, num_heads, fl, ffn_impl, sl)
-        desc1 = _self_block(desc1, enc1, mask1, p, t, num_heads, fl, ffn_impl, sl)
-        desc0, desc1 = _cross_block(desc0, desc1, mask0, mask1, p, t, num_heads, attn_impl, fl,
-                                    ffn_impl, sl)
+        for run in runs:
+            run.layer(i)
         if not (do_stop or do_prune):
             continue
         last = i == n_layers - 1
@@ -500,41 +501,107 @@ def forward(
                            0.0, 1.0))
         stop = False
         if do_stop and not last:
-            c0, c1 = _token_confidences(desc0, desc1, p, i)
-            n_unconf = (((c0 < th) & mask0).sum(1) + ((c1 < th) & mask1).sum(1)).float()
-            ratio = 1.0 - n_unconf / n_pts_orig.clamp(min=1.0)
-            stop = bool((ratio > depth_confidence).all())
+            flags = [run.confident(i, th, depth_confidence) for run in runs]
+            dev = flags[0].device
+            stop = bool(flags[0] if len(flags) == 1
+                        else torch.stack([f.to(dev) for f in flags]).all())
         if do_prune and not last and not stop:
-            a = f"log_assignment.{i}.matchability"
-            keep0 = torch.sigmoid(_lin(desc0, p, a)[..., 0].float()) > (1.0 - width_confidence)
-            keep1 = torch.sigmoid(_lin(desc1, p, a)[..., 0].float()) > (1.0 - width_confidence)
-            if do_stop:
-                # low-confidence points are never pruned while the
-                # confidence head runs (reference get_pruning_mask)
-                keep0 = keep0 | (c0 <= th)
-                keep1 = keep1 | (c1 <= th)
-            allow0 = mask0.sum(1, keepdim=True) > pruning_min_kpts
-            allow1 = mask1.sum(1, keepdim=True) > pruning_min_kpts
-            mask0 = mask0 & (keep0 | ~allow0)
-            mask1 = mask1 & (keep1 | ~allow1)
+            for run in runs:
+                run.prune(i, th, width_confidence, pruning_min_kpts, do_stop)
         if stop:
             layers_run = i + 1
             break
+    return [run.result(layers_run, assignment_impl, filter_threshold) for run in runs]
 
-    if assignment_impl == "fused":
-        md0, md1, z0, z1 = _assign_inputs(desc0, desc1, p, layers_run - 1)
-        matches0, mscores0, valid0 = filter_matches_fused(
-            md0, md1, z0, z1, mask0, mask1, filter_threshold
-        )
-    else:
-        scores = _log_assignment(desc0, desc1, mask0, mask1, p, layers_run - 1)
-        matches0, mscores0, valid0 = filter_matches_static(scores, mask0, mask1, filter_threshold)
-    return {
-        "matches0": matches0,
-        "matching_scores0": mscores0,
-        "valid0": valid0,
-        "layers_run": layers_run,
-    }
+
+class _Shard:
+    """One row block's tensors through ``forward_shards``' layer loop."""
+
+    def __init__(self, model, kpts0, kpts1, desc0, desc1, mask0, mask1, size0, size1,
+                 n_real, compute_dtype, attn_impl, ffn_impl):
+        self.model, self.n_real = model, n_real
+        self.attn_impl, self.ffn_impl = attn_impl, ffn_impl
+        self.mask0 = mask0.bool()
+        self.mask1 = mask1.bool()
+        # every parameter in the compute dtype, as the JAX package casts its
+        # parameter tree (the rotary frequencies are rounded, then used in f32)
+        p = {k: v.to(compute_dtype) for k, v in model.state_dict().items()}
+        desc0 = desc0.to(compute_dtype)
+        desc1 = desc1.to(compute_dtype)
+        if "input_proj.weight" in p:
+            desc0 = _lin(desc0, p, "input_proj")
+            desc1 = _lin(desc1, p, "input_proj")
+        self.p, self.desc0, self.desc1 = p, desc0, desc1
+        self.fused = (model.prologue_weights(p)
+                      if os.environ.get("DIM_TPU_FUSED_PROLOGUE", "0") == "1" else None)
+        # the float32 kernels' TF32 halves of the weights, made once per model
+        self.splits = model.tf32_weights(p) if compute_dtype == torch.float32 else None
+        wr = p["posenc.Wr.weight"].T
+        # every rotary use rounds cos and sin to the compute dtype: round them
+        # once (in f32 they stay as they are)
+        self.enc0 = tuple(e.to(compute_dtype)
+                          for e in rotary_encoding(normalize_keypoints(kpts0, size0), wr))
+        self.enc1 = tuple(e.to(compute_dtype)
+                          for e in rotary_encoding(normalize_keypoints(kpts1, size1), wr))
+        # the reference's stop check divides by the ORIGINAL m + n: pruned
+        # points implicitly count as confident
+        self.n_pts_orig = (self.mask0.sum(1) + self.mask1.sum(1)).float()
+        self.c0 = self.c1 = None
+
+    def layer(self, i: int) -> None:
+        t = f"transformers.{i}"
+        p, heads = self.p, self.model.num_heads
+        fl = None if self.fused is None else self.fused[i]
+        sl = None if self.splits is None else self.splits[i]
+        self.desc0 = _self_block(self.desc0, self.enc0, self.mask0, p, t, heads, fl,
+                                 self.ffn_impl, sl)
+        self.desc1 = _self_block(self.desc1, self.enc1, self.mask1, p, t, heads, fl,
+                                 self.ffn_impl, sl)
+        self.desc0, self.desc1 = _cross_block(self.desc0, self.desc1, self.mask0, self.mask1,
+                                              p, t, heads, self.attn_impl, fl, self.ffn_impl, sl)
+
+    def confident(self, i: int, th: float, depth_confidence: float) -> torch.Tensor:
+        """Layer ``i``'s exit flag on the device: every real row's confident
+        ratio above ``depth_confidence``."""
+        c0, c1 = self.c0, self.c1 = _token_confidences(self.desc0, self.desc1, self.p, i)
+        n_unconf = (((c0 < th) & self.mask0).sum(1) + ((c1 < th) & self.mask1).sum(1)).float()
+        ratio = 1.0 - n_unconf / self.n_pts_orig.clamp(min=1.0)
+        if self.n_real is not None:
+            ratio = ratio[:self.n_real]
+        return (ratio > depth_confidence).all()
+
+    def prune(self, i: int, th: float, width_confidence: float, pruning_min_kpts: int,
+              do_stop: bool) -> None:
+        a = f"log_assignment.{i}.matchability"
+        keep0 = torch.sigmoid(_lin(self.desc0, self.p, a)[..., 0].float()) > 1.0 - width_confidence
+        keep1 = torch.sigmoid(_lin(self.desc1, self.p, a)[..., 0].float()) > 1.0 - width_confidence
+        if do_stop:
+            # low-confidence points are never pruned while the confidence
+            # head runs (reference get_pruning_mask)
+            keep0 = keep0 | (self.c0 <= th)
+            keep1 = keep1 | (self.c1 <= th)
+        allow0 = self.mask0.sum(1, keepdim=True) > pruning_min_kpts
+        allow1 = self.mask1.sum(1, keepdim=True) > pruning_min_kpts
+        self.mask0 = self.mask0 & (keep0 | ~allow0)
+        self.mask1 = self.mask1 & (keep1 | ~allow1)
+
+    def result(self, layers_run: int, assignment_impl: str, filter_threshold: float) -> dict:
+        desc0, desc1, mask0, mask1, p = self.desc0, self.desc1, self.mask0, self.mask1, self.p
+        if assignment_impl == "fused":
+            md0, md1, z0, z1 = _assign_inputs(desc0, desc1, p, layers_run - 1)
+            matches0, mscores0, valid0 = filter_matches_fused(
+                md0, md1, z0, z1, mask0, mask1, filter_threshold
+            )
+        else:
+            scores = _log_assignment(desc0, desc1, mask0, mask1, p, layers_run - 1)
+            matches0, mscores0, valid0 = filter_matches_static(scores, mask0, mask1,
+                                                               filter_threshold)
+        return {
+            "matches0": matches0,
+            "matching_scores0": mscores0,
+            "valid0": valid0,
+            "layers_run": layers_run,
+        }
 
 
 # ---------------------------------------------------------------------------

@@ -146,8 +146,16 @@ def lib() -> ctypes.CDLL:
 
 def launch(kernel: str, fn_name: str, *args) -> None:
     """Call one C launcher, raise on its ``cudaGetLastError`` result, and
-    count the launch under ``kernel``."""
-    err = getattr(lib(), fn_name)(*args)
+    count the launch under ``kernel``. The launchers select the device they
+    launch on (``cudaSetDevice``) and leave it selected; the caller's current
+    device is restored after, so a launch on another device of a mesh does
+    not move torch's current device."""
+    prev = torch.cuda.current_device()
+    try:
+        err = getattr(lib(), fn_name)(*args)
+    finally:
+        if torch.cuda.current_device() != prev:
+            torch.cuda.set_device(prev)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
     LAUNCHES[kernel] += 1

@@ -744,6 +744,62 @@ def test_kernel_wrappers_refuse_other_dtypes(cuda, wrapper):
     assert _lib.LAUNCHES == before
 
 
+def _every_kernel(dev):
+    """One small call of every kernel wrapper on ``dev``, by the name of the
+    launch count it adds to."""
+    gen = torch.Generator().manual_seed(14)
+
+    def r(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=gen).to(dev, dt)
+
+    m = torch.ones(2, 128, dtype=torch.bool, device=dev)
+    D = 256
+    calls = {}
+    for dt, tag in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        calls["attention" + tag] = lambda dt=dt: tattn.fused_attention(
+            r(2, 4, 128, 64, dt=dt), r(2, 4, 128, 64, dt=dt), r(2, 4, 128, 64, dt=dt), m, m,
+            0.125)
+        calls["attention_hd96" + tag] = lambda dt=dt: tattn.fused_attention(
+            r(2, 1, 128, 96, dt=dt), r(2, 1, 128, 96, dt=dt), r(2, 1, 128, 96, dt=dt), m, m,
+            96 ** -0.5)
+        calls["bidir_attention" + tag] = lambda dt=dt: tbidir.bidir_cross_attention(
+            *(r(2, 4, 128, 64, dt=dt) for _ in range(4)), m, m)
+        calls["ffn" + tag] = lambda dt=dt: tffn.ffn_fused(
+            r(2, 128, D, dt=dt), r(2, 128, D, dt=dt), r(2 * D, 2 * D, dt=dt) / 32,
+            r(2 * D, dt=dt), r(2 * D, dt=dt), r(2 * D, dt=dt), r(D, 2 * D, dt=dt) / 32,
+            r(D, dt=dt))
+        calls["qkv" + tag] = lambda dt=dt: tqkv.proj_rotary_fused(
+            r(2, 128, D, dt=dt), r(3 * D, D, dt=dt) / 16, r(3 * D, dt=dt), r(2, 128, 64),
+            r(2, 128, 64), 4)
+    calls["assignment"] = lambda: tassign.filter_matches_fused(
+        r(2, 128, D), r(2, 128, D), r(2, 128), r(2, 128), m, m, 0.1)
+    calls["nullspace"] = lambda: tnull.nullspace_planes(r(9, 8, 1000))
+    calls["nn"] = lambda: tnn.nn_match_fused(r(2, 128, 64), r(2, 128, 64), m, m)
+    z, log_mu, log_nu = _couplings(gen, 2, 130, 1000, dev)
+    calls["sinkhorn"] = lambda: tsink.sinkhorn_iteration(z, r(2, 1000), log_mu, log_nu)
+    calls["lse_rows"] = lambda: tsink.logsumexp_rows(z, r(2, 1000), log_mu)
+    calls["refiner"] = lambda: trefiner.refiner_dw_stack(
+        r(1, 17, 50, 24), 0.3 * r(1, 5, 5, 1, 24), 0.1 * r(1, 24),
+        24 ** -0.5 * r(1, 1, 1, 24, 24), 0.1 * r(1, 24))
+    return calls
+
+
+def test_launches_keep_the_current_device(cuda):
+    """Each kernel's launch leaves torch's current device where the caller
+    set it: the C launchers select their tensors' device, and
+    ``_lib.launch`` selects the caller's again, so a mesh slot's launch on
+    another device moves nothing. The kernels run on the last visible device
+    while device 0 is current (device 0 for both on a one-card host)."""
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    for name, call in _every_kernel(dev).items():
+        before = _lib.LAUNCHES[name]
+        call()
+        assert _lib.LAUNCHES[name] > before, name
+        assert torch.cuda.current_device() == 0, name
+    torch.cuda.synchronize(dev)
+
+
 # -- reconstruction: bundle adjustment and the mapper on the card ------------
 
 

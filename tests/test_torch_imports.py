@@ -50,7 +50,7 @@ SLICE_MODULES = (
     "extractors.xfeat", "matchers.lighterglue", "models.keynet", "models.affnet",
     "models.hardnet", "extractors.keynetaffnethardnet", "ops.adalam", "matchers.adalam",
     "io.hdf5", "models.dedode", "extractors.dedode", "models.ripe", "extractors.ripe",
-    "models.liftfeat", "extractors.liftfeat",
+    "models.liftfeat", "extractors.liftfeat", "parallel.mesh",
 )
 
 

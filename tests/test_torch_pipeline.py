@@ -135,9 +135,15 @@ def test_run_matching_agrees_with_jax(tmp_path, shared_weights, pipeline):
             "force": True, "config_file": str(cfg),
         })
         outs[tag] = _read(feature_path.parent)
-    jf, jraw, jver, jtab, jimg, jcam = outs["jax"]
-    tf, traw, tver, ttab, timg, tcam = outs["torch"]
+    assert_outputs_agree(outs["jax"], outs["torch"], n_images, pipeline)
 
+
+def assert_outputs_agree(jax_out, torch_out, n_images, pipeline):
+    """The two packages' outputs (``_read``) agree: the same keypoints as
+    sets with their descriptors, scores and sizes, the same raw and verified
+    matches pair by pair, the same database rows."""
+    jf, jraw, jver, jtab, jimg, jcam = jax_out
+    tf, traw, tver, ttab, timg, tcam = torch_out
     assert jf.keys() == tf.keys() and len(jf) == n_images
     for name in jf:
         jk = {tuple(p): i for i, p in enumerate(jf[name]["keypoints"])}
