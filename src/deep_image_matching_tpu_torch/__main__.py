@@ -13,8 +13,11 @@ COLMAP text model and ``model.ply`` under ``reconstruction/``, with its
 bundle adjustment on ``general.tpu.device``. With ``--openmvg CONF`` the
 matches are exported as an OpenMVG project under ``openmvg/``, reconstructed
 there where ``openMVG_main_SfM`` is found. With ``DIM_TPU_PROFILE=DIR`` the
-matching stages are traced to ``DIR/image_matching/trace.json``
-(``utils/profiler.py``).
+set-up, the matching stages and the COLMAP export are traced to
+``DIR/image_matching/trace.json`` (``utils/profiler.py``). Each call is one
+run of the port's spans (``utils/profiler.run_scope``): ``setup`` (the
+configuration, the image list, the extractor's and matcher's construction),
+then the matcher's and the export's own.
 """
 
 from __future__ import annotations
@@ -26,30 +29,36 @@ def run_matching(args: dict):
     (cameras, images, points3D), or None with ``--skip_reconstruction`` or
     when no model came out. Exceptions of the view graph and of the mapper
     propagate. The matcher's per-stage wall times are logged."""
+    from .utils.profiler import run_scope
+
+    with run_scope():
+        return _run_matching(args)
+
+
+def _run_matching(args: dict):
     from .config import Config
     from .image_matching import ImageMatcher
     from .io.h5_to_db import export_to_colmap
     from .matchers.matcher_base import DetectorFreeMatcher
     from .utils.logger import change_logger_level
-    from .utils.profiler import device_trace
+    from .utils.profiler import device_trace, span
 
-    config = Config(args=args)
-    if config.general.get("verbose"):
-        change_logger_level("dim_tpu_torch", "debug")
-    config.save()
-
-    matcher = ImageMatcher(config)
     with device_trace("image_matching"):
+        with span("setup"):
+            config = Config(args=args)
+            if config.general.get("verbose"):
+                change_logger_level("dim_tpu_torch", "debug")
+            config.save()
+            matcher = ImageMatcher(config)
+        database_path = config.output_dir / "database.db"
         feature_path, match_path = matcher.run()
-
-    database_path = config.output_dir / "database.db"
-    export_to_colmap(
-        img_dir=config.image_dir,
-        feature_path=feature_path,
-        match_path=match_path,
-        database_path=database_path,
-        camera_config_path=config.general.get("camera_options"),
-    )
+        export_to_colmap(
+            img_dir=config.image_dir,
+            feature_path=feature_path,
+            match_path=match_path,
+            database_path=database_path,
+            camera_config_path=config.general.get("camera_options"),
+        )
     if isinstance(matcher.matcher, DetectorFreeMatcher):
         from .utils.dense_to_multiview import dense_to_multiview
 

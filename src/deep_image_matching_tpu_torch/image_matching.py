@@ -21,6 +21,7 @@ kornia_matcher, adalam, superglue, roma, loftr, se2loftr and srif.
 from __future__ import annotations
 
 import logging
+import time
 from pathlib import Path
 from typing import List, Tuple
 
@@ -31,7 +32,7 @@ from .extractors.extractor_base import extractor_loader
 from .matchers.matcher_base import matcher_loader
 from .pairs_generator import PairsGenerator
 from .utils.image import ImageList
-from .utils.timer import Timer
+from .utils.profiler import span
 
 logger = logging.getLogger("dim_tpu_torch")
 
@@ -54,7 +55,8 @@ class ImageMatcher:
             )
         self.image_dir = Path(config.image_dir)
         self.output_dir = Path(config.output_dir)
-        self.image_list = ImageList(self.image_dir)
+        with span("setup.images"):
+            self.image_list = ImageList(self.image_dir)
         logger.info(f"Found {len(self.image_list)} images in {self.image_dir}")
 
         cfg_dict = {
@@ -65,31 +67,44 @@ class ImageMatcher:
         # LightGlue picks its weight set by feature type
         if "features" not in config.matcher:
             cfg_dict["matcher"]["features"] = ext
-        self.extractor = extractor_loader(extractors_pkg, ext)(cfg_dict)
-        self.matcher = matcher_loader(matchers_pkg, mat)(cfg_dict)
+        with span("setup.extractor"):
+            self.extractor = extractor_loader(extractors_pkg, ext)(cfg_dict)
+        with span("setup.matcher"):
+            self.matcher = matcher_loader(matchers_pkg, mat)(cfg_dict)
         logger.info(f"Pipeline: extractor={ext} matcher={mat} on {self.matcher.device}")
 
     def run(self) -> Tuple[Path, Path]:
-        """Full matching pipeline; returns (feature_path, match_path)."""
-        timer = Timer(logger=logger, cumulate_by_key=True)
-        pairs = self.generate_pairs()
-        timer.update("generate_pairs")
+        """Full matching pipeline; returns (feature_path, match_path). Each
+        stage is a span of ``utils/profiler.py`` (``pairs``, ``extract``,
+        ``match``; ``upright`` and ``rotate_back`` with ``general.upright``),
+        and their walls are logged on one ``[Timer]`` line."""
+        t0 = time.time()
+        walls = {}
+        with span("pairs") as s:
+            pairs = self.generate_pairs()
+        walls["generate_pairs"] = s.seconds
         upright = self.config.general.get("upright")
         if upright:
             from .upright import rotate_upright_images
 
-            self.rotated = rotate_upright_images(self.image_list, self.output_dir, self.config)
-            timer.update("upright")
-        feature_path = self.extract_features()
-        timer.update("extract_features")
-        match_path = self.match_pairs(pairs, feature_path)
-        timer.update("match_pairs")
+            with span("upright") as s:
+                self.rotated = rotate_upright_images(self.image_list, self.output_dir,
+                                                     self.config)
+            walls["upright"] = s.seconds
+        with span("extract") as s:
+            feature_path = self.extract_features()
+        walls["extract_features"] = s.seconds
+        with span("match") as s:
+            match_path = self.match_pairs(pairs, feature_path)
+        walls["match_pairs"] = s.seconds
         if upright:
             from .upright import rotate_back_features
 
-            rotate_back_features(feature_path, self.rotated)
-            timer.update("rotate_back")
-        timer.print("ImageMatcher")
+            with span("rotate_back") as s:
+                rotate_back_features(feature_path, self.rotated)
+            walls["rotate_back"] = s.seconds
+        parts = ", ".join(f"{k}={v:.3f}s" for k, v in walls.items())
+        logger.info(f"[Timer] | [ImageMatcher] {parts} (total={time.time() - t0:.3f}s)")
         return feature_path, match_path
 
     def generate_pairs(self) -> List[Tuple[str, str]]:
@@ -149,13 +164,15 @@ class ImageMatcher:
         if handoff is not None and not handoff.covers({n for p in pairs for n in p}):
             # a handoff of part of the images (a --resume that extracted the
             # missing ones): matching reads features.h5, so it must be whole
-            self.extractor.flush()
+            with span("wait.writer_join"):
+                self.extractor.flush()
             handoff = None
         self.matcher.device_handoff = handoff
         try:
             results = self.matcher.match_all(pairs, feature_path, match_path)
         finally:
-            self.extractor.flush()
+            with span("wait.writer_join"):
+                self.extractor.flush()
             # the handoff's device tensors are not needed after matching
             self.extractor.device_handoff = self.matcher.device_handoff = None
         kept = sum(1 for v in results.values() if v > 0)

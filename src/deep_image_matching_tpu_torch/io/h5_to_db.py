@@ -3,7 +3,11 @@
 Parity: reference ``io/h5_to_db.py:44-453`` — camera grouping from a
 cameras.yaml (glob patterns per cam group, single_camera logic), EXIF
 35mm-focal prior (1.2*max_size fallback), raw matches -> ``matches`` table,
-verified matches -> ``two_view_geometries``.
+verified matches -> ``two_view_geometries``. Spans (``utils/profiler.py``):
+``export`` around ``export_to_colmap``; inside it ``export.h5_read`` for each
+h5 file's open and each group or dataset read, ``export.camera`` for each
+camera made from an image's header and EXIF, ``export.db`` for the database's
+set-up, each image's rows, each pair's rows and the commit.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import numpy as np
 import yaml
 from PIL import ExifTags, Image as PILImage
 
+from ..utils.profiler import span
 from . import hdf5
 from .colmap_db import COLMAPDatabase, image_ids_to_pair_id
 
@@ -67,15 +72,16 @@ def create_camera(
     camera_model: str,
     param_arr=None,
 ) -> int:
-    with PILImage.open(image_path) as image:
-        width, height = image.size
-    if camera_model not in _CAMERA_MODELS:
-        raise RuntimeError(f"Invalid camera model {camera_model}")
-    model_id, default_params = _CAMERA_MODELS[camera_model]
-    if param_arr is None:
-        focal = get_focal(image_path)
-        param_arr = default_params(focal, width, height)
-    return db.add_camera(model_id, width, height, np.asarray(param_arr, np.float64))
+    with span("export.camera"):
+        with PILImage.open(image_path) as image:
+            width, height = image.size
+        if camera_model not in _CAMERA_MODELS:
+            raise RuntimeError(f"Invalid camera model {camera_model}")
+        model_id, default_params = _CAMERA_MODELS[camera_model]
+        if param_arr is None:
+            focal = get_focal(image_path)
+            param_arr = default_params(focal, width, height)
+        return db.add_camera(model_id, width, height, np.asarray(param_arr, np.float64))
 
 
 def parse_camera_options(
@@ -116,9 +122,10 @@ def add_keypoints(
     general = camera_options.get("general", DEFAULT_CAM_OPTIONS["general"])
     fname_to_id: Dict[str, int] = {}
     single_camera_id = None
-    with hdf5.File(h5_path, "r") as fd:
+    with _open_h5(h5_path) as fd:
         for filename in fd:
-            keypoints = np.asarray(fd[filename]["keypoints"])
+            with span("export.h5_read"):
+                keypoints = np.asarray(fd[filename]["keypoints"])
             path = Path(image_path) / filename
             if not path.exists():
                 raise OSError(f"Invalid image path {path}")
@@ -132,18 +139,26 @@ def add_keypoints(
                 camera_id = single_camera_id
             else:
                 camera_id = create_camera(db, path, general["camera_model"])
-            image_id = db.add_image(filename, camera_id)
-            fname_to_id[filename] = image_id
-            if keypoints.ndim >= 2 and len(keypoints) > 0:
-                db.add_keypoints(image_id, keypoints)
+            with span("export.db"):
+                image_id = db.add_image(filename, camera_id)
+                fname_to_id[filename] = image_id
+                if keypoints.ndim >= 2 and len(keypoints) > 0:
+                    db.add_keypoints(image_id, keypoints)
     return fname_to_id
+
+
+def _open_h5(h5_path) -> "hdf5.File":
+    """An h5 file open for reading (its root index read: ``export.h5_read``)."""
+    with span("export.h5_read"):
+        return hdf5.File(h5_path, "r")
 
 
 def _add_match_groups(db, h5_path, fname_to_id, two_view: bool) -> None:
     added = set()
-    with hdf5.File(h5_path, "r") as fd:
+    with _open_h5(h5_path) as fd:
         for key1 in fd:
-            group = fd[key1]
+            with span("export.h5_read"):
+                group = fd[key1]
             if not hasattr(group, "keys"):
                 continue
             for key2 in group:
@@ -152,11 +167,13 @@ def _add_match_groups(db, h5_path, fname_to_id, two_view: bool) -> None:
                 if pair_id in added:
                     logger.warning(f"Pair ({key1}, {key2}) already added, skipping")
                     continue
-                matches = np.asarray(group[key2])
-                if two_view:
-                    db.add_two_view_geometry(id1, id2, matches)
-                else:
-                    db.add_matches(id1, id2, matches)
+                with span("export.h5_read"):
+                    matches = np.asarray(group[key2])
+                with span("export.db"):
+                    if two_view:
+                        db.add_two_view_geometry(id1, id2, matches)
+                    else:
+                        db.add_matches(id1, id2, matches)
                 added.add(pair_id)
 
 
@@ -168,24 +185,28 @@ def export_to_colmap(
     camera_config_path: Optional[Path] = None,
 ) -> None:
     """Create a COLMAP database from the pipeline's h5 artifacts."""
-    database_path = Path(database_path)
-    if database_path.exists():
-        logger.warning(f"Database {database_path} exists - deleting it")
-        database_path.unlink()
-    if camera_config_path is not None:
-        with open(camera_config_path) as f:
-            camera_options = yaml.safe_load(f)
-    else:
-        camera_options = DEFAULT_CAM_OPTIONS
-    db = COLMAPDatabase.connect(database_path)
-    try:
-        db.create_tables()
-        fname_to_id = add_keypoints(db, Path(feature_path), Path(img_dir), camera_options)
-        raw_match_path = Path(match_path).parent / "raw_matches.h5"
-        if raw_match_path.exists():
-            _add_match_groups(db, raw_match_path, fname_to_id, two_view=False)
-        if Path(match_path).exists():
-            _add_match_groups(db, match_path, fname_to_id, two_view=True)
-        db.commit()
-    finally:
-        db.close()
+    with span("export"):
+        database_path = Path(database_path)
+        if database_path.exists():
+            logger.warning(f"Database {database_path} exists - deleting it")
+            database_path.unlink()
+        if camera_config_path is not None:
+            with open(camera_config_path) as f:
+                camera_options = yaml.safe_load(f)
+        else:
+            camera_options = DEFAULT_CAM_OPTIONS
+        with span("export.db"):
+            db = COLMAPDatabase.connect(database_path)
+        try:
+            with span("export.db"):
+                db.create_tables()
+            fname_to_id = add_keypoints(db, Path(feature_path), Path(img_dir), camera_options)
+            raw_match_path = Path(match_path).parent / "raw_matches.h5"
+            if raw_match_path.exists():
+                _add_match_groups(db, raw_match_path, fname_to_id, two_view=False)
+            if Path(match_path).exists():
+                _add_match_groups(db, match_path, fname_to_id, two_view=True)
+            with span("export.db"):
+                db.commit()
+        finally:
+            db.close()

@@ -7,7 +7,9 @@ whole batches still on the device (``put_device_batch``: the deferred write
 of the extract -> match handoff, one device -> host copy of the f16 batch
 on the writer thread while matching runs). Both write through
 ``io/hdf5.py``, which appends each dataset to the file as it is created and
-writes the group indexes on close.
+writes the group indexes on close. The writer thread's items are ``write``
+spans, its wait for a download ``sync.download``, and a ``put`` that blocks
+on the full queue ``wait.writer`` (``utils/profiler.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils.profiler import span
 from . import hdf5
 from .h5 import write_features
 
@@ -108,7 +111,8 @@ def _download(t, ready) -> np.ndarray:
         if ready is not None:
             stream.wait_event(ready)
         host.copy_(t, non_blocking=True)
-    stream.synchronize()
+    with span("sync.download"):
+        stream.synchronize()
     return host.numpy()
 
 
@@ -131,10 +135,11 @@ class AsyncFeatureWriter:
                 item = self._q.get()
                 if item is None:
                     return
-                if isinstance(item, _DeviceBatch):
-                    self._write_device_batch(fd, item)
-                else:
-                    write_features(fd, **item)
+                with span("write"):
+                    if isinstance(item, _DeviceBatch):
+                        self._write_device_batch(fd, item)
+                    else:
+                        write_features(fd, **item)
         except Exception as e:  # surfaced at close()
             self._error = e
             logger.error(f"Async feature write failed: {e}")
@@ -162,7 +167,8 @@ class AsyncFeatureWriter:
     def put(self, name: str, **arrays) -> None:
         if self._error is not None:
             raise RuntimeError("Async writer failed earlier") from self._error
-        self._q.put({"name": name, **arrays})
+        with span("wait.writer"):
+            self._q.put({"name": name, **arrays})
 
     def put_device_batch(self, names, kpts, desc_f16, scores_f16, image_size, counts,
                          tile_idx=None, ready=None) -> None:
@@ -171,8 +177,10 @@ class AsyncFeatureWriter:
         queued batch holds its device tensors until written."""
         if self._error is not None:
             raise RuntimeError("Async writer failed earlier") from self._error
-        self._q.put(_DeviceBatch(names, kpts, desc_f16, scores_f16, image_size, counts,
-                                 tile_idx, ready))
+        batch = _DeviceBatch(names, kpts, desc_f16, scores_f16, image_size, counts, tile_idx,
+                             ready)
+        with span("wait.writer"):
+            self._q.put(batch)
 
     def close(self) -> None:
         self._q.put(None)

@@ -56,8 +56,9 @@ from ..io import hdf5
 from ..io.h5 import get_features, list_h5_names
 from ..io.writer import MatchWriter
 from ..parallel.mesh import get_default_mesh
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, upload_blocking
 from ..utils.geometric_verification import geometric_verification
+from ..utils.profiler import device_span, span
 
 logger = logging.getLogger("dim_tpu_torch")
 
@@ -97,6 +98,14 @@ def _to_host_async(t: torch.Tensor):
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(t.device))
     return host, done
+
+
+def _in_span(name: str, fn):
+    """``fn`` with each call inside a span of ``name``."""
+    def call(*args):
+        with span(name):
+            return fn(*args)
+    return call
 
 
 class MatcherBase:
@@ -161,7 +170,10 @@ class MatcherBase:
         flight, and ``finish(chunk, dispatched)`` for each, in order. A chunk
         whose dispatch runs out of device memory is halved and retried
         synchronously; an out-of-memory error of a single pair and every
-        other exception propagate."""
+        other exception propagate. Each call of either is a span
+        (``match.dispatch``, ``match.finish``)."""
+        dispatch = _in_span("match.dispatch", dispatch)
+        finish = _in_span("match.finish", finish)
         window: list = []  # [(chunk, dispatched)]
         for start in range(0, len(pairs), bsz):
             chunk = pairs[start:start + bsz]
@@ -291,8 +303,9 @@ class BatchedMatcher(MatcherBase):
         if not pairs:
             return {}
         names = sorted({n for p in pairs for n in p})
-        store = _PaddedFeatureStore(feature_path, names, self.device, cache=self.feature_cache,
-                                    handoff=self.device_handoff)
+        with span("match.store"):
+            store = _PaddedFeatureStore(feature_path, names, self.device,
+                                        cache=self.feature_cache, handoff=self.device_handoff)
         tile_mode = self.config.get("general", {}).get("tile_selection", TileSelection.NONE)
         if tile_mode is not TileSelection.NONE and store.has_tiles:
             return self._match_all_tiled(pairs, store, matches_path, tile_mode)
@@ -323,30 +336,30 @@ class BatchedMatcher(MatcherBase):
         idx1 = [store.index[b] for _, b in chunk]
         if self.mesh.n_devices == 1:
             dev, table = self.device, store
-            ind0 = torch.as_tensor(idx0, device=dev)
-            ind1 = torch.as_tensor(idx1, device=dev)
+            ind0, ind1 = upload_blocking(idx0, dev), upload_blocking(idx1, dev)
             matches0, valid = self._match_batch_arrays(store.gather(ind0), store.gather(ind1))
         else:
             matches0, valid = self._match_sharded(store, idx0, idx1)
             dev = self.mesh.devices[0]
             table = store.replica(dev)
-            ind0 = torch.as_tensor(idx0, device=dev)
-            ind1 = torch.as_tensor(idx1, device=dev)
+            ind0, ind1 = upload_blocking(idx0, dev), upload_blocking(idx1, dev)
         inl = None
         if use_device_gv:
-            inl = ransac_fundamental_store_batch(
-                table.dev["keypoints"], ind0, ind1, matches0, valid,
-                self.gv_threshold * GV_QUALITY_SCALES[self.quality],
-                iters=int(self.tpu.get("ransac_iters", 2048)),
-                generator=torch.Generator(device=dev).manual_seed(0),
-            )
+            with device_span("ransac", dev):
+                inl = ransac_fundamental_store_batch(
+                    table.dev["keypoints"], ind0, ind1, matches0, valid,
+                    self.gv_threshold * GV_QUALITY_SCALES[self.quality],
+                    iters=int(self.tpu.get("ransac_iters", 2048)),
+                    generator=torch.Generator(device=dev).manual_seed(0),
+                )
         packed, done = _to_host_async(_pack_match_results(matches0, valid, inl))
         return idx0, idx1, packed, done, inl is not None
 
     def _finish_chunk(self, chunk, disp, store, matches_path, use_device_gv, results):
         idx0, idx1, packed, done, has_inl = disp
-        if done is not None:
-            done.synchronize()
+        with span("sync.result"):
+            if done is not None:
+                done.synchronize()
         packed = packed.numpy()
         matches0 = (packed & 0xFFFF).astype(np.int32)
         valid = ((packed >> 16) & 1).astype(bool)
@@ -427,18 +440,16 @@ class BatchedMatcher(MatcherBase):
                     store, [j[1] for j in chunk], [j[2] for j in chunk],
                     [j[3] for j in chunk], [j[4] for j in chunk])))
             dev = self.device
-            tiles = [torch.tensor([j[c] for j in chunk], dtype=torch.float32, device=dev)
-                     for c in (3, 4)]
-            batch0 = store.gather_tiled(torch.as_tensor([j[1] for j in chunk], device=dev),
-                                        tiles[0])
-            batch1 = store.gather_tiled(torch.as_tensor([j[2] for j in chunk], device=dev),
-                                        tiles[1])
+            tiles = [upload_blocking([j[c] for j in chunk], dev, torch.float32) for c in (3, 4)]
+            batch0 = store.gather_tiled(upload_blocking([j[1] for j in chunk], dev), tiles[0])
+            batch1 = store.gather_tiled(upload_blocking([j[2] for j in chunk], dev), tiles[1])
             return _to_host_async(_pack_match_results(*self._match_batch_arrays(batch0, batch1)))
 
         def finish(chunk, disp):
             packed, done = disp
-            if done is not None:
-                done.synchronize()
+            with span("sync.result"):
+                if done is not None:
+                    done.synchronize()
             packed = packed.numpy()
             matches0 = (packed & 0xFFFF).astype(np.int32)
             valid = ((packed >> 16) & 1).astype(bool)
@@ -509,14 +520,18 @@ class BatchedMatcher(MatcherBase):
                 matches0[b, m[:, 0]] = m[:, 1]
                 valid[b, m[:, 0]] = True
             dev = self.device
-            inl = ransac_fundamental_store_batch(
-                store.dev["keypoints"], torch.as_tensor([u[2] for u in chunk], device=dev),
-                torch.as_tensor([u[3] for u in chunk], device=dev),
-                torch.from_numpy(matches0).to(dev), torch.from_numpy(valid).to(dev),
-                self.gv_threshold * GV_QUALITY_SCALES[self.quality],
-                iters=int(self.tpu.get("ransac_iters", 2048)),
-                generator=torch.Generator(device=dev).manual_seed(0),
-            ).cpu().numpy()
+            ind0 = upload_blocking([u[2] for u in chunk], dev)
+            ind1 = upload_blocking([u[3] for u in chunk], dev)
+            matches0, valid = upload_blocking(matches0, dev), upload_blocking(valid, dev)
+            with device_span("ransac", dev):
+                inl = ransac_fundamental_store_batch(
+                    store.dev["keypoints"], ind0, ind1, matches0, valid,
+                    self.gv_threshold * GV_QUALITY_SCALES[self.quality],
+                    iters=int(self.tpu.get("ransac_iters", 2048)),
+                    generator=torch.Generator(device=dev).manual_seed(0),
+                )
+            with span("sync.result"):
+                inl = inl.cpu().numpy()
             masks.extend(inl[b][m[:, 0]] for b, (_, _, _, _, m) in enumerate(chunk))
         return masks
 
@@ -613,11 +628,11 @@ class _PaddedFeatureStore:
             if "image_size" in f:
                 self.image_size[i] = f["image_size"]
         self.dev = {
-            "keypoints": torch.from_numpy(self.kpts).to(device),
-            "descriptors": torch.from_numpy(desc).to(device),
-            "scores": torch.from_numpy(scores).to(device),
-            "mask": torch.from_numpy(mask).to(device),
-            "image_size": torch.from_numpy(self.image_size).to(device),
+            "keypoints": upload_blocking(self.kpts, device),
+            "descriptors": upload_blocking(desc, device),
+            "scores": upload_blocking(scores, device),
+            "mask": upload_blocking(mask, device),
+            "image_size": upload_blocking(self.image_size, device),
         }
         # per-keypoint tile indices (-1 on padding) where the features are
         # tiled, on the device for the tile-restricted gathers
@@ -627,7 +642,7 @@ class _PaddedFeatureStore:
             if "tile_idx" in f and counts[i] > 0:
                 tile_idx[i, :counts[i]] = f["tile_idx"]
                 self.has_tiles = True
-        self.tile_idx = torch.from_numpy(tile_idx).to(device)
+        self.tile_idx = upload_blocking(tile_idx, device)
 
     @staticmethod
     def _capacity(counts) -> int:
@@ -650,7 +665,7 @@ class _PaddedFeatureStore:
         self.kpts[:, :kpts.shape[1]] = kpts
         self.image_size = handoff.image_size[rows].astype(np.int32)
         dev = next(iter(handoff.dev.values())).device
-        ind = torch.from_numpy(rows).to(dev)
+        ind = upload_blocking(rows, dev)
 
         def fit(t, fill=0):
             t = t[ind][:, :cap]
@@ -660,7 +675,7 @@ class _PaddedFeatureStore:
 
         self.dev = {k: fit(handoff.dev[k]) for k in ("keypoints", "descriptors", "scores",
                                                      "mask")}
-        self.dev["image_size"] = torch.from_numpy(self.image_size).to(dev)
+        self.dev["image_size"] = upload_blocking(self.image_size, dev)
         self.has_tiles = "tile_idx" in handoff.dev
         if self.has_tiles:
             self.tile_idx = fit(handoff.dev["tile_idx"], -1.0)

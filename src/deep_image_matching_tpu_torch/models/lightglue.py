@@ -59,6 +59,8 @@ from ..ops.bidir_attention import bidir_cross_attention
 from ..ops.ffn import ffn_fused, ffn_weights_tf32, ffn_xla
 from ..ops.qkv import (qk_v_fused, qk_v_weights, qkv_rotary_fused, qkv_weights, rotate_half,
                        weights_tf32)
+from ..utils.device import upload_blocking
+from ..utils.profiler import count, span
 
 logger = logging.getLogger("dim_tpu_torch")
 
@@ -398,9 +400,10 @@ def filter_matches_static(scores, mask0, mask1, threshold: float):
     m1 = scores.argmax(dim=1)
     M = m0.shape[1]
     mutual0 = torch.arange(M, device=scores.device)[None] == torch.gather(m1, 1, m0)
-    mscores0 = torch.where(mutual0, torch.exp(max0), max0.new_tensor(0.0))
+    mscores0 = torch.where(mutual0, torch.exp(max0),
+                           upload_blocking(0.0, max0.device, max0.dtype))
     valid0 = mutual0 & (mscores0 > threshold) & mask0
-    matches0 = torch.where(valid0, m0, m0.new_tensor(-1)).int()
+    matches0 = torch.where(valid0, m0, upload_blocking(-1, m0.device, m0.dtype)).int()
     return matches0, mscores0, valid0
 
 
@@ -503,14 +506,17 @@ def forward_shards(shards, n_real=None, filter_threshold: float = 0.1,
         if do_stop and not last:
             flags = [run.confident(i, th, depth_confidence) for run in runs]
             dev = flags[0].device
-            stop = bool(flags[0] if len(flags) == 1
-                        else torch.stack([f.to(dev) for f in flags]).all())
+            flag = flags[0] if len(flags) == 1 else torch.stack([f.to(dev) for f in flags]).all()
+            with span("sync.exit_flag"):
+                stop = bool(flag)
         if do_prune and not last and not stop:
             for run in runs:
                 run.prune(i, th, width_confidence, pruning_min_kpts, do_stop)
         if stop:
             layers_run = i + 1
             break
+    count("lightglue.layers", layers_run * sum(
+        run.desc0.shape[0] if run.n_real is None else run.n_real for run in runs))
     return [run.result(layers_run, assignment_impl, filter_threshold) for run in runs]
 
 

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from ..ops.attention import fused_attention
 from ..ops.ffn import ffn_fused, ffn_weights_tf32
 from ..ops.sinkhorn import sinkhorn_fused
+from ..utils.device import upload_blocking
 
 logger = logging.getLogger("dim_tpu_torch")
 
@@ -214,7 +215,7 @@ def masked_log_optimal_transport(scores, mask0, mask1, alpha, iters: int) -> tor
     ms = mask0.sum(-1).float()
     ns = mask1.sum(-1).float()
     both = mask0[:, :, None] & mask1[:, None, :]
-    neg = scores.new_tensor(_NEG)
+    neg = upload_blocking(_NEG, scores.device, scores.dtype)
     alpha = alpha.float()
 
     bins0 = torch.where(mask0, alpha, neg)[:, :, None]
@@ -236,14 +237,16 @@ def _filter(scores, mask0, mask1, threshold: float):
     """Mutual argmax + threshold over the OT matrix without its dustbins.
     Returns matches0 (B, M) int32 (-1 = none), mscores0, valid0."""
     inner = scores[:, :-1, :-1]
-    inner = torch.where(mask0[:, :, None] & mask1[:, None, :], inner, inner.new_tensor(_NEG))
+    inner = torch.where(mask0[:, :, None] & mask1[:, None, :], inner,
+                        upload_blocking(_NEG, inner.device, inner.dtype))
     max0, m0 = inner.max(dim=2)
     m1 = inner.argmax(dim=1)
     idx = torch.arange(m0.shape[1], device=m0.device)[None]
     mutual0 = idx == torch.gather(m1, 1, m0)
-    mscores0 = torch.where(mutual0, torch.exp(max0), max0.new_tensor(0.0))
+    mscores0 = torch.where(mutual0, torch.exp(max0),
+                           upload_blocking(0.0, max0.device, max0.dtype))
     valid0 = mutual0 & (mscores0 > threshold) & mask0
-    matches0 = torch.where(valid0, m0, m0.new_tensor(-1)).int()
+    matches0 = torch.where(valid0, m0, upload_blocking(-1, m0.device, m0.dtype)).int()
     return matches0, mscores0, valid0
 
 

@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import upload_blocking
 from . import _lib
 
 _NEG = -1e30
@@ -150,7 +151,8 @@ def filter_matches_fused(md0, md1, z0, z1, mask0, mask1, threshold: float):
     M = arg0.shape[1]
     idx = torch.arange(M, device=arg0.device)[None]
     mutual0 = torch.gather(arg1, 1, arg0.clamp(min=0).long()) == idx
-    mscores0 = torch.where(mutual0, torch.exp(max0), max0.new_tensor(0.0))
+    mscores0 = torch.where(mutual0, torch.exp(max0),
+                           upload_blocking(0.0, max0.device, max0.dtype))
     valid0 = mutual0 & (mscores0 > threshold) & mask0
-    matches0 = torch.where(valid0, arg0, arg0.new_tensor(-1)).int()
+    matches0 = torch.where(valid0, arg0, upload_blocking(-1, arg0.device, arg0.dtype)).int()
     return matches0, mscores0, valid0

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiler import span
 from .nullspace import nullspace_planes
 
 
@@ -58,9 +59,12 @@ def _solve_f(A: torch.Tensor) -> torch.Tensor:
     rank-2 projection. A (B, N, 9) -> F (B, 3, 3). ``torch.linalg`` here, as
     the JAX package leaves this refit to XLA."""
     AtA = torch.einsum("bni,bnj->bij", A, A)
-    _, eigvecs = torch.linalg.eigh(AtA)
+    # on CUDA each of the two solvers reads its error flags to the host
+    with span("sync.eigh"):
+        _, eigvecs = torch.linalg.eigh(AtA)
     F = eigvecs[..., :, 0].reshape(-1, 3, 3)
-    U, S, Vh = torch.linalg.svd(F)
+    with span("sync.svd"):
+        U, S, Vh = torch.linalg.svd(F)
     S = S.clone()
     S[..., 2] = 0.0
     return U @ torch.diag_embed(S) @ Vh

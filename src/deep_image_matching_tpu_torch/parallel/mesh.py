@@ -37,7 +37,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device, to_device
+from ..utils.device import resolve_device, to_device, upload_blocking
 
 _DEFAULT_MESH: Optional["MeshRunner"] = None
 
@@ -100,7 +100,7 @@ class MeshRunner:
         x = self.pad_batch(x)
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x))
-        return [x[s].to(d) for d, s in self.slots(x.shape[0])]
+        return [upload_blocking(x[s], d) for d, s in self.slots(x.shape[0])]
 
     def replicate(self, tree, home: torch.device,
                   copy: Callable = to_device) -> Dict[torch.device, object]:

@@ -7,6 +7,8 @@ import contextlib
 
 import torch
 
+from .profiler import span
+
 
 def resolve_device(spec=None) -> torch.device:
     """``general.tpu.device``: "auto" (the default, or None) is the first
@@ -62,3 +64,12 @@ def to_device(tree, device: torch.device):
     if isinstance(tree, (list, tuple)):
         return [to_device(v, device) for v in tree]
     return tree.to(device)
+
+
+def upload_blocking(values, device: torch.device, dtype=None) -> torch.Tensor:
+    """Host values (a scalar, a list or an array) on ``device``, as
+    ``torch.as_tensor`` makes them: on CUDA a blocking copy from pageable
+    memory, which waits for the device's queue, so one host sync, recorded
+    as a ``sync.upload`` span (``utils/profiler.py``)."""
+    with span("sync.upload"):
+        return torch.as_tensor(values, dtype=dtype, device=device)

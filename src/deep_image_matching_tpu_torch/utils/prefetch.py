@@ -8,6 +8,8 @@ most ``DEPTH`` images ahead of the consumer, so decoding, uploads and the
 model overlap while the device holds only the images in flight. On CUDA an
 upload runs on a side stream from pinned host memory and records an event;
 the consumer's stream waits on that event on the device, not on the host.
+Each image's decode is a ``decode`` span on its worker thread, and the
+consumer's block on the pool a ``wait.decode`` span (``utils/profiler.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from .image import Image, read_image
+from .profiler import span
 
 WORKERS = 4
 DEPTH = 8
@@ -86,16 +89,18 @@ def prefetch_device_images(images: Sequence[Image], grayscale: bool,
     device = torch.device(device)
 
     def task(img: Image):
-        arr = read_image(img.path, grayscale=grayscale)
-        h0, w0 = arr.shape[:2]
-        arr = resize_fn(arr)
-        return upload(arr, device), tuple(arr.shape[:2]), (w0, h0)
+        with span("decode"):
+            arr = read_image(img.path, grayscale=grayscale)
+            h0, w0 = arr.shape[:2]
+            arr = resize_fn(arr)
+            return upload(arr, device), tuple(arr.shape[:2]), (w0, h0)
 
     todo = iter(images)
     pending = deque(_pool().submit(task, img) for img in itertools.islice(todo, DEPTH))
     try:
         while pending:
-            (tensor, event), cur_hw, orig_wh = pending.popleft().result()
+            with span("wait.decode"):
+                (tensor, event), cur_hw, orig_wh = pending.popleft().result()
             for img in itertools.islice(todo, 1):
                 pending.append(_pool().submit(task, img))
             yield _take(tensor, event), cur_hw, orig_wh

@@ -233,7 +233,8 @@ def test_visualization_equals_jax():
 def test_gui_flag_and_profiler_trace(tmp_path, monkeypatch):
     """``--gui`` returns the dialog's arguments (the dialog itself needs a
     display: it is replaced here), and ``DIM_TPU_PROFILE`` makes
-    ``run_matching`` write a Chrome trace of the matching stages."""
+    ``run_matching`` write a Chrome trace of the set-up, the matching
+    stages and the export, with the port's spans as annotations."""
     import json
     import sys
 
@@ -254,3 +255,6 @@ def test_gui_flag_and_profiler_trace(tmp_path, monkeypatch):
                   "config_file": str(cfg)})
     trace = json.loads((tmp_path / "trace" / "image_matching" / "trace.json").read_text())
     assert trace["traceEvents"]
+    # the port's spans appear over the operators, the export's included
+    named = {e.get("name") for e in trace["traceEvents"] if e.get("cat") == "user_annotation"}
+    assert {"setup", "setup.matcher", "match", "match.dispatch", "export", "export.db"} <= named
